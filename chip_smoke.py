@@ -1,0 +1,428 @@
+#!/usr/bin/env python3
+"""Drive the port's serving path once on one NVIDIA GPU.
+
+Run from the repository root, on a host with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+
+1. env      torch/CUDA versions, the card, its power limit.
+2. build    nvcc builds ``sml_tpu_torch/csrc/*.cu`` (timed).
+3. K1       ``transfer_rows_kernel`` against its plain PyTorch version at
+            the Yelp refresh shape (100,000 user + 20,000 item rows, d=64,
+            C1=10, C2=5, H=512), f32 and bf16 snapshots; times and bound.
+4. K2       ``masked_rank_kernel`` against its plain version at B=1024,
+            I=20,000, d=64, 999 distinct negatives per row: exact on
+            integer-valued tables, near-exact on random ones; times, bound
+            and a ``torch.matmul`` yardstick.
+5. slice    ``SMLEngine(device="cuda")`` with masked scoring: snapshot,
+            refresh (K1), a 16,384-row leave-one-out test (K2), then
+            ``recommend`` top-20 for 4 batches of 1024 users. The launch
+            counters are zeroed just before and read just after; the same
+            slice runs on the CPU through the plain versions and the two
+            are held together.
+6. the card's name and power limit as nvidia-smi prints them, the
+   ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, so the script exits non-zero and prints no
+result line. Without a CUDA device it exits 1 before doing anything. Bounds
+use the H100 SXM data sheet: 67 TFLOP/s f32 outside the tensor cores and
+3.35 TB/s HBM.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 without tensor cores
+PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
+
+N_USERS, N_ITEMS, DIM = 100_000, 20_000, 64
+C1, C2, HIDDEN = 10, 5, 512
+EVAL_ROWS, EVAL_BATCH, NEG = 16_384, 1024, 999
+SERVE_BATCHES, SERVE_K = 4, 20
+SEED = 2000
+
+# kernel vs plain tolerances on the card
+# K1: f32 sums over K = C2*d = 320 and H = 512 terms in another order
+K1_TOL = 1e-4
+# K2 on random tables: ranks move only where a negative's score lies
+# within f32 reduction-order rounding (~1e-6) of the target score
+K2_RANDOM_FLIPS_PER_16K = 1
+# slice, card vs CPU: hit counts per K may move by the rank flips above
+SLICE_HIT_TOL = 4
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def set_bits(words) -> int:
+    """Number of set bits in a tensor of packed int32 mask words."""
+    return sum(int(((words >> k) & 1).sum()) for k in range(32))
+
+
+def phase_env(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    emit({"phase": "env", "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi_line})
+    return smi_line
+
+
+def phase_build():
+    from sml_tpu_torch import _build
+    cached = _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.load_library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": str(_build.library_path().name),
+          "reused_cached_build": cached})
+
+
+def phase_k1(torch):
+    from sml_tpu_torch.config import TransferConfig
+    from sml_tpu_torch.models.transfer import init_transfer
+    from sml_tpu_torch.ops import transfer_kernel as tk
+
+    cfg = TransferConfig(latent_dim=DIM, conv1_channels=C1,
+                         conv2_channels=C2, fc_hidden=HIDDEN)
+    theta = init_transfer(torch.Generator().manual_seed(SEED), cfg,
+                          device="cuda")
+    g = torch.Generator().manual_seed(SEED + 11)
+    sides = []
+    for tower, n in ((theta.user, N_USERS), (theta.item, N_ITEMS)):
+        last = torch.randn(n, DIM, generator=g)
+        hat = last + 0.1 * torch.randn(n, DIM, generator=g)
+        last[:8] = 0.0          # zero-norm rows take the x_com guard
+        sides.append((tower, last.cuda(), hat.cuda()))
+
+    out = {"phase": "K1", "rows": N_USERS + N_ITEMS, "tolerance": K1_TOL}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        err = scale = 0.0
+        for tower, last, hat in sides:
+            got = tk.transfer_rows_cuda(tower, last.to(dtype), hat.to(dtype))
+            want = tk.transfer_rows_plain(tower, last.to(dtype),
+                                          hat.to(dtype))
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "K1 output not finite")
+            err = max(err, (got - want).abs().max().item())
+            scale = max(scale, want.abs().max().item())
+        name = "f32" if dtype == torch.float32 else "bf16"
+        out[f"max_abs_err_{name}"] = err
+        out[f"max_rel_err_{name}"] = err / scale
+        check(err <= K1_TOL * max(1.0, scale),
+              f"K1 {name} max abs err {err} over {K1_TOL}")
+        worst = max(worst, err)
+
+    def kernel():
+        for tower, last, hat in sides:
+            tk.transfer_rows_cuda(tower, last, hat)
+
+    def plain():
+        for tower, last, hat in sides:
+            tk.transfer_rows_plain(tower, last, hat)
+
+    out["ms"] = cuda_ms(torch, kernel, 20)
+    out["plain_ms"] = cuda_ms(torch, plain, 5)
+    n = N_USERS + N_ITEMS
+    # multiply-adds of the conv mixes and the two FCs, 2 operations each
+    flops = n * (2 * (3 * C1 + C1 * C2) * DIM
+                 + 2 * (C2 * DIM * HIDDEN + HIDDEN * DIM))
+    weights = sum(p.numel() for p in theta.parameters()) * 4
+    nbytes = 3 * n * DIM * 4 + weights
+    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
+    out["flops"], out["bytes"] = flops, nbytes
+    emit(out)
+    return {"max_abs_err": worst, "ms": out["ms"],
+            "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
+            "bound_by": out["bound_by"], "library_ms": None}
+
+
+def distinct_eval_rows(torch, n_rows: int, n_users: int, n_items: int,
+                       seed: int):
+    """(n_rows, 2 + NEG) int64 rows ``[user, pos, 999 negatives]`` with
+    distinct candidates per row, made on the card from a seed."""
+    import numpy as np
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    users = torch.randint(0, n_users, (n_rows, 1), generator=g,
+                          device="cuda")
+    parts = []
+    for s in range(0, n_rows, 2048):
+        r = min(2048, n_rows - s)
+        keys = torch.rand(r, n_items, generator=g, device="cuda")
+        parts.append(torch.topk(keys, 1 + NEG, dim=1).indices)
+    rows = torch.cat([users, torch.cat(parts)], dim=1)
+    return np.ascontiguousarray(rows.cpu().numpy().astype(np.int64))
+
+
+def phase_k2(torch):
+    from sml_tpu_torch.ops import eval_kernel as ek
+
+    ipad = ek.pad_items(N_ITEMS)
+    rows = torch.from_numpy(distinct_eval_rows(
+        torch, EVAL_ROWS, N_USERS, N_ITEMS, SEED + 21)).cuda()
+    masks = ek.build_packed_mask(rows[:, 2:], N_ITEMS)
+    check(set_bits(masks) == EVAL_ROWS * NEG,
+          "the packed masks do not hold one bit per distinct negative")
+    g = torch.Generator().manual_seed(SEED + 22)
+    out = {"phase": "K2", "B": EVAL_BATCH, "items": N_ITEMS, "I_pad": ipad,
+           "d": DIM}
+
+    # integer-valued tables: every score is exact, so ranks must be equal
+    ue_i = torch.randint(-2, 3, (EVAL_ROWS, DIM), generator=g).float().cuda()
+    it_i = torch.randint(-2, 3, (DIM, ipad), generator=g).float().cuda()
+    ss_i = torch.randint(-6, 7, (EVAL_ROWS, 1), generator=g).float().cuda()
+    # random tables, the target score as the evaluator computes it
+    ue_r = torch.randn(EVAL_ROWS, DIM, generator=g).cuda()
+    it_r = torch.randn(DIM, ipad, generator=g).cuda()
+    it_r[:, N_ITEMS:] = 0.0
+    ss_r = (ue_r * it_r.T[rows[:, 1]]).sum(dim=1, keepdim=True)
+
+    mismatch = {"int_f32": 0, "int_bf16": 0, "random_f32": 0}
+    max_diff = 0
+    for s in range(0, EVAL_ROWS, EVAL_BATCH):
+        sl = slice(s, s + EVAL_BATCH)
+        for name, ue, it, ss in (
+                ("int_f32", ue_i, it_i, ss_i),
+                ("int_bf16", ue_i.bfloat16(), it_i.bfloat16(), ss_i),
+                ("random_f32", ue_r, it_r, ss_r)):
+            got = ek.masked_rank_cuda(ue[sl], it, ss[sl], masks[sl])
+            want = ek.masked_rank_plain(ue[sl], it, ss[sl], masks[sl])
+            mismatch[name] += int((got != want).sum())
+            max_diff = max(max_diff, int((got - want).abs().max()))
+    torch.cuda.synchronize()
+    out["rows_compared"] = EVAL_ROWS
+    out["rank_mismatch"] = mismatch
+    out["max_abs_rank_diff"] = max_diff
+    check(mismatch["int_f32"] == 0 and mismatch["int_bf16"] == 0,
+          f"K2 ranks differ on integer tables: {mismatch}")
+    check(mismatch["random_f32"] <= K2_RANDOM_FLIPS_PER_16K,
+          f"K2 random-table flips {mismatch['random_f32']} over "
+          f"{K2_RANDOM_FLIPS_PER_16K} per {EVAL_ROWS} rows")
+
+    # time one launch per eval batch, cycling through the 16 batches
+    batches = [(ue_r[s:s + EVAL_BATCH], ss_r[s:s + EVAL_BATCH],
+                masks[s:s + EVAL_BATCH])
+               for s in range(0, EVAL_ROWS, EVAL_BATCH)]
+    nb = len(batches)
+
+    def kernel():
+        for ue, ss, m in batches:
+            ek.masked_rank_cuda(ue, it_r, ss, m)
+
+    def plain():
+        for ue, ss, m in batches:
+            ek.masked_rank_plain(ue, it_r, ss, m)
+
+    def library():
+        for ue, _, _ in batches:
+            torch.matmul(ue, it_r)
+
+    out["ms"] = cuda_ms(torch, kernel, 10) / nb
+    out["plain_ms"] = cuda_ms(torch, plain, 3) / nb
+    out["library_ms"] = cuda_ms(torch, library, 10) / nb
+    # per call, the mean over the timed batches: the function scores only
+    # the set mask bits, and reads ue, the item table, the mask and sstar
+    # and writes rank once each
+    flops = 2 * DIM * set_bits(masks) / nb
+    nbytes = (EVAL_BATCH * DIM + DIM * ipad) * 4 + EVAL_BATCH * ipad // 8 \
+        + 2 * EVAL_BATCH * 4
+    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
+    out["flops"], out["bytes"] = flops, nbytes
+    # the floor of this design, which scores every column densely
+    out["dense_design_flops"] = 2 * EVAL_BATCH * DIM * ipad
+    out["dense_design_bound_ms"] = bound_ms(out["dense_design_flops"],
+                                            nbytes)[0]
+    emit(out)
+    return {"max_abs_err": max_diff, "ms": out["ms"],
+            "plain_ms": out["plain_ms"],
+            "bound_ms": out["bound_ms"], "bound_by": out["bound_by"],
+            "library_ms": out["library_ms"]}
+
+
+def run_slice(torch, device: str, pretrained, hat_tables, test_rows,
+              serve_users):
+    """The serving path as a user drives it, on ``device``."""
+    from sml_tpu_torch.config import SMLConfig, yelp_sml
+    from sml_tpu_torch.eval.full_ranking import recommend
+    from sml_tpu_torch.models.mf import with_tables
+    from sml_tpu_torch.train.engine import SMLEngine
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    cfg: SMLConfig = yelp_sml().replace(eval_scoring="masked",
+                                        eval_batch_size=EVAL_BATCH)
+    engine = SMLEngine(cfg, N_USERS, N_ITEMS, device=device)
+    state = engine.init_state(pretrained_mf=pretrained)
+    state = engine.snapshot_last(state)
+    # Ŵ_t: the tables after the period's inner training
+    state = state._replace(mf=with_tables(
+        state.mf, hat_tables[0].to(device), hat_tables[1].to(device)))
+    state = engine.snapshot_hat(state)
+    sync()
+    times = {}
+    t0 = time.perf_counter()
+    state = engine.refresh(state)
+    sync()
+    times["refresh_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = engine.make_eval_set(test_rows, build_mask=True)
+    sync()
+    times["eval_set_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sums, n = engine.evaluate_deferred(state.mf, ev)
+    hits = {k: (float(h), float(nd)) for k, (h, nd) in sums.items()}
+    times["evaluate_s"] = time.perf_counter() - t0
+    metrics = engine.resolve_evals([(sums, n)])[0]
+    served = []
+    t0 = time.perf_counter()
+    for users in serve_users:
+        scores, items = recommend(state.mf, users, SERVE_K)
+        served.append((scores.cpu(), items.cpu()))
+    times["recommend_s"] = time.perf_counter() - t0
+    return state, ev, hits, metrics, served, times
+
+
+def phase_slice(torch):
+    from sml_tpu_torch.models.mf import MFParams
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+
+    g = torch.Generator().manual_seed(SEED + 31)
+    pretrained = MFParams(torch.randn(N_USERS, DIM, generator=g),
+                          torch.randn(N_ITEMS, DIM, generator=g),
+                          torch.zeros(N_USERS, 1), torch.zeros(N_ITEMS, 1))
+    hat_tables = (pretrained.user_emb
+                  + 0.1 * torch.randn(N_USERS, DIM, generator=g),
+                  pretrained.item_emb
+                  + 0.1 * torch.randn(N_ITEMS, DIM, generator=g))
+    test_rows = distinct_eval_rows(torch, EVAL_ROWS, N_USERS, N_ITEMS,
+                                   SEED + 32)
+    serve_users = [torch.randint(0, N_USERS, (EVAL_BATCH,), generator=g)
+                   for _ in range(SERVE_BATCHES)]
+
+    tk.transfer_rows_cuda.launches = 0
+    ek.masked_rank_cuda.launches = 0
+    state, ev, hits, metrics, served, times = run_slice(
+        torch, "cuda", pretrained, hat_tables, test_rows, serve_users)
+    launches = {"transfer_rows_kernel": tk.transfer_rows_cuda.launches,
+                "masked_rank_kernel": ek.masked_rank_cuda.launches}
+    n_batches = ev.rows.shape[0] // EVAL_BATCH
+    check(launches["transfer_rows_kernel"] == 2,
+          f"K1 launched {launches['transfer_rows_kernel']} times in one "
+          "refresh, expected 2")
+    check(launches["masked_rank_kernel"] == n_batches,
+          f"K2 launched {launches['masked_rank_kernel']} times for "
+          f"{n_batches} eval batches")
+
+    cpu_state, _, cpu_hits, cpu_metrics, cpu_served, cpu_times = run_slice(
+        torch, "cpu", pretrained, hat_tables, test_rows, serve_users)
+    tab_err = max(
+        (state.mf.user_emb.cpu() - cpu_state.mf.user_emb).abs().max().item(),
+        (state.mf.item_emb.cpu() - cpu_state.mf.item_emb).abs().max().item())
+    hit_diff = {k: abs(hits[k][0] - cpu_hits[k][0]) for k in hits}
+    score_err = max((a[0] - b[0]).abs().max().item()
+                    for a, b in zip(served, cpu_served))
+    ids_equal = sum(int((a[1] == b[1]).sum())
+                    for a, b in zip(served, cpu_served))
+    ids_total = sum(a[1].numel() for a in served)
+    for m in metrics.values():
+        check(all(0.0 <= v <= 1.0 for v in m.values()),
+              f"metric out of range: {metrics}")
+    check(tab_err <= K1_TOL, f"refreshed tables differ from the CPU run by "
+                             f"{tab_err}")
+    check(all(v <= SLICE_HIT_TOL for v in hit_diff.values()),
+          f"hit counts differ from the CPU run: {hit_diff}")
+    check(score_err <= 1e-3, f"served scores differ from the CPU run by "
+                             f"{score_err}")
+    check(ids_equal >= 0.999 * ids_total,
+          f"served ids equal for only {ids_equal}/{ids_total}")
+    emit({"phase": "slice", "users": N_USERS, "items": N_ITEMS,
+          "eval_rows": EVAL_ROWS, "eval_batches": n_batches,
+          "metrics": {str(k): v for k, v in metrics.items()},
+          "cpu_metrics": {str(k): v for k, v in cpu_metrics.items()},
+          "hit_diff_vs_cpu": {str(k): v for k, v in hit_diff.items()},
+          "table_max_abs_err_vs_cpu": tab_err,
+          "served_score_max_abs_err_vs_cpu": score_err,
+          "served_ids_equal": f"{ids_equal}/{ids_total}",
+          "launches": launches, "wall_s": times, "cpu_wall_s": cpu_times})
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs one CUDA card", file=sys.stderr)
+        return 1
+    # outside a checkout this import fails before anything is printed
+    import sml_tpu_torch  # noqa: F401
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    smi_line = phase_env(torch)
+    phase_build()
+    k1 = phase_k1(torch)
+    k2 = phase_k2(torch)
+    launches = phase_slice(torch)
+
+    kernels = [
+        {"name": "transfer_rows_kernel", "route": "cuda",
+         "source": "sml_tpu_torch/csrc/transfer_kernel.cu",
+         "replaces": "sml_tpu/ops/transfer_kernel.py:87",
+         "launches": launches["transfer_rows_kernel"], **k1},
+        {"name": "masked_rank_kernel", "route": "cuda",
+         "source": "sml_tpu_torch/csrc/eval_kernel.cu",
+         "replaces": "sml_tpu/ops/eval_kernel.py:159",
+         "launches": launches["masked_rank_kernel"], **k2},
+    ]
+    print(smi_line, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

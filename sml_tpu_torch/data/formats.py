@@ -1,0 +1,97 @@
+"""On-disk dataset format (numpy copy of ``sml_tpu/data/formats.py``).
+
+* ``<path>/information.npy``: ``[n_interactions, n_users, n_items]``
+* ``<path>/train/<p>.npy``:   ``(N, 2)`` int rows ``[user, item]``
+* ``<path>/test/<p>.npy``:    ``(M, 2 + neg)`` int rows ``[user, pos, negs...]``
+* optional ``<path>/test_new_user.npy`` / ``test_new_item.npy``
+
+Plain ``.npy`` files, so one dataset serves both packages.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class DatasetInfo:
+    n_interactions: int
+    n_users: int
+    n_items: int
+
+
+def load_info(path: str) -> DatasetInfo:
+    info = np.load(os.path.join(path, "information.npy"))
+    return DatasetInfo(int(info[0]), int(info[1]), int(info[2]))
+
+
+def load_test(path: str, period: int) -> Optional[np.ndarray]:
+    """Load one period's eval rows ``(M, 2 + neg)``; None if absent."""
+    f = os.path.join(path, "test", f"{period}.npy")
+    if not os.path.exists(f):
+        return None
+    return np.asarray(np.load(f), dtype=np.int64)
+
+
+def write_dataset(path: str,
+                  train_periods: Sequence[np.ndarray],
+                  test_periods: Dict[int, np.ndarray],
+                  info: DatasetInfo,
+                  new_user_ids: Optional[np.ndarray] = None,
+                  new_item_ids: Optional[np.ndarray] = None) -> None:
+    """Write a dataset in the reference layout."""
+    os.makedirs(os.path.join(path, "train"), exist_ok=True)
+    os.makedirs(os.path.join(path, "test"), exist_ok=True)
+    np.save(os.path.join(path, "information.npy"),
+            np.array([info.n_interactions, info.n_users, info.n_items],
+                     dtype=np.int64))
+    for p, arr in enumerate(train_periods):
+        np.save(os.path.join(path, "train", f"{p}.npy"),
+                np.asarray(arr, dtype=np.int64))
+    for p, arr in test_periods.items():
+        np.save(os.path.join(path, "test", f"{p}.npy"),
+                np.asarray(arr, dtype=np.int64))
+    if new_user_ids is not None:
+        np.save(os.path.join(path, "test_new_user.npy"),
+                np.asarray(new_user_ids, dtype=np.int64))
+    if new_item_ids is not None:
+        np.save(os.path.join(path, "test_new_item.npy"),
+                np.asarray(new_item_ids, dtype=np.int64))
+
+
+def attach_negatives(interactions: np.ndarray, history: np.ndarray,
+                     catalog: np.ndarray, neg_num: int,
+                     seed: int = 0) -> np.ndarray:
+    """Attach ``neg_num`` distinct negatives to each ``[user, item]`` row:
+    drawn from the seen-item ``catalog``, excluding the user's whole
+    ``history`` (all known (u, i) pairs), distinct within a row. Numpy
+    only: the JAX package's native C++ path is not part of the port, so
+    the draws differ from that path while the contract is the same."""
+    rng = np.random.default_rng(seed)
+    user_hist: Dict[int, set] = {}
+    for u, i in history:
+        user_hist.setdefault(int(u), set()).add(int(i))
+    out = np.empty((interactions.shape[0], 2 + neg_num), dtype=np.int64)
+    n_cat = catalog.shape[0]
+    for r, (u, i) in enumerate(interactions):
+        hist = user_hist.get(int(u), set())
+        # oversample then filter, growing the oversample on users whose
+        # history collides often
+        mult = 2
+        while True:
+            cand = catalog[rng.integers(0, n_cat, size=neg_num * mult + 64)]
+            cand = np.unique(cand)
+            if hist:
+                cand = cand[~np.isin(cand, list(hist))]
+            if cand.shape[0] >= neg_num:
+                break
+            mult *= 2
+        rng.shuffle(cand)
+        out[r, 0] = u
+        out[r, 1] = i
+        out[r, 2:] = cand[:neg_num]
+    return out

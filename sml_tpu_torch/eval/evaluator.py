@@ -1,0 +1,119 @@
+"""Batched leave-one-out evaluation (counterpart of
+``sml_tpu/eval/evaluator.py``).
+
+Scores every ``[user, pos, negs...]`` row, ranks the positive by a
+strictly-greater count and accumulates hit/NDCG sums for all requested K
+in one pass. Scoring modes (``scoring=``), same names and semantics as the
+JAX package:
+
+``gather``       gather the C+1 candidate rows per example and dot them
+                 (the reference semantics).
+``matmul``       score all items, ``(B,d)@(d,I)``, then pick the candidate
+                 columns; scores can differ from ``gather`` by f32 rounding.
+``gather_bf16``/
+``matmul_bf16``  the same with bf16 tables and f32 accumulation.
+``masked``/
+``masked_bf16``  rank against a packed negative-membership mask with
+                 kernel K2 (``ops/eval_kernel.py``); without a mask they
+                 fall back to ``matmul``/``matmul_bf16``, as in JAX.
+``auto``         ``masked`` when the eval set carries a mask, else
+                 ``gather``.
+
+Batches run as a Python loop; on the card each masked batch is one K2
+launch. Sums accumulate in f32 in batch order, as the JAX scan does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from sml_tpu_torch.models.mf import MFParams
+from sml_tpu_torch.ops import eval_kernel
+from sml_tpu_torch.ops.metrics import hits_and_ndcg_at, rank_of_target
+
+SCORING_MODES = ("gather", "matmul", "gather_bf16", "matmul_bf16",
+                 "masked", "masked_bf16", "auto")
+
+
+def _resolve_mode(scoring: str, n_items: int, n_cand: int,
+                  has_mask: bool) -> str:
+    if scoring == "auto":
+        return "masked" if has_mask else "gather"
+    if scoring not in SCORING_MODES:
+        raise ValueError(f"unknown eval scoring mode: {scoring!r}")
+    if scoring.startswith("masked") and not has_mask:
+        return "matmul_bf16" if scoring.endswith("bf16") else "matmul"
+    return scoring
+
+
+def _make_ranker(scoring: str):
+    """``(prep, rank)``: ``prep(mf) -> ctx`` once per eval (casts and the
+    transposed, padded item table), ``rank(ctx, rows, cand_mask) -> (B,)
+    int32`` per batch."""
+
+    def prep(mfp: MFParams):
+        ue_t, ie_t = mfp.user_emb, mfp.item_emb
+        if scoring.endswith("bf16"):
+            ue_t = ue_t.to(torch.bfloat16)
+            ie_t = ie_t.to(torch.bfloat16)
+        it_t = None
+        if scoring.startswith("masked") or scoring == "auto":
+            # (d, I_pad): the pad columns are never in a mask
+            ipad = eval_kernel.pad_items(ie_t.shape[0])
+            it_t = F.pad(ie_t, (0, 0, 0, ipad - ie_t.shape[0])).T.contiguous()
+        return ue_t, ie_t, it_t
+
+    def rank(ctx, r: torch.Tensor, cand_mask) -> torch.Tensor:
+        ue_t, ie_t, it_t = ctx
+        users, cand = r[:, 0].long(), r[:, 1:].long()
+        mode = _resolve_mode(scoring, ie_t.shape[0], cand.shape[1],
+                             cand_mask is not None)
+        if mode.startswith("masked"):
+            ue = ue_t[users]                                   # (B, d)
+            # target score as an f32 row dot; the mask covers negatives
+            # only, so the target never compares with itself
+            sstar = (ue.float() * ie_t[r[:, 1].long()].float()).sum(
+                dim=1, keepdim=True)
+            return eval_kernel.masked_rank(ue, it_t, sstar, cand_mask)
+        if mode.startswith("matmul"):
+            all_s = ue_t[users].float() @ ie_t.float().T       # (B, I)
+            return rank_of_target(torch.gather(all_s, 1, cand))
+        ue = ue_t[users].float()                               # (B, d)
+        ce = ie_t[cand].float()                                # (B, C, d)
+        return rank_of_target(torch.einsum("bd,bcd->bc", ue, ce))
+
+    return prep, rank
+
+
+def make_eval_fn(topks: Sequence[int], batch_size: int,
+                 scoring: str = "gather"):
+    """Build ``evaluate(mf, rows, mask, cand_mask=None) -> {K: (hit_sum,
+    ndcg_sum)}`` (0-d f32 tensors on the tables' device).
+
+    ``rows``: (n_pad, 2 + C) int32 with n_pad a multiple of ``batch_size``;
+    ``mask``: (n_pad,) validity; ``cand_mask``: optional (n_pad, words)
+    packed negative mask enabling the masked modes."""
+    topks = tuple(topks)
+    prep, rank_fn = _make_ranker(scoring)
+
+    def evaluate(mfp: MFParams, rows: torch.Tensor, mask: torch.Tensor,
+                 cand_mask: torch.Tensor = None
+                 ) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
+        with torch.no_grad():
+            ctx = prep(mfp)
+            zero = torch.zeros((), dtype=torch.float32,
+                               device=mfp.user_emb.device)
+            acc = {k: (zero, zero) for k in topks}
+            for s in range(0, rows.shape[0] - batch_size + 1, batch_size):
+                sl = slice(s, s + batch_size)
+                cm = None if cand_mask is None else cand_mask[sl]
+                res = hits_and_ndcg_at(rank_fn(ctx, rows[sl], cm), mask[sl],
+                                       topks)
+                acc = {k: (acc[k][0] + res[k][0], acc[k][1] + res[k][1])
+                       for k in topks}
+            return acc
+
+    return evaluate

@@ -1,0 +1,139 @@
+"""K2: masked leave-one-out ranking as a hand-written CUDA kernel.
+
+Replaces the Pallas TPU kernel ``sml_tpu/ops/eval_kernel.py``
+``masked_rank_pallas``. Each eval row ``[user, target, neg_1..neg_C]`` is
+ranked by the strictly-greater count of its negatives' scores over the
+target score, with the negatives given as a packed membership mask so the
+kernel streams the whole item table instead of gathering C rows per eval
+row, and the (B, I) score matrix is never written out. The function is
+bound by bytes (the item table and the mask); the kernel
+(``csrc/eval_kernel.cu``) scores every column densely in f32, and its
+source note gives both bounds and the design.
+
+Mask layout (bitplane packing, unchanged from the JAX package): items are
+grouped into blocks of ``I_BLK = 4096 = 32 planes x 128 lanes``; bit ``k``
+of word ``jb*128 + w`` marks item ``jb*4096 + k*128 + w``. The port holds
+the uint32 words in an int32 tensor (same bits; ``.numpy().view(np.uint32)``
+gives JAX's words), because PyTorch's bit operations cover int32 on every
+device.
+
+:func:`masked_rank` routes by device: a CUDA tensor launches the kernel
+(or raises), a CPU tensor takes :func:`masked_rank_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sml_tpu_torch import _build
+
+I_BLK = 4096          # items per mask block = PLANES * LANES
+PLANES = 32           # bits per mask word
+LANES = 128           # items per bit plane
+
+
+def pad_items(n_items: int) -> int:
+    """Item-axis padding so the mask/bitplane grid tiles exactly."""
+    return -(-n_items // I_BLK) * I_BLK
+
+
+def mask_words(n_items: int) -> int:
+    """uint32 words per row of the packed mask."""
+    return pad_items(n_items) // PLANES
+
+
+def build_packed_mask(neg: torch.Tensor, n_items: int,
+                      row_chunk: int = 1024) -> torch.Tensor:
+    """(B, C) negative ids -> (B, mask_words) packed mask (int32 storage of
+    the uint32 words).
+
+    A bit-set scatter: per chunk of rows, scatter True into a dense (rows,
+    I_pad) membership, then OR the 32 planes of each word together.
+    Repeated ids set the same bit once, as in the JAX package."""
+    B, _ = neg.shape
+    ipad = pad_items(n_items)
+    nblk = ipad // I_BLK
+    out = torch.empty((B, nblk * LANES), dtype=torch.int32, device=neg.device)
+    for s in range(0, B, row_chunk):
+        cd = neg[s:s + row_chunk].long()
+        hit = torch.zeros((cd.shape[0], ipad), dtype=torch.bool,
+                          device=neg.device)
+        hit.scatter_(1, cd, True)
+        planes = hit.view(-1, nblk, PLANES, LANES)
+        words = torch.zeros((cd.shape[0], nblk, LANES), dtype=torch.int64,
+                            device=neg.device)
+        for k in range(PLANES):
+            words |= planes[:, :, k, :].long() << k
+        # the uint32 bits, reinterpreted as int32
+        words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+        out[s:s + row_chunk] = words.view(-1, nblk * LANES).to(torch.int32)
+    return out
+
+
+def masked_rank_plain(ue: torch.Tensor, items_t: torch.Tensor,
+                      sstar: torch.Tensor,
+                      maskp: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: materializes the (B, I_pad) f32 scores (bf16
+    inputs are widened first, matching f32 accumulation), unpacks the mask
+    and counts. Returns (B,) int32."""
+    s = ue.float() @ items_t.float()                        # (B, ipad)
+    B, ipad = s.shape
+    nblk = ipad // I_BLK
+    s4 = s.view(B, nblk, PLANES, LANES)
+    w = maskp.view(B, nblk, 1, LANES)
+    shifts = torch.arange(PLANES, dtype=torch.int32,
+                          device=maskp.device).view(1, 1, PLANES, 1)
+    bits = ((w >> shifts) & 1) != 0
+    gt = s4 > sstar.reshape(B, 1, 1, 1)
+    return (bits & gt).sum(dim=(1, 2, 3)).to(torch.int32)
+
+
+def masked_rank_cuda(ue: torch.Tensor, items_t: torch.Tensor,
+                     sstar: torch.Tensor,
+                     maskp: torch.Tensor) -> torch.Tensor:
+    """Launch ``masked_rank_kernel`` once for the batch; (B,) int32."""
+    tensors = (ue, items_t, sstar, maskp)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("masked_rank_cuda takes CUDA tensors")
+    B, d = ue.shape
+    ipad = items_t.shape[1]
+    if items_t.shape[0] != d or ipad % I_BLK:
+        raise ValueError(f"items_t must be (d={d}, I_pad) with I_pad a "
+                         f"multiple of {I_BLK}, got {tuple(items_t.shape)}")
+    if ue.dtype != items_t.dtype or ue.dtype not in (torch.float32,
+                                                     torch.bfloat16):
+        raise ValueError(f"ue/items_t must both be float32 or bfloat16, got "
+                         f"{ue.dtype}/{items_t.dtype}")
+    if tuple(maskp.shape) != (B, ipad // PLANES) or maskp.dtype != torch.int32:
+        raise ValueError(f"maskp must be ({B}, {ipad // PLANES}) int32 "
+                         f"words, got {tuple(maskp.shape)} {maskp.dtype}")
+    if sstar.numel() != B:
+        raise ValueError(f"sstar must hold {B} target scores")
+    ue = ue.contiguous()
+    items_t = items_t.contiguous()
+    sstar = sstar.reshape(B).to(torch.float32).contiguous()
+    maskp = maskp.contiguous()
+    rank = torch.zeros((B,), dtype=torch.int32, device=ue.device)
+    lib = _build.load_library()
+    with torch.cuda.device(ue.device):
+        rc = lib.sml_masked_rank(
+            ue.data_ptr(), items_t.data_ptr(), int(ue.dtype == torch.bfloat16),
+            sstar.data_ptr(), maskp.data_ptr(), rank.data_ptr(),
+            B, d, ipad, _build.stream_of(ue))
+    _build.check(rc, "masked_rank_kernel")
+    masked_rank_cuda.launches += 1
+    return rank
+
+
+masked_rank_cuda.launches = 0
+
+
+def masked_rank(ue: torch.Tensor, items_t: torch.Tensor, sstar: torch.Tensor,
+                maskp: torch.Tensor) -> torch.Tensor:
+    """Rank counts: the CUDA kernel for tensors on the card, the plain
+    version for CPU tensors."""
+    if ue.is_cuda:
+        return masked_rank_cuda(ue, items_t, sstar, maskp)
+    if ue.device.type == "cpu":
+        return masked_rank_plain(ue, items_t, sstar, maskp)
+    raise ValueError(f"unsupported device {ue.device}")

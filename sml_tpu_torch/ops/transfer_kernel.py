@@ -1,0 +1,105 @@
+"""K1: the full-table transfer refresh as a hand-written CUDA kernel.
+
+Replaces the Pallas TPU kernel ``sml_tpu/ops/transfer_kernel.py``
+``fused_table_transfer``. The kernel (``csrc/transfer_kernel.cu``) runs the
+whole per-row chain ``x_com -> conv1 -> gelu -> conv2 -> gelu -> flatten ->
+fc1 -> gelu -> fc2`` with every intermediate in shared memory or registers,
+so HBM sees only ``last``, ``hat`` and the output. It is bound by
+operations (f32, ~403k per row at the Yelp shape); the source note in the
+``.cu`` file gives the bound and the design.
+
+:func:`fused_table_transfer` routes by device: a CUDA tensor launches the
+kernel (or raises), a CPU tensor takes :func:`transfer_rows_plain`, the
+plain PyTorch version of the same function. Forward only: gradients never
+flow through the full-table refresh.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sml_tpu_torch import _build
+from sml_tpu_torch.models.transfer import (ConvTower, build_x_com,
+                                           conv_tower_apply)
+
+MAX_D = 128    # the kernel's register tiles cover d <= 128
+MAX_C1 = 16
+
+
+def transfer_rows_plain(tower: ConvTower, last: torch.Tensor,
+                        hat: torch.Tensor,
+                        block_rows: int = 65536) -> torch.Tensor:
+    """Plain PyTorch Θ_side(last, hat) over all rows, blocked so the (R, H)
+    intermediates stay one block in size; rows are upcast to f32 per block
+    (snapshots may be stored bf16)."""
+    n, d = last.shape
+    out = torch.empty((n, d), dtype=torch.float32, device=last.device)
+    with torch.no_grad():
+        for s in range(0, n, block_rows):
+            x_t = last[s:s + block_rows].float()
+            x_hat = hat[s:s + block_rows].float()
+            stack = torch.stack([x_t, x_hat, build_x_com(x_t, x_hat)], dim=1)
+            out[s:s + block_rows] = conv_tower_apply(tower, stack)
+    return out
+
+
+def transfer_rows_cuda(tower: ConvTower, last: torch.Tensor,
+                       hat: torch.Tensor) -> torch.Tensor:
+    """Launch ``transfer_rows_kernel`` once over all N rows; (N, d) f32."""
+    if not (last.is_cuda and hat.is_cuda):
+        raise ValueError("transfer_rows_cuda takes CUDA tensors")
+    if last.shape != hat.shape or last.dim() != 2:
+        raise ValueError(f"last {tuple(last.shape)} and hat "
+                         f"{tuple(hat.shape)} must be the same (N, d)")
+    if last.dtype != hat.dtype or last.dtype not in (torch.float32,
+                                                     torch.bfloat16):
+        raise ValueError(f"last/hat must both be float32 or bfloat16, got "
+                         f"{last.dtype}/{hat.dtype}")
+    n, d = last.shape
+    c1 = tower.conv1_w.shape[0]
+    c2 = tower.conv2_w.shape[0]
+    h = tower.fc1_w.shape[1]
+    if d > MAX_D or c1 > MAX_C1:
+        raise ValueError(f"transfer_rows_kernel supports d <= {MAX_D} and "
+                         f"C1 <= {MAX_C1}; got d={d}, C1={c1}")
+    if tower.conv1_w.shape[1] != 3 or tower.fc1_w.shape[0] != c2 * d \
+            or tuple(tower.fc2_w.shape) != (h, d):
+        raise ValueError("tower shapes do not match a conv_com tower at "
+                         f"d={d}")
+    weights = [getattr(tower, f).detach()
+               for f in ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "fc1_w",
+                         "fc1_b", "fc2_w", "fc2_b")]
+    if any(w.device != last.device or w.dtype != torch.float32
+           for w in weights):
+        raise ValueError(f"the tower's parameters must be float32 on "
+                         f"{last.device}, like the rows; got "
+                         f"{sorted({str(w.device) for w in weights})} "
+                         f"{sorted({str(w.dtype) for w in weights})}")
+    weights = [w.contiguous() for w in weights]
+    last = last.contiguous()
+    hat = hat.contiguous()
+    out = torch.empty((n, d), dtype=torch.float32, device=last.device)
+    lib = _build.load_library()
+    with torch.cuda.device(last.device):
+        rc = lib.sml_transfer_rows(
+            last.data_ptr(), hat.data_ptr(), int(last.dtype == torch.bfloat16),
+            *[w.data_ptr() for w in weights], out.data_ptr(),
+            n, d, c1, c2, h, _build.stream_of(last))
+    _build.check(rc, "transfer_rows_kernel")
+    transfer_rows_cuda.launches += 1
+    return out
+
+
+transfer_rows_cuda.launches = 0
+
+
+def fused_table_transfer(tower: ConvTower, last: torch.Tensor,
+                         hat: torch.Tensor,
+                         block_rows: int = 65536) -> torch.Tensor:
+    """Θ_side(last, hat) over all N rows, (N, d) -> (N, d) f32: the CUDA
+    kernel for tensors on the card, the plain version for CPU tensors."""
+    if last.is_cuda:
+        return transfer_rows_cuda(tower, last, hat)
+    if last.device.type == "cpu":
+        return transfer_rows_plain(tower, last, hat, block_rows)
+    raise ValueError(f"unsupported device {last.device}")

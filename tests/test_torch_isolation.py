@@ -1,0 +1,142 @@
+"""The port stands alone: no JAX, no ``sml_tpu``, no quiet CPU fallback.
+
+* every module of ``sml_tpu_torch`` (and ``chip_smoke.py``) imports in a
+  fresh interpreter where ``jax``, ``jaxlib``, ``optax`` and ``sml_tpu``
+  cannot be imported;
+* no file of the port names them in an import statement (matched exactly:
+  ``sml_tpu`` and ``sml_tpu.*``, never the port's own ``sml_tpu_torch``);
+* an entry point called without ``device`` raises on a host without a GPU;
+* on CPU tensors the kernels' launch counters stay at 0.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "sml_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "sml_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_forbidden_matcher_is_exact():
+    assert _forbidden("sml_tpu") and _forbidden("sml_tpu.ops.metrics")
+    assert _forbidden("jax.numpy") and _forbidden("optax")
+    assert not _forbidden("sml_tpu_torch") and not _forbidden("jaxtyping")
+    assert not _forbidden("sml_tpu_torch.ops.eval_kernel")
+
+
+def test_port_sources_import_no_jax_or_reference():
+    offenders = []
+    for f in _port_files():
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{f.relative_to(ROOT)}:{node.lineno} {n}"
+                          for n in names if _forbidden(n)]
+    assert not offenders, offenders
+    assert len(_port_files()) > 15
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import importlib, pkgutil, sml_tpu_torch, chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    sml_tpu_torch.__path__, 'sml_tpu_torch.')\n"
+        "    if not m.name.endswith('__main__')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        f"           {FORBIDDEN!r} and sys.modules[m] is not None]\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_entry_points_default_to_cuda_and_raise_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from sml_tpu_torch import cli
+    from sml_tpu_torch.config import SMLConfig
+    from sml_tpu_torch.device import resolve_device
+    from sml_tpu_torch.train.engine import SMLEngine
+    from sml_tpu_torch.utils.checkpoint import state_from_checkpoint
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        SMLEngine(SMLConfig(), 10, 10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        state_from_checkpoint(str(tmp_path))
+    model = tmp_path / "m.npz"
+    np.savez(model, user_emb=np.zeros((3, 4), np.float32),
+             item_emb=np.zeros((5, 4), np.float32),
+             user_bias=np.zeros((3, 1), np.float32),
+             item_bias=np.zeros((5, 1), np.float32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["rank", "--model", str(model), "--users", "0"])
+    # the public constructors default to the card as well
+    from sml_tpu_torch.config import TransferConfig
+    from sml_tpu_torch.models.mf import init_mf
+    from sml_tpu_torch.models.transfer import init_transfer, theta_from_numpy
+    from sml_tpu_torch.ops.batching import pad_rows
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_mf(gen, 3, 5, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_transfer(gen, TransferConfig(latent_dim=4))
+    theta = init_transfer(gen, TransferConfig(latent_dim=4), device="cpu")
+    tree = {side: {f: p.detach().numpy()
+                   for f, p in getattr(theta, side).named_parameters()}
+            for side in ("user", "item")}
+    with pytest.raises(RuntimeError, match="cuda"):
+        theta_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pad_rows(np.zeros((3, 4), np.int64), 8)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_cpu_tensors_never_launch_kernels(synthetic_dataset):
+    from sml_tpu_torch.config import SMLConfig, TransferConfig
+    from sml_tpu_torch.data.formats import load_test
+    from sml_tpu_torch.ops import eval_kernel, transfer_kernel
+    from sml_tpu_torch.train.engine import SMLEngine
+
+    dspec, info, _ = synthetic_dataset
+    before = (transfer_kernel.transfer_rows_cuda.launches,
+              eval_kernel.masked_rank_cuda.launches)
+    cfg = SMLConfig(latent_dim=8, eval_scoring="masked", eval_batch_size=64,
+                    transfer=TransferConfig(latent_dim=8, fc_hidden=32))
+    eng = SMLEngine(cfg, info.n_users, info.n_items, device="cpu")
+    state = eng.refresh(eng.snapshot_last(eng.init_state()))
+    ev = eng.make_eval_set(load_test(dspec.path, dspec.online_test_start),
+                           build_mask=True)
+    assert ev.cand_mask is not None
+    eng.evaluate(state.mf, ev)
+    assert (transfer_kernel.transfer_rows_cuda.launches,
+            eval_kernel.masked_rank_cuda.launches) == before == (0, 0)
