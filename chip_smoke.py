@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's serving path once on one NVIDIA GPU.
+"""Drive the port's serving and training paths once on one NVIDIA GPU.
 
 Run from the repository root, on a host with one CUDA card:
 
@@ -22,8 +22,36 @@ Phases, one JSON line each:
             counters are zeroed just before and read just after; the same
             slice runs on the CPU through the plain versions and the two
             are held together.
-6. the card's name and power limit as nvidia-smi prints them, the
-   ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+6. K3       ``decay_adam_kernel`` against its plain version on the four
+            Yelp MF leaves ((100,000, 64), (20,000, 64), (100,000, 1),
+            (20,000, 1)) at step 7: ``mu``/``nu`` bit-equal, ``p`` within
+            rtol 1e-6 (and counted where not bit-equal); times per 4-leaf
+            step, bound, and a fused ``torch.optim.Adam`` yardstick.
+7. crossover one inner step at the Yelp shape with ``fast_table_adam`` on
+            (K3) and off (dense gradients), for the auto rule's crossover.
+8. train-lockstep  one replay-mode SML phase at full Yelp width on the
+            card and on the CPU: snapshot -> inner epoch (8 steps at
+            B=1024) -> snapshot -> refresh -> outer epoch (16 steps at
+            B=256) -> refresh. K3 launches 32, K1 launches 4; tables and Θ
+            within 1e-4 of the CPU run, per-batch losses within rtol 1e-5.
+9. train-sweep  ``SMLDriver`` (what ``python -m sml_tpu_torch sml`` runs)
+            on a seeded synthetic dataset written to a temporary
+            directory: 100,000 users, 20,000 items, 4 periods (one
+            warm-up, two test periods), 65,536 train and 16,384 test rows
+            per period, ``yelp_sml()`` with ``fast_table_adam`` and masked
+            scoring. Launch counts must equal those derived from the data
+            (K3 1,920, K1 126, K2 32); losses finite, metrics in [0, 1].
+            The data carry no signal, so training drives the loss to the
+            BCE saddle (2 ln 2) and the item rows together (scores tie,
+            and the strictly-greater rank then counts every target a
+            hit), as the JAX package does on such data; the line prints
+            the last outer loss, the item table's spread and each test
+            record.
+            With two test periods the summary's test side is empty (the
+            reference averages test periods [N3:-1]) and reads 0.
+10. the card's name and power limit as nvidia-smi prints them, the
+   ``kernels`` line (launches from the train-sweep run), and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits 1 before doing anything. Bounds
@@ -34,8 +62,12 @@ use the H100 SXM data sheet: 67 TFLOP/s f32 outside the tensor cores and
 from __future__ import annotations
 
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 without tensor cores
@@ -55,6 +87,17 @@ K1_TOL = 1e-4
 K2_RANDOM_FLIPS_PER_16K = 1
 # slice, card vs CPU: hit counts per K may move by the rank flips above
 SLICE_HIT_TOL = 4
+# K3: mu/nu bit-equal; p within this relative tolerance (expected exact)
+K3_RTOL = 1e-6
+K3_STEP = 7
+# train-lockstep, card vs CPU: Adam normalises each step, so gradient
+# rounding (sums in another order) moves a table element by at most
+# ~lr * (rounding / eps) per step; tables and Θ within this absolute
+# tolerance, per-batch losses within LOSS_RTOL
+TRAIN_ATOL = 1e-4
+LOSS_RTOL = 1e-5
+INNER_ROWS, OUTER_ROWS = 8192, 4096
+SWEEP_PERIODS, SWEEP_TRAIN_ROWS, SWEEP_TEST_ROWS = 4, 65_536, 16_384
 
 
 def emit(obj) -> None:
@@ -388,6 +431,339 @@ def phase_slice(torch):
     return launches
 
 
+def yelp_leaves(torch, seed: int):
+    """Seeded f32 (p, mu, nu) for the four MF leaves at the Yelp shape,
+    on the card."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for shape in ((N_USERS, DIM), (N_ITEMS, DIM), (N_USERS, 1),
+                  (N_ITEMS, 1)):
+        out.append(tuple(t.cuda() for t in (
+            torch.randn(shape, generator=g),
+            torch.randn(shape, generator=g) * 1e-2,
+            torch.rand(shape, generator=g) * 1e-4)))
+    return out
+
+
+def phase_k3(torch):
+    from sml_tpu_torch.config import yelp_sml
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.train.optim import (ADAM_B1, ADAM_B2, ADAM_EPS,
+                                           bias_corrections)
+
+    lr = yelp_sml().mf_lr
+    bc1, bc2 = bias_corrections(K3_STEP)
+    kw = dict(lr=lr, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
+    leaves = yelp_leaves(torch, SEED + 41)
+    n = sum(p.numel() for p, _, _ in leaves)
+    p_not_equal = 0
+    err = 0.0
+    for p, mu, nu in leaves:
+        got = [t.clone() for t in (p, mu, nu)]
+        want = [t.clone() for t in (p, mu, nu)]
+        ak.decay_adam_cuda(*got, bc1, bc2, **kw)
+        ak.decay_adam_plain(*want, bc1, bc2, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+              "K3 mu/nu differ from the plain version")
+        check(bool(torch.isfinite(got[0]).all()), "K3 p not finite")
+        check(torch.allclose(got[0], want[0], rtol=K3_RTOL, atol=0.0),
+              "K3 p outside rtol 1e-6 of the plain version")
+        p_not_equal += int((got[0] != want[0]).sum())
+        err = max(err, (got[0] - want[0]).abs().max().item())
+
+    def kernel():
+        for p, mu, nu in leaves:
+            ak.decay_adam_cuda(p, mu, nu, bc1, bc2, **kw)
+
+    def plain():
+        for p, mu, nu in leaves:
+            ak.decay_adam_plain(p, mu, nu, bc1, bc2, **kw)
+
+    params = [torch.nn.Parameter(p.clone()) for p, _, _ in leaves]
+    for q in params:
+        q.grad = torch.zeros_like(q)
+    lib_opt = torch.optim.Adam(params, lr=lr, fused=True)
+
+    out = {"phase": "K3", "elements": n, "step": K3_STEP,
+           "mu_nu_bit_equal": True, "p_not_bit_equal": p_not_equal,
+           "max_abs_err": err,
+           "ms": cuda_ms(torch, kernel, 50),
+           "plain_ms": cuda_ms(torch, plain, 20),
+           "library_ms": cuda_ms(torch, lib_opt.step, 50)}
+    # read and write p, mu, nu once each; 8 operations per element
+    flops, nbytes = 8 * n, 24 * n
+    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
+    out["flops"], out["bytes"] = flops, nbytes
+    emit(out)
+    return {k: out[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+
+
+def seeded_rows(n: int, seed: int):
+    """(n, 3) int64 ``[user, item, negative item]`` triples from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, N_USERS, n), rng.integers(0, N_ITEMS, n),
+                     rng.integers(0, N_ITEMS, n)], axis=1).astype(np.int64)
+
+
+def random_tables(torch, seed: int):
+    from sml_tpu_torch.models.mf import MFParams
+    g = torch.Generator().manual_seed(seed)
+    return MFParams(torch.randn(N_USERS, DIM, generator=g),
+                    torch.randn(N_ITEMS, DIM, generator=g),
+                    torch.randn(N_USERS, 1, generator=g),
+                    torch.randn(N_ITEMS, 1, generator=g))
+
+
+def phase_crossover(torch):
+    """One inner step at the Yelp shape with the row-sparse path (K3) and
+    with dense gradients; replay rows, so both run the same steps."""
+    from sml_tpu_torch.config import yelp_sml
+    from sml_tpu_torch.train.engine import SMLEngine
+
+    rows = seeded_rows(INNER_ROWS, SEED + 51)
+    pretrained = random_tables(torch, SEED + 52)
+    out = {"phase": "crossover", "rows": N_USERS + N_ITEMS,
+           "batch": yelp_sml().mf_batch_size,
+           "auto_rule": "fast iff rows >= 1,000,000 and batch <= 2048"}
+    for fast in (True, False, False, True):
+        cfg = yelp_sml().replace(replay_mode=True, fast_table_adam=fast)
+        eng = SMLEngine(cfg, N_USERS, N_ITEMS, device="cuda")
+        state = eng.snapshot_last(eng.init_state(pretrained_mf=pretrained))
+        padded, index = eng.prep_inner(rows)
+        state, _ = eng.inner_epoch(state, padded, index)      # warm-up
+        steps = -(-INNER_ROWS // cfg.mf_batch_size)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, _ = eng.inner_epoch(state, padded, index)
+        stop.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        name = "fast" if fast else "dense"
+        out.setdefault(f"{name}_step_ms", []).append(
+            start.elapsed_time(stop) / steps)
+        out.setdefault(f"{name}_step_wall_ms", []).append(wall)
+    emit(out)
+
+
+def kernel_counts(ak, tk, ek):
+    return {"decay_adam_kernel": ak.decay_adam_cuda.launches,
+            "transfer_rows_kernel": tk.transfer_rows_cuda.launches,
+            "masked_rank_kernel": ek.masked_rank_cuda.launches}
+
+
+def zero_counts(ak, tk, ek):
+    ak.decay_adam_cuda.launches = 0
+    tk.transfer_rows_cuda.launches = 0
+    ek.masked_rank_cuda.launches = 0
+
+
+def run_lockstep(torch, device: str, pretrained, inner_rows, outer_rows):
+    """One replay-mode SML phase as the engine's user drives it."""
+    from sml_tpu_torch.config import yelp_sml
+    from sml_tpu_torch.train.engine import SMLEngine
+
+    cfg = yelp_sml().replace(replay_mode=True, fast_table_adam=True)
+    eng = SMLEngine(cfg, N_USERS, N_ITEMS, device=device)
+    state = eng.snapshot_last(eng.init_state(pretrained_mf=pretrained))
+    state, il = eng.inner_epoch(state, *eng.prep_inner(inner_rows))
+    state = eng.refresh(eng.snapshot_hat(state))
+    state, ol = eng.outer_epoch(state, *eng.prep_outer(outer_rows))
+    state = eng.refresh(state)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return state, il.cpu(), ol.cpu()
+
+
+def phase_train_lockstep(torch):
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+
+    pretrained = random_tables(torch, SEED + 61)
+    inner_rows = seeded_rows(INNER_ROWS, SEED + 62)
+    outer_rows = seeded_rows(OUTER_ROWS, SEED + 63)
+    zero_counts(ak, tk, ek)
+    t0 = time.perf_counter()
+    gs, gil, gol = run_lockstep(torch, "cuda", pretrained, inner_rows,
+                                outer_rows)
+    card_s = time.perf_counter() - t0
+    launches = kernel_counts(ak, tk, ek)
+    inner_steps = -(-INNER_ROWS // 1024)
+    check(launches["decay_adam_kernel"] == 4 * inner_steps,
+          f"K3 launched {launches['decay_adam_kernel']} times in "
+          f"{inner_steps} fast inner steps, expected {4 * inner_steps}")
+    check(launches["transfer_rows_kernel"] == 4,
+          f"K1 launched {launches['transfer_rows_kernel']} times in two "
+          "refreshes, expected 4")
+    t0 = time.perf_counter()
+    cs, cil, col = run_lockstep(torch, "cpu", pretrained, inner_rows,
+                                outer_rows)
+    cpu_s = time.perf_counter() - t0
+    errs = {f"mf/{f}": (getattr(gs.mf, f).cpu() - getattr(cs.mf, f))
+            .abs().max().item() for f in gs.mf._fields}
+    tl_g, tl_c = theta_leaves(gs.theta), theta_leaves(cs.theta)
+    errs["theta"] = max((tl_g[k].detach().cpu() - tl_c[k].detach())
+                        .abs().max().item() for k in tl_g)
+    for name, (a, b) in {"inner": (gil, cil), "outer": (gol, col)}.items():
+        check(bool(torch.isfinite(a).all()), f"{name} losses not finite")
+        check(torch.allclose(a, b, rtol=LOSS_RTOL, atol=0.0),
+              f"{name} losses differ from the CPU run beyond rtol "
+              f"{LOSS_RTOL}: {(a - b).abs().max().item()}")
+    check(max(errs.values()) <= TRAIN_ATOL,
+          f"tables/Θ differ from the CPU run beyond {TRAIN_ATOL}: {errs}")
+    emit({"phase": "train-lockstep", "users": N_USERS, "items": N_ITEMS,
+          "inner_steps": inner_steps, "outer_steps": -(-OUTER_ROWS // 256),
+          "launches": launches, "max_abs_err_vs_cpu": errs,
+          "inner_loss_max_rel_err": ((gil - cil).abs() / cil.abs())
+          .max().item(),
+          "outer_loss_max_rel_err": ((gol - col).abs() / col.abs())
+          .max().item(),
+          "card_wall_s": card_s, "cpu_wall_s": cpu_s})
+    return launches
+
+
+def write_sweep_dataset(torch, root: str) -> None:
+    """The train-sweep dataset, in the reference layout: ids as int32,
+    made on the card from a seed."""
+    import numpy as np
+    path = os.path.join(root, "synth")
+    os.makedirs(os.path.join(path, "train"))
+    os.makedirs(os.path.join(path, "test"))
+    np.save(os.path.join(path, "information.npy"),
+            np.array([SWEEP_PERIODS * SWEEP_TRAIN_ROWS, N_USERS, N_ITEMS],
+                     dtype=np.int64))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    for p in range(SWEEP_PERIODS):
+        train = torch.stack([
+            torch.randint(0, N_USERS, (SWEEP_TRAIN_ROWS,), generator=g,
+                          device="cuda"),
+            torch.randint(0, N_ITEMS, (SWEEP_TRAIN_ROWS,), generator=g,
+                          device="cuda")], dim=1)
+        np.save(os.path.join(path, "train", f"{p}.npy"),
+                train.to(torch.int32).cpu().numpy())
+        test = distinct_eval_rows(torch, SWEEP_TEST_ROWS, N_USERS, N_ITEMS,
+                                  SEED + 72 + p)
+        np.save(os.path.join(path, "test", f"{p}.npy"),
+                test.astype(np.int32))
+
+
+def expected_sweep_launches(spec, cfg, feeder_rows, eval_batches) -> dict:
+    """K3, K1 and K2 launches the sweep must make, from the data:
+    ``feeder_rows(kind, period)`` gives a period file's row count,
+    ``eval_batches(rows)`` the batches of its padded eval set."""
+    k3 = k1 = k2 = 0
+    d_time = 0
+    while spec.online_train_start + d_time + 1 < spec.num_periods:
+        t = spec.online_train_start + d_time
+        steps = -(-feeder_rows("test" if cfg.mf_sample == "all" else "train",
+                               t) // cfg.mf_batch_size)
+        k3 += 4 * steps * cfg.mf_epochs * cfg.multi_num
+        # a refresh after each phase's inner block and outer epoch, and
+        # one at the period's end; two K1 launches per refresh
+        k1 += 2 * (cfg.multi_num * (1 + cfg.tr_epochs) + 1)
+        if t + 1 >= spec.online_test_start:
+            # branch C tests test/(t+1), one K2 launch per padded batch
+            k2 += eval_batches(feeder_rows("test", t + 1))
+        d_time += 1
+    return {"decay_adam_kernel": k3, "transfer_rows_kernel": k1,
+            "masked_rank_kernel": k2}
+
+
+def phase_train_sweep(torch):
+    from sml_tpu_torch.config import DataSpec, yelp_sml
+    from sml_tpu_torch.data.formats import row_count
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops.batching import bucket_rows
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+    from sml_tpu_torch.train.driver import SMLDriver
+    from sml_tpu_torch.utils.logging import MetricsLogger
+
+    root = tempfile.mkdtemp(prefix="sml_sweep_")
+    try:
+        t0 = time.perf_counter()
+        write_sweep_dataset(torch, root)
+        data_s = time.perf_counter() - t0
+        spec = DataSpec(root=root, name="synth", num_periods=SWEEP_PERIODS,
+                        online_train_start=0, online_test_start=2)
+        cfg = yelp_sml().replace(fast_table_adam=True, eval_scoring="masked")
+        logger = MetricsLogger(os.path.join(root, "metrics.jsonl"))
+        driver = SMLDriver(cfg, spec, logger=logger, device="cuda")
+        eng = driver.engine
+        bound = eng.shape_targets.get("eval", 0)
+        want = expected_sweep_launches(
+            spec, cfg, lambda kind, p: row_count(spec.path, kind, p),
+            lambda n: max(bucket_rows(n, cfg.eval_batch_size),
+                          bucket_rows(bound, cfg.eval_batch_size))
+            // cfg.eval_batch_size)
+        step_ms = {"inner": [], "outer": []}
+        losses = []
+
+        def timed(kind, fn, batch):
+            def run(state, padded, index):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, lo = fn(state, padded, index)
+                torch.cuda.synchronize()
+                steps = -(-padded.n_real // batch)
+                step_ms[kind].append((time.perf_counter() - t) * 1e3 / steps)
+                losses.append(lo[:steps])
+                return state, lo
+            return run
+
+        eng.inner_epoch = timed("inner", eng.inner_epoch, cfg.mf_batch_size)
+        eng.outer_epoch = timed("outer", eng.outer_epoch, cfg.tr_batch_size)
+        state = eng.init_state(pretrained_mf=random_tables(torch, SEED + 81))
+        zero_counts(ak, tk, ek)
+        t0 = time.perf_counter()
+        report = driver.run(state)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = kernel_counts(ak, tk, ek)
+        driver.close()
+        logger.close()
+        check(launches == want, f"sweep launches {launches}, derived from "
+                                f"the data {want}")
+        check(all(bool(torch.isfinite(lo).all()) for lo in losses),
+              "a training loss is not finite")
+        summary = report.summary()
+        metrics = {k: v for k, v in summary.items() if k != "total_seconds"}
+        check(bool(metrics) and all(0.0 <= v <= 1.0
+                                    for v in metrics.values()),
+              f"summary metrics out of [0, 1]: {summary}")
+        with open(os.path.join(root, "metrics.jsonl")) as fh:
+            tests = [{k: r[k] for k in ("period", "n_test", "recall@5",
+                                        "recall@20")}
+                     for r in map(json.loads, fh) if r["kind"] == "test"]
+        check(len(tests) == 2 and all(0.0 <= t["recall@20"] <= 1.0
+                                      for t in tests),
+              f"expected two test records in [0, 1]: {tests}")
+        item_spread = driver.final_state.mf.item_emb.std(dim=0).mean()
+        emit({"phase": "train-sweep", "users": N_USERS, "items": N_ITEMS,
+              "periods": SWEEP_PERIODS, "train_rows": SWEEP_TRAIN_ROWS,
+              "test_rows": SWEEP_TEST_ROWS, "data_s": data_s,
+              "sweep_s": sweep_s, "period_s": report.period_seconds,
+              "inner_epochs": len(step_ms["inner"]),
+              "outer_epochs": len(step_ms["outer"]),
+              "inner_step_ms": sum(step_ms["inner"]) / len(step_ms["inner"]),
+              "outer_step_ms": sum(step_ms["outer"]) / len(step_ms["outer"]),
+              "launches": launches, "derived_launches": want,
+              "last_outer_loss": float(losses[-1].mean()),
+              "bce_saddle": 2 * math.log(2.0),
+              "final_item_spread": float(item_spread),
+              "tests": tests, "summary": summary})
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -404,7 +780,11 @@ def main() -> int:
     phase_build()
     k1 = phase_k1(torch)
     k2 = phase_k2(torch)
-    launches = phase_slice(torch)
+    phase_slice(torch)
+    k3 = phase_k3(torch)
+    phase_crossover(torch)
+    phase_train_lockstep(torch)
+    launches = phase_train_sweep(torch)
 
     kernels = [
         {"name": "transfer_rows_kernel", "route": "cuda",
@@ -415,6 +795,10 @@ def main() -> int:
          "source": "sml_tpu_torch/csrc/eval_kernel.cu",
          "replaces": "sml_tpu/ops/eval_kernel.py:159",
          "launches": launches["masked_rank_kernel"], **k2},
+        {"name": "decay_adam_kernel", "route": "cuda",
+         "source": "sml_tpu_torch/csrc/adam_kernel.cu",
+         "replaces": "sml_tpu/ops/adam_kernel.py:71",
+         "launches": launches["decay_adam_kernel"], **k3},
     ]
     print(smi_line, flush=True)
     emit({"kernels": kernels})

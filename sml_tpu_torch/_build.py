@@ -31,6 +31,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
 # C signatures: name -> argtypes (every entry returns int, a cudaError_t)
 SIGNATURES = {
     # last, hat, in_bf16, conv1_w, conv1_b, conv2_w, conv2_b, fc1_w, fc1_b,
@@ -38,6 +40,8 @@ SIGNATURES = {
     "sml_transfer_rows": [_P, _P, _I] + [_P] * 9 + [_I] * 5 + [_P],
     # ue, items_t, in_bf16, sstar, maskp, rank, B, d, ipad, stream
     "sml_masked_rank": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # p, mu, nu, n, vec, lr, b1, b2, eps, bc1, bc2, stream
+    "sml_decay_adam": [_P, _P, _P, _L, _I] + [_F] * 6 + [_P],
 }
 
 

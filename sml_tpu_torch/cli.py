@@ -1,22 +1,163 @@
 """Command-line entry point (counterpart of ``sml_tpu/cli.py``).
 
+    python -m sml_tpu_torch synth --out D/synth --users 400 --items 200 ...
+    python -m sml_tpu_torch sml --data-root D --data-name synth ...
     python -m sml_tpu_torch rank --model final.npz --users 17,42 -k 20
-    python -m sml_tpu_torch --device cpu rank --model final.npz --users 0,1
+    python -m sml_tpu_torch --device cpu sml --data-root D ...
 
-``rank`` takes the same flags and prints the same JSON lines as
-``python -m sml_tpu rank``; ``--device {cuda,cpu}`` (before the subcommand)
-takes the place of ``--platform`` and defaults to ``cuda``.
-The training subcommands come with the training slice.
+``sml``, ``synth`` and ``rank`` take the same flags and print the same JSON
+as ``python -m sml_tpu``; ``--device {cuda,cpu}`` (before the subcommand)
+takes the place of ``--platform`` and defaults to ``cuda``. The multi-host
+options, ``pretrain``, ``baseline`` and ``ingest`` come with later slices
+(ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
+from sml_tpu_torch import config as C
+
 DEVICE_HELP = ("device to run on (default cuda; a host without a GPU "
                "raises unless --device cpu is given)")
+
+
+def _dataspec(args) -> C.DataSpec:
+    if args.data_name == "yelp":
+        return C.yelp_data(args.data_root)
+    if args.data_name in ("news", "adressa"):
+        return C.adressa_data(args.data_root)
+    return C.DataSpec(root=args.data_root, name=args.data_name,
+                      num_periods=args.num_periods,
+                      online_train_start=args.online_train_start,
+                      online_test_start=args.online_test_start)
+
+
+def _add_data_args(p):
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--data-name", default="yelp")
+    p.add_argument("--num-periods", type=int, default=40)
+    p.add_argument("--online-train-start", type=int, default=10)
+    p.add_argument("--online-test-start", type=int, default=30)
+    p.add_argument("--metrics-jsonl", default=None,
+                   help="write structured metrics to this jsonl file")
+    p.add_argument("--checkpoint-dir", default=None)
+
+
+def _load_mf(path: str, device):
+    import numpy as np
+    import torch
+
+    from sml_tpu_torch.models.mf import MFParams
+    with np.load(path) as blob:
+        return MFParams(*(torch.from_numpy(np.asarray(blob[f])).to(device)
+                          for f in MFParams._fields))
+
+
+def cmd_sml(args) -> int:
+    """The SML sweep, with period-boundary checkpoints and resume."""
+    import numpy as np
+
+    from sml_tpu_torch.device import resolve_device
+    from sml_tpu_torch.train.driver import RunReport, SMLDriver
+    from sml_tpu_torch.utils.checkpoint import (latest_step, read_manifest,
+                                                save_checkpoint,
+                                                state_from_checkpoint)
+    from sml_tpu_torch.utils.logging import MetricsLogger
+
+    device = resolve_device(args.device)
+    spec = _dataspec(args)
+    preset = C.adressa_sml() if spec.name == "news" else C.yelp_sml()
+
+    def pick(value, default):
+        return value if value is not None else default
+    cfg = preset.replace(
+        multi_num=pick(args.multi_num, preset.multi_num),
+        mf_epochs=pick(args.mf_epochs, preset.mf_epochs),
+        tr_epochs=pick(args.tr_epochs, preset.tr_epochs),
+        mf_lr=args.mf_lr, mf_l2=args.mf_l2, tr_lr=args.tr_lr,
+        tr_l2=args.tr_l2, latent_dim=args.latent,
+        # the com2/com3 tower of the reference is 1024 wide, conv_com 512
+        transfer=C.TransferConfig(
+            latent_dim=args.latent, kind=args.transfer_type,
+            fc_hidden=1024 if args.transfer_type == "conv_com_root" else 512),
+        mf_sample=args.mf_sample, tr_sample_type=args.tr_sample_type,
+        tr_stop=args.tr_stop, load_w_hat=args.load_w_hat,
+        pass_num=args.pass_num, seed=args.seed,
+        attributed_eval=args.attributed_eval,
+        uniform_shapes=not args.per_period_shapes,
+        emb_init_scale=args.emb_init_scale,
+        eval_during_inner=args.eval_during_inner,
+        eval_during_outer=args.eval_during_outer,
+        eval_scoring=args.eval_scoring,
+        theta_warmstart_steps=args.theta_warmstart,
+        saddle_retries=args.saddle_retries,
+        snapshot_dtype=args.snapshot_dtype,
+        profile_dir=args.profile_dir)
+
+    logger = MetricsLogger(args.metrics_jsonl, echo=True)
+    driver = SMLDriver(cfg, spec, logger=logger, device=device)
+    try:
+        engine = driver.engine
+        resume_step = (latest_step(args.checkpoint_dir)
+                       if args.checkpoint_dir else None)
+        start_pass, start_period = 0, 0
+        if resume_step is not None:
+            state = state_from_checkpoint(args.checkpoint_dir, device=device)
+            extra = read_manifest(args.checkpoint_dir).get("extra", {})
+            start_pass = int(extra.get("pass_id", 0))
+            start_period = int(extra.get("period", resume_step)) + 1
+            if "report" in extra:
+                driver.report = RunReport.from_dict(extra["report"])
+            print(f"resumed at pass {start_pass} period {start_period}",
+                  file=sys.stderr)
+        else:
+            pretrained = (_load_mf(args.pre_model, device)
+                          if args.pre_model else None)
+            state = engine.init_state(pretrained_mf=pretrained)
+
+        def on_period_end(st, pass_id, d_time, drv):
+            if not args.checkpoint_dir:
+                return
+            # drain the deferred tests first, so the checkpointed report
+            # covers every completed test period
+            drv.finalize()
+            save_checkpoint(args.checkpoint_dir,
+                            pass_id * spec.num_periods + d_time, st,
+                            extra={"pass_id": pass_id, "period": d_time,
+                                   "report": drv.report.to_dict()})
+
+        driver.run(state, start_pass=start_pass, start_period=start_period,
+                   on_period_end=on_period_end)
+    finally:
+        driver.close()
+        logger.close()
+    state = driver.final_state
+    if args.save_model:
+        np.savez(args.save_model,
+                 **{f: getattr(state.mf, f).detach().cpu().numpy()
+                    for f in ("user_emb", "item_emb", "user_bias",
+                              "item_bias")})
+        print(f"saved final tables to {args.save_model}", file=sys.stderr)
+    print(json.dumps(driver.report.summary(), indent=2))
+    return 0
+
+
+def cmd_synth(args) -> int:
+    from sml_tpu_torch.data.synthetic import (SyntheticSpec,
+                                              generate_synthetic_dataset)
+
+    spec = SyntheticSpec(n_users=args.users, n_items=args.items,
+                         n_periods=args.periods,
+                         interactions_per_period=args.interactions,
+                         first_test_period=args.first_test,
+                         neg_num=args.neg_num, seed=args.seed)
+    info = generate_synthetic_dataset(args.out, spec)
+    print(json.dumps(dataclasses.asdict(info)))
+    return 0
 
 
 def cmd_rank(args) -> int:
@@ -26,12 +167,9 @@ def cmd_rank(args) -> int:
 
     from sml_tpu_torch.device import resolve_device
     from sml_tpu_torch.eval.full_ranking import recommend
-    from sml_tpu_torch.models.mf import MFParams
 
     device = resolve_device(args.device)
-    with np.load(args.model) as blob:
-        mf = MFParams(*(torch.from_numpy(np.asarray(blob[f])).to(device)
-                        for f in MFParams._fields))
+    mf = _load_mf(args.model, device)
 
     if args.users:
         users = np.asarray([int(u) for u in args.users.split(",")], np.int64)
@@ -69,6 +207,75 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help=DEVICE_HELP)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    ps = sub.add_parser("sml", help="run the SML sequential-retraining sweep")
+    _add_data_args(ps)
+    ps.add_argument("--pre-model", default=None,
+                    help=".npz from `pretrain` (reference --pre_model)")
+    ps.add_argument("--save-model", default=None,
+                    help="write the final transferred tables as .npz "
+                         "(consumable by `rank`)")
+    ps.add_argument("--multi-num", type=int, default=None)
+    ps.add_argument("--mf-epochs", type=int, default=None)
+    ps.add_argument("--tr-epochs", type=int, default=None)
+    ps.add_argument("--mf-lr", type=float, default=0.01)
+    ps.add_argument("--mf-l2", type=float, default=1e-6)
+    ps.add_argument("--tr-lr", type=float, default=0.001)
+    ps.add_argument("--tr-l2", type=float, default=1e-4)
+    ps.add_argument("--latent", type=int, default=64)
+    ps.add_argument("--mf-sample", default="all", choices=["all", "alone"])
+    ps.add_argument("--tr-sample-type", default="alone",
+                    choices=["all", "alone"])
+    ps.add_argument("--tr-stop", action="store_true")
+    ps.add_argument("--transfer-type", default="conv_com",
+                    choices=["conv_com", "conv2ch", "conv_com_root",
+                             "mlp_delta", "linear", "gru", "gated"],
+                    help="only conv_com is ported; the others raise")
+    ps.add_argument("--seed", type=int, default=2000)
+    ps.add_argument("--load-w-hat", action="store_true",
+                    help="restore MF <- W_hat after each outer step "
+                         "(reference --Load_W_hat)")
+    ps.add_argument("--pass-num", type=int, default=1)
+    ps.add_argument("--attributed-eval", action="store_true",
+                    help="per-test-period hit attribution (not ported yet: "
+                         "raises)")
+    ps.add_argument("--emb-init-scale", type=float, default=1.0)
+    ps.add_argument("--per-period-shapes", action="store_true",
+                    help="pad each period to its own bucket instead of one "
+                         "sweep-wide bucket per stream")
+    ps.add_argument("--eval-during-inner", action="store_true")
+    ps.add_argument("--eval-during-outer", action="store_true")
+    ps.add_argument("--eval-scoring", default="auto",
+                    choices=["auto", "gather", "matmul", "gather_bf16",
+                             "matmul_bf16", "masked", "masked_bf16"],
+                    help="candidate scoring mode (eval/evaluator.py); "
+                         "'masked*' rank through kernel K2 on the card")
+    ps.add_argument("--saddle-retries", type=int, default=2,
+                    help="retry the first online-train period (at most N "
+                         "times, re-rolled Θ/stream pair) when the outer "
+                         "loss stalls near the zero-score BCE saddle; 0 "
+                         "for strict reference behaviour")
+    ps.add_argument("--theta-warmstart", type=int, default=0,
+                    help="identity warm-start steps for Θ before the sweep "
+                         "(0 = strict reference init)")
+    ps.add_argument("--snapshot-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="dtype of the last/hat table snapshots")
+    ps.add_argument("--profile-dir", default=None,
+                    help="a profiler trace of one period (not ported yet: "
+                         "raises)")
+    ps.set_defaults(fn=cmd_sml)
+
+    pg = sub.add_parser("synth", help="generate a synthetic dataset")
+    pg.add_argument("--out", required=True)
+    pg.add_argument("--users", type=int, default=2000)
+    pg.add_argument("--items", type=int, default=1000)
+    pg.add_argument("--periods", type=int, default=12)
+    pg.add_argument("--interactions", type=int, default=4000)
+    pg.add_argument("--first-test", type=int, default=4)
+    pg.add_argument("--neg-num", type=int, default=999)
+    pg.add_argument("--seed", type=int, default=0)
+    pg.set_defaults(fn=cmd_synth)
 
     pr = sub.add_parser("rank", help="exact full-catalog top-K "
                                      "recommendations from trained tables")

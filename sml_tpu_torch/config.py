@@ -2,9 +2,8 @@
 
 The port keeps its own copy (it imports nothing of ``sml_tpu``) with the
 same class names, field names and defaults, so a configuration means the
-same thing in both packages. Fields that only training reads are carried
-now so that a config built for one package builds the other unchanged;
-the training slice gives them behaviour here.
+same thing in both packages. The fields of the pretrainer and the
+baselines (``PretrainConfig``, ``BaselineConfig``) come with their slice.
 """
 
 from __future__ import annotations
@@ -34,6 +33,27 @@ class DataSpec:
     @property
     def path(self) -> str:
         return f"{self.root.rstrip('/')}/{self.name}"
+
+
+# Crossover of the row-sparse dense-Adam path (``SMLConfig.fast_table_adam``
+# left at None): at this many combined table rows it beat the dense-gradient
+# path on the JAX package's TPU v5e. The port keeps the same rule so that one
+# config means one path in both packages; its crossover on the H100 is
+# measured by ``chip_smoke.py`` and recorded in PERF.md, not applied here.
+FAST_TABLE_ADAM_AUTO_ROWS = 1_000_000
+
+# the fast path's duplicate collapse grows with the (2*batch) gathered rows;
+# above this batch size the auto rule stays on the dense path
+FAST_TABLE_ADAM_MAX_BATCH = 2048
+
+
+def resolve_fast_table_adam(flag: Optional[bool], n_rows: int,
+                            batch_size: int = 0) -> bool:
+    """``flag`` when set, else the auto rule above."""
+    if flag is not None:
+        return flag
+    return (n_rows >= FAST_TABLE_ADAM_AUTO_ROWS
+            and batch_size <= FAST_TABLE_ADAM_MAX_BATCH)
 
 
 @dataclass(frozen=True)
@@ -83,10 +103,14 @@ class SMLConfig:
     use_bce: bool = True
     replay_mode: bool = False
     prefetch_periods: bool = True
+    # row-sparse table Adam (kernel K3 on the card); None: the auto rule
+    # of resolve_fast_table_adam
     fast_table_adam: Optional[bool] = None
     uniform_shapes: bool = True
     # content-keyed reuse of uploaded eval sets (SMLEngine.make_eval_set)
     upload_dedup: bool = True
+    # the JAX package's fused phase/period programs; accepted here and
+    # without effect (the port runs the unfused path, train/driver.py)
     fuse_phases: bool = True
     fuse_period: bool | str = "auto"
     refresh_after_outer_epoch: bool = True

@@ -29,6 +29,27 @@ def load_info(path: str) -> DatasetInfo:
     return DatasetInfo(int(info[0]), int(info[1]), int(info[2]))
 
 
+def load_train(path: str, period: int) -> np.ndarray:
+    """Load one period's raw interactions ``(N, 2)``."""
+    a = np.load(os.path.join(path, "train", f"{period}.npy"))
+    return np.asarray(a, dtype=np.int64)
+
+
+def row_count(path: str, kind: str, period: int) -> Optional[int]:
+    """Row count of ``<path>/<kind>/<period>.npy`` from the npy header
+    alone (no data read): the sweep-wide shape scan behind uniform
+    padding."""
+    f = os.path.join(path, kind, f"{period}.npy")
+    if not os.path.exists(f):
+        return None
+    with open(f, "rb") as fh:
+        version = np.lib.format.read_magic(fh)
+        reader = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                  else np.lib.format.read_array_header_2_0)
+        shape, _, _ = reader(fh)
+    return int(shape[0])
+
+
 def load_test(path: str, period: int) -> Optional[np.ndarray]:
     """Load one period's eval rows ``(M, 2 + neg)``; None if absent."""
     f = os.path.join(path, "test", f"{period}.npy")

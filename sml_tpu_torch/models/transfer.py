@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import math
 from collections.abc import Mapping
+from typing import Dict
 
 import numpy as np
 import torch
@@ -120,7 +121,8 @@ def theta_from_numpy(tree, device="cuda") -> TransferParams:
     ``tree`` is the JAX ``TransferParams`` with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, theta)``) or the same nesting as mappings
     (``{"user": {"conv1_w": ...}, "item": {...}}``). The layouts are the
-    same, so the arrays are copied as they are."""
+    same, so the arrays are copied as they are. Its optimizer state comes
+    across with ``sml_tpu_torch.train.optim.opt_state_from_numpy``."""
     device = resolve_device(device)
 
     def leaf(x):
@@ -132,6 +134,13 @@ def theta_from_numpy(tree, device="cuda") -> TransferParams:
         return ConvTower(*(leaf(_field(t, f)) for f in TOWER_FIELDS))
     return TransferParams(tower(_field(tree, "user")),
                           tower(_field(tree, "item"))).to(device)
+
+
+def theta_leaves(theta: TransferParams) -> Dict[str, nn.Parameter]:
+    """Θ's parameters by the JAX leaf path (``user/conv1_w``, ...), the
+    names its optimizer moments and checkpoint keys use."""
+    return {f"{side}/{f}": getattr(getattr(theta, side), f)
+            for side in ("user", "item") for f in TOWER_FIELDS}
 
 
 def conv_tower_apply(tw: ConvTower, stack: torch.Tensor) -> torch.Tensor:

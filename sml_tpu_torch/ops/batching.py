@@ -4,12 +4,15 @@
 Row counts are padded up to a *bucket* (a batch multiple with at most
 1/``granularity`` slack) and a float ``mask`` marks the real rows, so the
 port pads eval sets to exactly the shapes the JAX package does and the
-evaluators see the same batches.
+evaluators see the same batches. Training epochs shuffle only the real rows
+(:func:`shuffle_real_first`), so batches ``0 .. ceil(n_real/B) - 1`` hold
+every real row and the padding stays in the tail: the epoch loop runs
+exactly ``ceil(n_real/B)`` optimizer steps (:func:`num_batches`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,3 +57,20 @@ def pad_rows(arr: np.ndarray, batch_size: int, granularity: int = 8,
     mask[:n] = 1.0
     return PaddedRows(torch.from_numpy(out).to(device),
                       torch.from_numpy(mask).to(device), n)
+
+
+def shuffle_real_first(generator: torch.Generator, rows: torch.Tensor,
+                       mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A random permutation that keeps the padded rows at the tail: real
+    rows get uniform sort keys drawn from ``generator`` (on the rows'
+    device), padded rows ``+inf``."""
+    r = torch.rand(rows.shape[0], generator=generator, device=rows.device)
+    r = torch.where(mask > 0, r, torch.full_like(r, float("inf")))
+    order = torch.argsort(r)
+    return rows[order], mask[order]
+
+
+def num_batches(n_real: int, batch_size: int) -> int:
+    """``ceil(n_real / batch_size)``, the epoch's optimizer-step count."""
+    return (n_real + batch_size - 1) // batch_size

@@ -1,0 +1,433 @@
+"""The SML sequential-retraining driver (counterpart of
+``sml_tpu/train/driver.py``).
+
+Per period t:
+
+1. snapshot ``last <- MF tables``;
+2. fetch (set_t, set_tt, now_test, val) from the feeder;
+3. branch A (warm-up), B (``tr_stop``) or C (test), each alternating
+   ``multi_num`` phases of [inner MF epochs -> snapshot hat -> refresh ->
+   (the test, at phase 0 of C) -> outer Θ epochs, each followed by a
+   refresh];
+4. a final refresh;
+
+then the end-of-run weighted aggregation of the test periods. Records go
+to the jsonl log in the JAX package's kinds and order.
+
+Only the unfused path is ported: the JAX package's fused phase and period
+programs exist to cut JAX dispatches and compiles, and its own tests hold
+them equal to the unfused path, so ``cfg.fuse_phases`` and
+``cfg.fuse_period`` are accepted and have no effect here.
+``cfg.attributed_eval`` and ``cfg.profile_dir`` raise
+``NotImplementedError`` (ROADMAP.md §1).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from sml_tpu_torch.config import DataSpec, SMLConfig
+from sml_tpu_torch.data.feeder import PeriodFeeder, StageData
+from sml_tpu_torch.ops.metrics import weighted_period_average
+from sml_tpu_torch.train.engine import SMLEngine, SMLState, copy_state
+from sml_tpu_torch.utils.logging import MetricsLogger
+
+
+@dataclass
+class RunReport:
+    topks: tuple
+    per_period: Dict[int, List[float]] = field(default_factory=dict)
+    per_period_ndcg: Dict[int, List[float]] = field(default_factory=dict)
+    test_counts: List[int] = field(default_factory=list)
+    period_seconds: List[float] = field(default_factory=list)
+    saddle_retries_used: int = 0
+
+    def summary(self) -> Dict[str, float]:
+        """Weighted val/test averages per K."""
+        out: Dict[str, float] = {}
+        counts = np.asarray(self.test_counts)
+        if counts.size == 0:
+            return out
+        for k in self.topks:
+            for name, arr in (("recall", self.per_period[k]),
+                              ("ndcg", self.per_period_ndcg[k])):
+                val, test = weighted_period_average(arr, counts)
+                out[f"val_{name}@{k}"] = float(val)
+                out[f"test_{name}@{k}"] = float(test)
+        out["total_seconds"] = float(sum(self.period_seconds))
+        return out
+
+    def to_dict(self) -> Dict:
+        """JSON-safe snapshot for a checkpoint's ``extra``: a resumed run
+        reports over every test period, not only the resumed ones."""
+        return {
+            "topks": list(self.topks),
+            "per_period": {str(k): v for k, v in self.per_period.items()},
+            "per_period_ndcg": {str(k): v
+                                for k, v in self.per_period_ndcg.items()},
+            "test_counts": list(self.test_counts),
+            "period_seconds": list(self.period_seconds),
+            "saddle_retries_used": self.saddle_retries_used,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "RunReport":
+        return cls(
+            topks=tuple(d["topks"]),
+            per_period={int(k): list(v)
+                        for k, v in d["per_period"].items()},
+            per_period_ndcg={int(k): list(v)
+                             for k, v in d["per_period_ndcg"].items()},
+            test_counts=list(d["test_counts"]),
+            period_seconds=list(d["period_seconds"]),
+            saddle_retries_used=int(d.get("saddle_retries_used", 0)))
+
+
+class SMLDriver:
+    def __init__(self, cfg: SMLConfig, spec: DataSpec,
+                 engine: Optional[SMLEngine] = None,
+                 logger: Optional[MetricsLogger] = None, device="cuda"):
+        if cfg.attributed_eval:
+            raise NotImplementedError(
+                "attributed_eval is not ported yet (ROADMAP.md §1, "
+                "'Attribution, multipass, streaming, ingest')")
+        if cfg.profile_dir:
+            raise NotImplementedError(
+                "profile_dir is not ported yet (ROADMAP.md §1, 'Bench and "
+                "profiling')")
+        self.cfg = cfg
+        self.feeder = PeriodFeeder(
+            spec, mf_sample=cfg.mf_sample, tr_sample_type=cfg.tr_sample_type,
+            tr_stop=cfg.tr_stop)
+        if cfg.prefetch_periods:
+            from sml_tpu_torch.data.prefetch import PrefetchingFeeder
+            self.feeder = PrefetchingFeeder(self.feeder)
+        self.engine = engine or SMLEngine(
+            cfg, self.feeder.n_users, self.feeder.n_items, device=device)
+        if cfg.uniform_shapes and not cfg.replay_mode:
+            bounds = self.feeder.shape_bounds()
+            if (cfg.mf_sample == "all"
+                    and cfg.mf_batch_size == cfg.eval_batch_size):
+                # 'all'-mode set_t IS an eval-format test file: one upload
+                # serves both (SMLEngine.prep_inner)
+                m = max(bounds["set_t"], bounds["eval"])
+                bounds["set_t"] = bounds["eval"] = m
+            self.engine.shape_targets = bounds
+        # the prefetch worker pads and uploads period t+1's eval sets while
+        # the device trains period t
+        self._eval_cache: Dict[tuple, object] = {}
+        if hasattr(self.feeder, "on_prefetch"):
+            self.feeder.on_prefetch = self._preload_eval_sets
+        self.logger = logger or MetricsLogger(None)
+        self.report = RunReport(topks=tuple(cfg.topk))
+        self._last_inner_loss = float("nan")
+        self._last_outer_loss = float("nan")
+        # reading the per-batch losses waits for the device: only when
+        # something reads them (the saddle guard reads period 0's)
+        self._track_losses = cfg.log_norms or cfg.saddle_retries > 0
+        # in-training evals and the tests are run without reading their
+        # sums back; they are resolved later in one pass, in order
+        self._pending_evals: List[tuple] = []
+        self._pending_evals_done: Optional[torch.cuda.Event] = None
+        self._pending_tests: List[tuple] = []
+        self._stop_stage = (cfg.multipass_stop_stage
+                            if cfg.multipass_stop_stage is not None
+                            else spec.online_test_start
+                            - spec.online_train_start - 1)
+
+    # ------------------------------------------------------------------ phases
+    def _inner_block(self, state: SMLState, prep, epochs: int,
+                     val) -> SMLState:
+        """``MF_train_onestage``; ``prep`` is the period's ``prep_inner``
+        result, built once per period."""
+        padded, index = prep
+        for e in range(epochs):
+            state, losses = self.engine.inner_epoch(state, padded, index)
+            if self._track_losses:
+                self._last_inner_loss = _mean_loss(
+                    losses, padded.n_real, self.cfg.mf_batch_size)
+            if self.cfg.eval_during_inner and val is not None:
+                self._defer_eval("inner_eval", e, state, val)
+        return state
+
+    def _outer_block(self, state: SMLState, prep, val) -> SMLState:
+        """``transfer_train_onestage``, with the refresh after each outer
+        epoch."""
+        padded, index = prep
+        for e in range(self.cfg.tr_epochs):
+            state, losses = self.engine.outer_epoch(state, padded, index)
+            if self._track_losses:
+                self._last_outer_loss = _mean_loss(
+                    losses, padded.n_real, self.cfg.tr_batch_size)
+            if self.cfg.refresh_after_outer_epoch:
+                state = self.engine.refresh(state)
+                if self.cfg.eval_during_outer and val is not None:
+                    self._defer_eval("outer_eval", e, state, val)
+        if self.cfg.load_w_hat:
+            state = self.engine.load_hat_into_mf(state)
+        return state
+
+    def _defer_eval(self, kind: str, epoch: int, state: SMLState,
+                    val) -> None:
+        self._pending_evals.append(
+            (kind, epoch, self.engine.evaluate_deferred(state.mf, val)))
+        if self.engine.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            self._pending_evals_done = ev
+
+    def _one_phase(self, state: SMLState, prep_t, prep_tt, val) -> SMLState:
+        """One SML phase: inner epochs -> hat snapshot -> refresh -> outer
+        epochs."""
+        state = self._inner_block(state, prep_t, self.cfg.mf_epochs, val)
+        state = self.engine.snapshot_hat(state)
+        state = self.engine.refresh(state)
+        return self._outer_block(state, prep_tt, val)
+
+    def _saddle_rule(self):
+        """``(check_phase, stalled_at)`` for the period-0 guard."""
+        saddle = 2.0 * float(np.log(2.0))
+        multi = self.cfg.multi_num
+        if self.cfg.saddle_mode == "auto":
+            # stall iff (saddle - L) / saddle < tau * (phase+1) / multi_num
+            check_phase = min(max(1, round(0.3 * multi)), multi - 1)
+
+            def stalled_at(phase, loss):
+                escape = (saddle - loss) / saddle
+                return escape < self.cfg.saddle_tau * (phase + 1) / multi
+        else:
+            thresh = self.cfg.saddle_frac * saddle
+            final_thresh = self.cfg.saddle_final_frac * saddle
+            check_phase = min(self.cfg.saddle_check_phase, multi - 1)
+
+            def stalled_at(phase, loss):
+                return ((phase == check_phase and loss > thresh)
+                        or (phase == multi - 1 and loss > final_thresh))
+        return check_phase, stalled_at
+
+    def _warmup_phases(self, state: SMLState, prep_t, prep_tt, val,
+                       d_time: int, guard: bool):
+        """Branch-A phases. With ``guard``, abort when the outer loss is
+        still near the zero-score BCE saddle (2 ln 2) at the check phase
+        or the last phase."""
+        multi = self.cfg.multi_num
+        check_phase, stalled_at = self._saddle_rule()
+        for phase in range(multi):
+            state = self._one_phase(state, prep_t, prep_tt, val)
+            self._log_phase(state, d_time, phase)
+            if guard and phase in (check_phase, multi - 1) \
+                    and stalled_at(phase, self._last_outer_loss):
+                return state, True
+        return state, False
+
+    def _log_phase(self, state: SMLState, d_time: int, phase: int) -> None:
+        if not self.cfg.log_norms:
+            return
+        self.logger.log(kind="phase", d_time=d_time, phase=phase,
+                        inner_loss=self._last_inner_loss,
+                        outer_loss=self._last_outer_loss,
+                        **self.engine.diagnostics(state),
+                        **self.engine.sampler_stats)
+
+    def _flush_evals(self, force: bool = True) -> None:
+        """Resolve the pending in-training evals and log them in dispatch
+        order. With ``force=False`` (at a period's end) nothing happens
+        until the newest one's work has finished on the card; the records
+        and their order are the same either way."""
+        if not self._pending_evals:
+            return
+        done = self._pending_evals_done
+        if not force and done is not None and not done.query():
+            return
+        pending, self._pending_evals = self._pending_evals, []
+        self._pending_evals_done = None
+        metrics = self.engine.resolve_evals([d for _, _, d in pending])
+        for (kind, epoch, _), m in zip(pending, metrics):
+            self.logger.log(kind=kind, epoch=epoch, **_flatten(m))
+
+    def _drain_tests(self) -> None:
+        """Resolve the deferred per-period tests, in period order, into the
+        report and the log."""
+        if not self._pending_tests:
+            return
+        pending, self._pending_tests = self._pending_tests, []
+        metrics = self.engine.resolve_evals([d for _, _, d in pending])
+        for (period, n, _), m in zip(pending, metrics):
+            self.report.test_counts.append(n)
+            for k, mm in m.items():
+                self.report.per_period.setdefault(k, []).append(mm["recall"])
+                self.report.per_period_ndcg.setdefault(
+                    k, []).append(mm["ndcg"])
+            self.logger.log(kind="test", period=period, n_test=n,
+                            **_flatten(m))
+
+    def finalize(self) -> None:
+        """Drain every deferred eval and test into the report and the log.
+        :meth:`run` calls it; callers of :meth:`run_period` call it before
+        reading ``report``."""
+        self._flush_evals()
+        self._drain_tests()
+
+    def _preload_eval_sets(self, d_time: int, sd: StageData) -> None:
+        """Prefetch-worker hook: upload the period's eval sets early (the
+        worker thread starts on device 0, so it selects the engine's)."""
+        dev = self.engine.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            if sd.now_test is not None:
+                self._eval_cache[(d_time, "test")] = \
+                    self.engine.make_eval_set(sd.now_test, build_mask=True)
+            if (sd.val is not None and sd.val is not sd.now_test
+                    and (self.cfg.eval_during_inner
+                         or self.cfg.eval_during_outer)):
+                self._eval_cache[(d_time, "val")] = \
+                    self.engine.make_eval_set(sd.val, build_mask=True)
+
+    def _record_test(self, state: SMLState, now_test: np.ndarray,
+                     period: int) -> None:
+        padded = self._eval_cache.pop((period, "test"), None)
+        if padded is None:
+            padded = self.engine.make_eval_set(now_test, build_mask=True)
+        self._pending_tests.append((
+            period, int(now_test.shape[0]),
+            self.engine.evaluate_deferred(state.mf, padded)))
+
+    # ----------------------------------------------------------------- periods
+    def run_period(self, state: SMLState, d_time: int):
+        """One period; returns ``(state, still_running)``."""
+        t0 = time.time()
+        self._track_losses = self.cfg.log_norms or (
+            d_time == 0 and self.cfg.saddle_retries > 0)
+        state = self.engine.snapshot_last(state)
+        sd: StageData = self.feeder.next_train(d_time)
+        if sd.set_t is None:
+            return state, False
+        val = sd.val
+        if val is not None and (self.cfg.eval_during_inner
+                                or self.cfg.eval_during_outer):
+            cached = self._eval_cache.pop((d_time, "val"), None)
+            val = cached if cached is not None else \
+                self.engine.make_eval_set(val, build_mask=True)
+        sd = sd._replace(val=val)
+
+        prep_t = self.engine.prep_inner(sd.set_t)
+        prep_tt = (self.engine.prep_outer(sd.set_tt)
+                   if sd.set_tt is not None else None)
+
+        if sd.now_test is None:
+            # branch A: warm-up, with the optional first-period saddle guard
+            budget = self.cfg.saddle_retries if d_time == 0 else 0
+            state0 = copy_state(state) if budget > 0 else None
+            attempt = 0
+            while True:
+                state, stalled = self._warmup_phases(
+                    state, prep_t, prep_tt, sd.val, d_time,
+                    guard=attempt < budget)
+                if not stalled:
+                    break
+                attempt += 1
+                self.report.saddle_retries_used += 1
+                self._flush_evals()   # the aborted attempt's eval rows
+                escalate = (attempt == budget
+                            and self.cfg.saddle_escalate_warmstart)
+                self.logger.log(kind="saddle_retry", d_time=d_time,
+                                attempt=attempt, mode=self.cfg.saddle_mode,
+                                escalated=escalate,
+                                outer_loss=self._last_outer_loss)
+                # re-roll the (Θ init, data stream) pair
+                restart = copy_state(state0)
+                restart = restart._replace(
+                    gen=self.engine.fold_generator(state0.gen, attempt))
+                state = self.engine.reinit_theta(restart, salt=attempt,
+                                                 warmstart=escalate)
+            state = self.engine.refresh(state)
+        elif sd.set_tt is None:
+            # branch B: tr_stop during the test span
+            state = self._inner_block(state, prep_t,
+                                      self.cfg.mf_epochs_when_tr_stopped,
+                                      sd.val)
+            state = self.engine.snapshot_hat(state)
+            state = self.engine.refresh(state)
+            self._record_test(state, sd.now_test, d_time)
+        else:
+            # branch C: test and keep training Θ. The test scores the
+            # post-refresh tables of phase 0 BEFORE its outer epochs
+            # refresh them again.
+            state = self._inner_block(state, prep_t, self.cfg.mf_epochs,
+                                      sd.val)
+            state = self.engine.snapshot_hat(state)
+            state = self.engine.refresh(state)
+            self._record_test(state, sd.now_test, d_time)
+            state = self._outer_block(state, prep_tt, sd.val)
+            self._log_phase(state, d_time, 0)
+            for phase in range(1, self.cfg.multi_num):
+                state = self._one_phase(state, prep_t, prep_tt, sd.val)
+                self._log_phase(state, d_time, phase)
+            state = self.engine.refresh(state)
+
+        self._flush_evals(force=False)
+        dt = time.time() - t0
+        self.report.period_seconds.append(dt)
+        self.logger.log(kind="period", d_time=d_time, seconds=dt)
+        return state, True
+
+    def run(self, state: Optional[SMLState] = None,
+            max_periods: Optional[int] = None,
+            start_pass: int = 0, start_period: int = 0,
+            on_period_end=None) -> RunReport:
+        """The full sweep. With ``pass_num > 1`` the warm-up span is
+        replayed: non-final passes stop at ``multipass_stop_stage``; only
+        the final pass runs the test span. ``start_pass``/``start_period``
+        resume mid-sweep (skipped periods only advance the feeder's test
+        cursor); ``on_period_end(state, pass_id, d_time, driver)`` fires
+        after every trained period."""
+        if state is None:
+            state = self.engine.init_state()
+        for pass_id in range(start_pass, self.cfg.pass_num):
+            final_pass = pass_id == self.cfg.pass_num - 1
+            self.feeder.reinit()
+            self._eval_cache.clear()
+            d_time = 0
+            while max_periods is None or d_time < max_periods:
+                if pass_id == start_pass and d_time < start_period:
+                    self.feeder.next_train(d_time)   # advance test cursor
+                    self._eval_cache.pop((d_time, "test"), None)
+                    self._eval_cache.pop((d_time, "val"), None)
+                else:
+                    state, ok = self.run_period(state, d_time)
+                    if not ok:
+                        break
+                    if on_period_end is not None:
+                        on_period_end(state, pass_id, d_time, self)
+                d_time += 1
+                if not final_pass and d_time >= self._stop_stage:
+                    break
+        self.final_state = state
+        self.finalize()
+        self.logger.log(kind="summary", **self.report.summary())
+        return self.report
+
+    def close(self) -> None:
+        """Stop the prefetch worker."""
+        if hasattr(self.feeder, "close"):
+            self.feeder.close()
+
+
+def _mean_loss(losses, n_real: int, batch_size: int) -> float:
+    """Mean per-batch loss over the REAL batches of an epoch (the skipped
+    tail reports 0 and is excluded)."""
+    nb = max(-(-n_real // batch_size), 1)
+    if isinstance(losses, torch.Tensor):
+        losses = losses.detach().cpu().numpy()
+    return float(np.asarray(losses)[:nb].mean())
+
+
+def _flatten(metrics: Dict[int, Dict[str, float]]) -> Dict[str, float]:
+    return {f"{name}@{k}": v for k, m in metrics.items()
+            for name, v in m.items()}

@@ -1,43 +1,89 @@
-"""SML engine, serving half (counterpart of ``sml_tpu/train/engine.py``).
+"""SML engine: state and operations (counterpart of
+``sml_tpu/train/engine.py``).
 
-Holds what publishes and serves period *t*'s model: the state record, the
+Holds the state record and everything the driver runs on it: the
 ``last``/``hat`` snapshots, the full-table refresh ``W_t = Θ(W_{t-1},
-Ŵ_t)`` (kernel K1 on the card) and the leave-one-out evaluation with
-packed candidate masks (kernel K2 on the card). The inner and outer
-training epochs come with the training slice.
+Ŵ_t)`` (kernel K1 on the card), the inner (MF) and outer (Θ) training
+epochs (kernel K3 on the card with ``fast_table_adam``), the Θ identity
+warm-start and the saddle guard's re-roll, the host-side data preparation
+(padding, period sampling indices) and the leave-one-out evaluation with
+packed candidate masks (kernel K2 on the card).
+
+The JAX package's fused phase and period programs exist to cut JAX
+dispatches and compiles; the port runs eagerly and has only the
+epoch-at-a-time path. Tables, Θ and moments are updated in place.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from sml_tpu_torch.config import SMLConfig
+from sml_tpu_torch.config import SMLConfig, resolve_fast_table_adam
 from sml_tpu_torch.device import resolve_device
 from sml_tpu_torch.eval.evaluator import make_eval_fn
 from sml_tpu_torch.models.mf import MFParams, init_mf, with_tables
-from sml_tpu_torch.models.transfer import (TransferParams, apply_tables,
-                                           init_transfer)
+from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
+                                           apply_tables, init_transfer,
+                                           theta_leaves)
 from sml_tpu_torch.ops import eval_kernel
 from sml_tpu_torch.ops.batching import PaddedRows, pad_rows
+from sml_tpu_torch.ops.sampling import (PeriodIndex, build_period_index,
+                                        sampler_stats)
+from sml_tpu_torch.train.optim import (AdamState, adam_init, adam_update,
+                                       copy_opt_state)
+from sml_tpu_torch.train.steps import make_inner_epoch, make_outer_epoch
 
 _SNAPSHOT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_TRAINING = ("training is not ported yet: inner/outer epochs, optimizers "
-             "and Θ warm-start come with slice 2 (ROADMAP.md §1)")
+
+DIAG_NAMES = ("user_norm", "item_norm", "hat_user_norm", "hat_item_norm",
+              "last_user_norm", "last_item_norm", "theta_norm")
 
 
 class SMLState(NamedTuple):
     """What evolves across periods: ``last_*`` = W_{t-1}, ``hat_*`` =
-    Ŵ_t, stored in ``cfg.snapshot_dtype``."""
+    Ŵ_t (stored in ``cfg.snapshot_dtype``), the two Adam states and the
+    run's random generator (on the state's device)."""
     mf: MFParams
     theta: TransferParams
     last_user: torch.Tensor
     last_item: torch.Tensor
     hat_user: torch.Tensor
     hat_item: torch.Tensor
+    mf_opt: AdamState
+    tr_opt: AdamState
+    gen: torch.Generator
+
+
+def derive_seed(*parts) -> int:
+    """A 63-bit seed from a tuple of ints and strings (stable across runs
+    and hosts)."""
+    digest = hashlib.blake2b(repr(parts).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") & ((1 << 63) - 1)
+
+
+def clone_generator(gen: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def copy_state(state: SMLState) -> SMLState:
+    """A deep copy: new buffers for every tensor, Θ and moment, and a
+    generator at the same position (the saddle guard's restart point)."""
+    return SMLState(
+        mf=MFParams(*(t.clone() for t in state.mf)),
+        theta=copy.deepcopy(state.theta),
+        last_user=state.last_user.clone(), last_item=state.last_item.clone(),
+        hat_user=state.hat_user.clone(), hat_item=state.hat_item.clone(),
+        mf_opt=copy_opt_state(state.mf_opt),
+        tr_opt=copy_opt_state(state.tr_opt),
+        gen=clone_generator(state.gen))
 
 
 def _content_key(arr: np.ndarray) -> tuple:
@@ -52,9 +98,13 @@ class SMLEngine:
     def __init__(self, cfg: SMLConfig, n_users: int, n_items: int,
                  device="cuda"):
         self.device = resolve_device(device)
+        cfg = cfg.replace(fast_table_adam=resolve_fast_table_adam(
+            cfg.fast_table_adam, n_users + n_items, cfg.mf_batch_size))
         self.cfg = cfg
         self.n_users = n_users
         self.n_items = n_items
+        self._inner = make_inner_epoch(cfg)
+        self._outer = make_outer_epoch(cfg)
         self._eval = make_eval_fn(cfg.topk, cfg.eval_batch_size,
                                   scoring=cfg.eval_scoring)
         # packed candidate masks for the masked scoring modes, or for eval
@@ -65,22 +115,41 @@ class SMLEngine:
                 and (cfg.eval_during_inner or cfg.eval_during_outer)
                 and n_items <= cfg.eval_mask_max_items))
         # content-keyed cache of uploaded eval sets (the same test/<p>.npy
-        # serves as period t's val and period t+1's test)
+        # serves as period t's val, period t+1's test and, in
+        # mf_sample='all' mode, a training pool); the prefetch worker and
+        # the main thread both insert, and an insert with its evictions
+        # holds the lock
         self._upload_cache: Dict[tuple, PaddedRows] = {}
         self._upload_cache_cap = 3
+        self._upload_lock = threading.Lock()
+        # sweep-wide row-count floors per stream ("set_t"/"set_tt"/"eval"),
+        # set by the driver from the feeder's npy-header scan
+        self.shape_targets: Dict[str, int] = {}
+        # the latest sampler-quality probe and warm-start loss (log_norms)
+        self.sampler_stats: Dict[str, float] = {}
 
     # ------------------------------------------------------------------ state
     def _snap_dtype(self) -> torch.dtype:
         return _SNAPSHOT_DTYPES[self.cfg.snapshot_dtype]
 
-    def init_state(self, pretrained_mf: Optional[MFParams] = None
-                   ) -> SMLState:
+    def _theta_seed(self) -> int:
+        return (self.cfg.theta_seed if self.cfg.theta_seed is not None
+                else self.cfg.seed + 1)
+
+    def _generator(self, *parts) -> torch.Generator:
+        """A generator on the engine's device seeded from ``parts``."""
+        return torch.Generator(device=self.device).manual_seed(
+            derive_seed(*parts))
+
+    def init_state(self, pretrained_mf: Optional[MFParams] = None,
+                   skip_theta_warmstart: bool = False) -> SMLState:
         """Fresh state: ``last`` at zeros, ``hat`` at the (pretrained)
-        tables. Tables draw from a CPU generator seeded ``cfg.seed``, Θ
-        from one seeded ``cfg.theta_seed`` (default ``cfg.seed + 1``), so
-        one seed gives the same state on every device."""
-        if self.cfg.theta_warmstart_steps > 0:
-            raise NotImplementedError(_TRAINING)
+        tables, zero Adam moments. Tables draw from a CPU generator seeded
+        ``cfg.seed``, Θ from one seeded ``cfg.theta_seed`` (default
+        ``cfg.seed + 1``), so one seed gives the same weights on every
+        device; the run's generator lives on the device. With
+        ``theta_warmstart_steps`` Θ is identity-warm-started, unless
+        ``skip_theta_warmstart`` (a checkpoint is about to replace it)."""
         if pretrained_mf is not None:
             mf = MFParams(*(torch.as_tensor(t).to(self.device, copy=True)
                             for t in pretrained_mf))
@@ -89,10 +158,12 @@ class SMLEngine:
             mf = init_mf(gen, self.n_users, self.n_items,
                          self.cfg.latent_dim, device=self.device,
                          emb_scale=self.cfg.emb_init_scale)
-        theta_seed = (self.cfg.theta_seed if self.cfg.theta_seed is not None
-                      else self.cfg.seed + 1)
-        theta = init_transfer(torch.Generator().manual_seed(theta_seed),
-                              self.cfg.transfer, device=self.device)
+        theta = init_transfer(
+            torch.Generator().manual_seed(self._theta_seed()),
+            self.cfg.transfer, device=self.device)
+        if self.cfg.theta_warmstart_steps > 0 and not skip_theta_warmstart:
+            theta = self._theta_warmstart(
+                theta, mf, self._generator(self.cfg.seed, "warmstart"))
         sdt = self._snap_dtype()
         return SMLState(
             mf=mf, theta=theta,
@@ -101,8 +172,122 @@ class SMLEngine:
             last_item=torch.zeros(mf.item_emb.shape, dtype=sdt,
                                   device=self.device),
             hat_user=self._snap(mf.user_emb),
-            hat_item=self._snap(mf.item_emb))
+            hat_item=self._snap(mf.item_emb),
+            mf_opt=adam_init(mf._asdict()),
+            tr_opt=adam_init(theta_leaves(theta)),
+            gen=self._generator(self.cfg.seed, "run"))
 
+    def _theta_warmstart(self, theta: TransferParams, mf: MFParams,
+                         gen: torch.Generator,
+                         steps: Optional[int] = None) -> TransferParams:
+        """Fit Θ_side(x, x) ≈ x on table rows drawn from ``gen``, in place:
+        at every period start ``last`` equals the tables, so the identity
+        is the value-preserving point of the refresh. Adam at
+        ``cfg.theta_warmstart_lr`` from zero moments."""
+        cfg = self.cfg
+        n_rows = cfg.theta_warmstart_rows
+        n_steps = cfg.theta_warmstart_steps if steps is None else steps
+        leaves = theta_leaves(theta)
+        opt = adam_init(leaves)
+        loss = None
+        for _ in range(n_steps):
+            iu = torch.randint(0, mf.user_emb.shape[0], (n_rows,),
+                               generator=gen, device=self.device)
+            ii = torch.randint(0, mf.item_emb.shape[0], (n_rows,),
+                               generator=gen, device=self.device)
+            xu, xi = mf.user_emb[iu], mf.item_emb[ii]
+            with torch.enable_grad():
+                pu = apply_rows(theta, cfg.transfer, "user", xu, xu)
+                pi = apply_rows(theta, cfg.transfer, "item", xi, xi)
+                loss = (torch.mean(torch.sum((pu - xu) ** 2, -1))
+                        + torch.mean(torch.sum((pi - xi) ** 2, -1)))
+                grads = dict(zip(leaves, torch.autograd.grad(
+                    loss, list(leaves.values()))))
+            opt = adam_update(leaves, grads, opt,
+                              lr=cfg.theta_warmstart_lr)
+        if loss is not None:
+            self.sampler_stats["theta_warmstart_final_loss"] = float(
+                loss.detach())
+        return theta
+
+    def reinit_theta(self, state: SMLState, salt: int,
+                     warmstart: bool = False) -> SMLState:
+        """The saddle guard's re-roll: a fresh Θ (and zero Θ moments) from
+        a seed derived from the Θ seed and ``salt``; with ``warmstart``
+        (the last retry's escalation) or ``theta_warmstart_steps`` it is
+        identity-warm-started first."""
+        seed = derive_seed(self._theta_seed(), 104729 + salt)
+        theta = init_transfer(torch.Generator().manual_seed(seed),
+                              self.cfg.transfer, device=self.device)
+        steps = self.cfg.theta_warmstart_steps
+        if warmstart:
+            steps = max(steps, self.cfg.saddle_warmstart_steps)
+        if steps > 0:
+            theta = self._theta_warmstart(theta, state.mf,
+                                          self._generator(seed, 1),
+                                          steps=steps)
+        return state._replace(theta=theta,
+                              tr_opt=adam_init(theta_leaves(theta)))
+
+    def fold_generator(self, gen: torch.Generator,
+                       salt: int) -> torch.Generator:
+        """A new stream derived from ``gen``'s seed and ``salt`` (a saddle
+        retry's fresh data stream)."""
+        return self._generator(gen.initial_seed(), 7919 + salt)
+
+    # ------------------------------------------------------------- data prep
+    def prep_inner(self, set_t: np.ndarray):
+        """Pad and upload the inner pool (and build its sampling index in
+        'alone' mode). In 'all' mode with unified pad bounds the pool is
+        the same eval-format matrix the eval path uploads, so it is served
+        from the upload cache."""
+        bound = self.shape_targets.get("set_t", 0)
+        if (self.cfg.mf_sample == "all" and bound
+                and self.cfg.upload_dedup
+                and bound == self.shape_targets.get("eval")
+                and self.cfg.mf_batch_size == self.cfg.eval_batch_size):
+            key = _content_key(set_t)
+            padded = self._upload_cache.get(key)
+            if padded is None:
+                padded = pad_rows(set_t, self.cfg.mf_batch_size,
+                                  pad_to=bound, device=self.device)
+                self._cache_upload(key, padded)
+            return padded, None
+        padded = pad_rows(set_t, self.cfg.mf_batch_size, pad_to=bound,
+                          device=self.device)
+        index = (build_period_index(set_t, self.n_items, min_rows=bound,
+                                    device=self.device)
+                 if self.cfg.mf_sample == "alone"
+                 and not self.cfg.replay_mode else None)
+        self._probe_sampler("inner", index, set_t)
+        return padded, index
+
+    def prep_outer(self, set_tt: np.ndarray):
+        bound = self.shape_targets.get("set_tt", 0)
+        padded = pad_rows(set_tt, self.cfg.tr_batch_size, pad_to=bound,
+                          device=self.device)
+        index = (build_period_index(set_tt, self.n_items, min_rows=bound,
+                                    device=self.device)
+                 if self.cfg.tr_sample_type == "alone"
+                 and not self.cfg.replay_mode else None)
+        self._probe_sampler("outer", index, set_tt)
+        return padded, index
+
+    def _probe_sampler(self, tag: str, index: Optional[PeriodIndex],
+                       rows: np.ndarray, cap: int = 8192) -> None:
+        """The rejection sampler's fallback and leak rates on this period's
+        users (``log_norms`` diagnostics only); draws from its own
+        generator, so the run's stream is untouched."""
+        if index is None or not self.cfg.log_norms:
+            return
+        users = torch.from_numpy(np.ascontiguousarray(
+            rows[:cap, 0], dtype=np.int64)).to(self.device)
+        fb, leak = sampler_stats(index, users, self._generator(0, tag),
+                                 self.cfg.neg_tries)
+        self.sampler_stats[f"{tag}_fallback_rate"] = float(fb)
+        self.sampler_stats[f"{tag}_leak_rate"] = float(leak)
+
+    # ------------------------------------------------------------ operations
     def _snap(self, x: torch.Tensor) -> torch.Tensor:
         """A new buffer in ``cfg.snapshot_dtype``."""
         return x.detach().to(self._snap_dtype(), copy=True)
@@ -133,11 +318,53 @@ class SMLEngine:
             state.last_item, state.hat_item)
         return state._replace(mf=with_tables(state.mf, new_u, new_i))
 
-    def inner_epoch(self, state, padded, index):
-        raise NotImplementedError(_TRAINING)
+    def inner_epoch(self, state: SMLState, padded: PaddedRows,
+                    index: Optional[PeriodIndex]):
+        """One inner (MF) epoch through the frozen Θ: ``ceil(n_real /
+        mf_batch_size)`` Adam steps on the tables. Returns ``(state,
+        losses)``, ``losses`` the per-batch losses (0 past the real
+        batches)."""
+        mf, opt, losses = self._inner(
+            state.mf, state.mf_opt, state.theta, state.last_user,
+            state.last_item, padded.rows, padded.mask, padded.n_real,
+            state.gen, index)
+        return state._replace(mf=mf, mf_opt=opt), losses
 
-    def outer_epoch(self, state, padded, index):
-        raise NotImplementedError(_TRAINING)
+    def outer_epoch(self, state: SMLState, padded: PaddedRows,
+                    index: Optional[PeriodIndex]):
+        """One outer (Θ) epoch on the detached snapshots."""
+        theta, opt, losses = self._outer(
+            state.theta, state.tr_opt, state.last_user, state.last_item,
+            state.hat_user, state.hat_item, padded.rows, padded.mask,
+            padded.n_real, state.gen, index)
+        return state._replace(theta=theta, tr_opt=opt), losses
+
+    def diagnostics(self, state: SMLState) -> Dict[str, float]:
+        """Mean per-row squared norm of the tables and snapshots, and the
+        global L2 norm of Θ."""
+        with torch.no_grad():
+            def rownorm(t):
+                t = t.float()
+                return torch.mean(torch.sum(t * t, dim=-1))
+            theta_sq = sum(torch.sum(p * p)
+                           for p in theta_leaves(state.theta).values())
+            vals = (rownorm(state.mf.user_emb), rownorm(state.mf.item_emb),
+                    rownorm(state.hat_user), rownorm(state.hat_item),
+                    rownorm(state.last_user), rownorm(state.last_item),
+                    torch.sqrt(theta_sq))
+            return {n: float(v) for n, v in zip(DIAG_NAMES, vals)}
+
+    def fetch_host(self, tree):
+        """Tensors of a nested tuple / list / dict -> numpy on the host."""
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu().numpy()
+        if isinstance(tree, dict):
+            return {k: self.fetch_host(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            out = [self.fetch_host(v) for v in tree]
+            return type(tree)(*out) if hasattr(tree, "_fields") \
+                else type(tree)(out)
+        return tree
 
     # ------------------------------------------------------------- evaluation
     def make_eval_set(self, test_rows: np.ndarray,
@@ -156,6 +383,7 @@ class SMLEngine:
                     self._cache_upload(key, hit)
                 return hit
         padded = pad_rows(test_rows, self.cfg.eval_batch_size,
+                          pad_to=self.shape_targets.get("eval", 0),
                           device=self.device)
         if build_mask:
             padded = padded._replace(cand_mask=self._build_cand_mask(padded))
@@ -170,10 +398,11 @@ class SMLEngine:
                                              self.n_items)
 
     def _cache_upload(self, key, padded: PaddedRows) -> None:
-        self._upload_cache.pop(key, None)
-        self._upload_cache[key] = padded
-        while len(self._upload_cache) > self._upload_cache_cap:
-            self._upload_cache.pop(next(iter(self._upload_cache)))
+        with self._upload_lock:
+            self._upload_cache.pop(key, None)
+            self._upload_cache[key] = padded
+            while len(self._upload_cache) > self._upload_cache_cap:
+                self._upload_cache.pop(next(iter(self._upload_cache)))
 
     def evaluate_deferred(self, mf: MFParams, test_rows):
         """Run an eval without reading the result back: ``(sums, n)`` with

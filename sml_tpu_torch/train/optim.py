@@ -1,0 +1,216 @@
+"""Adam with the JAX package's (torch-compatible) semantics (counterpart of
+``sml_tpu/train/optim.py``).
+
+The reference trains the MF tables with ``torch.optim.Adam(weight_decay=0)``
+and Θ with ``weight_decay=TR_l2``; the JAX package reproduces that with the
+optax chain ``add_decayed_weights(wd) -> scale_by_adam -> scale(-lr)``: L2
+is added to the gradient before the moments, and the step is
+``m_hat / (sqrt(v_hat) + eps)``. :func:`adam_update` is that chain as plain
+tensor ops in the same order, so both packages round alike.
+``torch.optim.Adam`` is not used: it computes
+``lr/bc1 * m / (sqrt(v)/sqrt(bc2) + eps)``, which rounds differently, and
+Adam's normalisation magnifies that over a sweep.
+
+State is an :class:`AdamState`: the step count as a host ``int`` (so no
+step waits on the device) and the moments as ``{name: tensor}`` maps whose
+names are the leaf paths of the JAX optimizer state (``user_emb``,
+``user/fc1_w``); :func:`opt_state_from_numpy` carries a JAX state across.
+Parameters and moments are updated in place.
+
+:func:`sparse_dense_adam_update` is the same step for row-sparse table
+gradients with exact dense semantics: a full-table g=0 pass (kernel K3 on
+the card, :mod:`sml_tpu_torch.ops.adam_kernel`) and an exact fix-up of the
+touched rows.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from sml_tpu_torch.device import resolve_device
+from sml_tpu_torch.ops.adam_kernel import fused_decay_adam
+
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-8
+
+
+class AdamState(NamedTuple):
+    count: int                      # steps taken
+    mu: Dict[str, torch.Tensor]     # first moments, by leaf name
+    nu: Dict[str, torch.Tensor]     # second moments, by leaf name
+
+
+class TableGrad(NamedTuple):
+    """Row-sparse gradient of a table: ``rows[k]`` is the gradient of row
+    ``idx[k]``; ``idx`` may repeat."""
+    idx: torch.Tensor    # (K,) int64
+    rows: torch.Tensor   # (K, d)
+
+
+def adam_init(params: Mapping) -> AdamState:
+    """Zero moments shaped like ``params`` (``{name: tensor}``)."""
+    return AdamState(
+        0, {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+            for n, p in params.items()},
+        {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+         for n, p in params.items()})
+
+
+def bias_corrections(count: int, b1: float = ADAM_B1,
+                     b2: float = ADAM_B2):
+    """``(1 - b1**count, 1 - b2**count)`` computed in float32 from the
+    integer step count, as the JAX package computes them; returned as
+    Python floats that hold the f32 values exactly."""
+    t = np.float32(count)
+    return (float(np.float32(1.0) - np.power(np.float32(b1), t)),
+            float(np.float32(1.0) - np.power(np.float32(b2), t)))
+
+
+def _full(value: float, like: torch.Tensor) -> torch.Tensor:
+    # a 0-d f32 tensor on the device: dividing by it is a true division
+    # on the card, where a host scalar becomes a reciprocal multiply
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def adam_update(params: Mapping, grads: Mapping, state: AdamState, *,
+                lr: float, weight_decay: float = 0.0, b1: float = ADAM_B1,
+                b2: float = ADAM_B2, eps: float = ADAM_EPS) -> AdamState:
+    """One step of the optax chain, in place on ``params`` and the moments.
+    ``grads[name]`` may be None (a leaf the loss does not reach: zero
+    gradient, so its moments decay and it moves on its momentum)."""
+    count = state.count + 1
+    bc1, bc2 = bias_corrections(count, b1, b2)
+    with torch.no_grad():
+        for name, p in params.items():
+            g = grads.get(name)
+            if g is None:
+                g = torch.zeros_like(p)
+            if weight_decay:
+                g = g + weight_decay * p
+            mu, nu = state.mu[name], state.nu[name]
+            mu.mul_(b1).add_(g * (1 - b1))
+            nu.mul_(b2).add_((g * g) * (1 - b2))
+            step = (mu / _full(bc1, p)) / (torch.sqrt(nu / _full(bc2, p))
+                                           + eps)
+            p.add_(step * (-lr))
+    return state._replace(count=count)
+
+
+def _collapse_duplicates(idx: torch.Tensor, rows: torch.Tensor
+                         ) -> torch.Tensor:
+    """Give every occurrence of a repeated index the SUMMED row gradient
+    (dense semantics square the summed gradient, not its pieces).
+
+    Sort-based and deterministic on the card: ``searchsorted`` into the
+    sorted indices gives each occurrence the segment id of its first
+    equal, and ``index_put_(accumulate=True)`` adds each segment's rows in
+    a fixed order (PyTorch sorts the indices on CUDA and accumulates each
+    one's rows serially). The JAX package sums with an equality-matrix
+    product; the two differ only in the rounding of three or more
+    duplicates."""
+    sorted_idx, _ = torch.sort(idx)
+    seg = torch.searchsorted(sorted_idx, idx)
+    sums = torch.zeros_like(rows).index_put_((seg,), rows, accumulate=True)
+    return sums[seg]
+
+
+def sparse_dense_adam_update(params, state: AdamState,
+                             sparse: Dict[str, TableGrad], *, lr: float,
+                             b1: float = ADAM_B1, b2: float = ADAM_B2,
+                             eps: float = ADAM_EPS) -> AdamState:
+    """One weight-decay-0 :func:`adam_update` step with exact dense
+    semantics for row-sparse gradients, in place.
+
+    Torch's dense ``nn.Embedding`` gradient makes Adam move every row every
+    step. This computes the same numbers without a dense gradient:
+
+    1. the touched rows' pre-update ``p``, ``mu``, ``nu`` are gathered;
+    2. the full-table g=0 pass runs in place on every leaf
+       (:func:`fused_decay_adam`: kernel K3 on the card, four launches for
+       the MF tables and biases);
+    3. the touched rows are recomputed from their pre-update values with
+       the summed gradient and scattered back (duplicates write identical
+       values).
+
+    ``params`` is a NamedTuple of tables (row axis first); ``sparse`` maps
+    field names to row gradients; other fields (the never-scored bias
+    tables) get the pure decay."""
+    count = state.count + 1
+    bc1, bc2 = bias_corrections(count, b1, b2)
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps)
+    with torch.no_grad():
+        for name in params._fields:
+            p = getattr(params, name)
+            mu, nu = state.mu[name], state.nu[name]
+            fix = None
+            if name in sparse:
+                idx, g_rows = sparse[name]
+                g_sum = _collapse_duplicates(idx, g_rows)
+                fix = (idx, g_sum, p[idx], mu[idx], nu[idx])
+            fused_decay_adam(p, mu, nu, bc1, bc2, **kw)
+            if fix is not None:
+                idx, g_sum, p_rows, mu_rows, nu_rows = fix
+                mu_f = g_sum * (1 - b1) + mu_rows * b1
+                nu_f = (g_sum * g_sum) * (1 - b2) + nu_rows * b2
+                p_f = p_rows + (mu_f / _full(bc1, p)) / (
+                    torch.sqrt(nu_f / _full(bc2, p)) + eps) * (-lr)
+                mu[idx] = mu_f
+                nu[idx] = nu_f
+                p[idx] = p_f
+    return state._replace(count=count)
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, object]:
+    """``{"a/b": leaf}`` from nested NamedTuples / mappings."""
+    if hasattr(tree, "_fields"):
+        items = ((f, getattr(tree, f)) for f in tree._fields)
+    elif isinstance(tree, Mapping):
+        items = tree.items()
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def opt_state_from_numpy(opt_state, device="cuda") -> AdamState:
+    """Carry an optimizer state across from the JAX package onto
+    ``device`` (the companion of ``models.transfer.theta_from_numpy``).
+
+    ``opt_state`` is the optax ``torch_adam`` chain state with numpy
+    leaves, ``(EmptyState(), ScaleByAdamState(count, mu, nu),
+    EmptyState())`` (e.g. ``jax.tree.map(np.asarray, state.mf_opt)``), its
+    ``ScaleByAdamState`` alone, or a mapping with ``count``/``mu``/``nu``.
+    ``mu``/``nu`` may be MFParams or TransferParams trees; their leaves are
+    named by path (``user_emb``, ``user/conv1_w``)."""
+    device = resolve_device(device)
+    adam = opt_state
+    # (a tuple has a .count method, so the chain is told apart by .mu)
+    if isinstance(opt_state, tuple) and not hasattr(opt_state, "mu"):
+        found = [s for s in opt_state if hasattr(s, "mu")]
+        if len(found) != 1:
+            raise ValueError("expected one ScaleByAdamState in the chain")
+        adam = found[0]
+
+    def get(name):
+        return adam[name] if isinstance(adam, Mapping) else getattr(adam,
+                                                                    name)
+
+    def tensors(tree):
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+                for k, v in _flatten(tree).items()}
+    return AdamState(int(np.asarray(get("count"))), tensors(get("mu")),
+                     tensors(get("nu")))
+
+
+def copy_opt_state(state: AdamState) -> AdamState:
+    """A deep copy (new buffers for every moment)."""
+    return AdamState(state.count,
+                     {k: v.clone() for k, v in state.mu.items()},
+                     {k: v.clone() for k, v in state.nu.items()})

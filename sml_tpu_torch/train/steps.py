@@ -1,0 +1,190 @@
+"""Training epochs (counterpart of ``sml_tpu/train/steps.py``).
+
+Each epoch narrows the rows to ``(u, i, j)`` triples, shuffles the real rows
+ahead of the padding and runs exactly ``ceil(n_real/B)`` optimizer steps as
+a Python loop: no phantom step ever decays the Adam moments. The returned
+loss vector is ``nb_max`` long (the padded batch count) with zeros in the
+skipped tail, the same vector the JAX scan returns.
+
+Gradient flow, as in the JAX package:
+
+* inner epoch (MF): the loss runs through the frozen Θ; the ``last``
+  snapshot rows are constants and only the MF tables learn. With
+  ``cfg.fast_table_adam`` the step differentiates with respect to the
+  gathered rows and applies :func:`sparse_dense_adam_update` (kernel K3 on
+  the card); otherwise the tables take a dense gradient and
+  :func:`adam_update`.
+* outer epoch (Θ): the rows come from the detached ``last``/``hat``
+  snapshots, upcast to f32 (snapshots may be stored bf16), and only Θ
+  learns.
+
+Parameters and moments are updated in place. Random draws (negative
+columns, shuffles, sampled negatives) come from one ``torch.Generator`` on
+the device, in a fixed order; replay mode draws nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from sml_tpu_torch.config import SMLConfig, TransferConfig
+from sml_tpu_torch.models.mf import MFParams
+from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
+                                           theta_leaves)
+from sml_tpu_torch.ops.batching import num_batches, shuffle_real_first
+from sml_tpu_torch.ops.losses import (bce_pair_loss, bpr_loss,
+                                      l2_embedding_penalty)
+from sml_tpu_torch.ops.sampling import PeriodIndex, sample_negatives
+from sml_tpu_torch.train.optim import (AdamState, TableGrad, adam_update,
+                                       sparse_dense_adam_update)
+
+
+def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
+               generator: torch.Generator, batch_size: int, step_fn,
+               shuffle: bool = True):
+    """Shuffle, then ``ceil(n_real/B)`` calls of ``step_fn(carry, rows_b,
+    mask_b, generator) -> (carry, loss)``. Returns ``(carry, losses)`` with
+    ``losses`` (nb_max,) f32 on the rows' device, 0 for skipped batches.
+    ``shuffle=False`` (replay mode) keeps the given order."""
+    if shuffle:
+        rows, mask = shuffle_real_first(generator, rows, mask)
+    nb_max = rows.shape[0] // batch_size
+    losses = torch.zeros(nb_max, dtype=torch.float32, device=rows.device)
+    for b in range(min(num_batches(n_real, batch_size), nb_max)):
+        sl = slice(b * batch_size, (b + 1) * batch_size)
+        carry, loss = step_fn(carry, rows[sl], mask[sl], generator)
+        losses[b] = loss.detach()
+    return carry, losses
+
+
+def transferred_pair_loss(theta: TransferParams, tcfg: TransferConfig,
+                          lu, li, lj, xu, xi, xj, mask: torch.Tensor,
+                          use_bce: bool) -> torch.Tensor:
+    """Score a (u, i, j) batch through Θ and reduce to the SML loss; the
+    positive and negative item rows go through the item tower as one
+    (2B, ·) batch."""
+    b = xu.shape[0]
+    nu = apply_rows(theta, tcfg, "user", lu, xu)
+    nij = apply_rows(theta, tcfg, "item", torch.cat([li, lj], dim=0),
+                     torch.cat([xi, xj], dim=0))
+    pos = torch.sum(nu * nij[:b], dim=-1)
+    neg = torch.sum(nu * nij[b:], dim=-1)
+    if use_bce:
+        return bce_pair_loss(pos, neg, mask)
+    return bpr_loss(pos, neg, mask)
+
+
+def _epoch_triples(rows: torch.Tensor, generator: torch.Generator,
+                   mode: str) -> torch.Tensor:
+    """Narrow the rows to (n, 3) before shuffling. In 'all' mode the rows
+    are eval-format ``[u, pos, negs...]`` and ONE negative column, drawn
+    once per epoch, serves every row."""
+    if mode != "all":
+        return rows
+    col = torch.randint(0, rows.shape[1] - 2, (1,), generator=generator,
+                        device=rows.device)
+    j = rows.index_select(1, col + 2)[:, 0]
+    return torch.stack([rows[:, 0], rows[:, 1], j], dim=1)
+
+
+def _g32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather rows, upcast to f32."""
+    return table[idx].to(torch.float32)
+
+
+def _triple(r: torch.Tensor, mode: str, index: Optional[PeriodIndex],
+            generator: torch.Generator, tries: int):
+    u, i = r[:, 0].long(), r[:, 1].long()
+    if mode in ("all", "replay"):
+        j = r[:, 2].long()
+    else:
+        j = sample_negatives(index, u, generator, tries)
+    return u, i, j
+
+
+def make_inner_epoch(cfg: SMLConfig):
+    """Inner (MF) epoch through the frozen Θ: ``epoch(mf, opt, theta,
+    last_u, last_i, rows, mask, n_real, generator, index=None) -> (mf,
+    opt, losses)``, with ``mf`` updated in place."""
+    tcfg = cfg.transfer
+    batch = cfg.mf_batch_size
+    mode = "replay" if cfg.replay_mode else cfg.mf_sample
+
+    def row_loss(xu, xi, xj, theta, lu, li, lj, m):
+        loss = transferred_pair_loss(theta, tcfg, lu, li, lj, xu, xi, xj, m,
+                                     cfg.use_bce)
+        return loss + cfg.mf_l2 * l2_embedding_penalty(m, xu, xi, xj)
+
+    def epoch(mf: MFParams, opt: AdamState, theta: TransferParams,
+              last_u, last_i, rows, mask, n_real: int,
+              generator: torch.Generator,
+              index: Optional[PeriodIndex] = None):
+        rows = _epoch_triples(rows, generator, mode)
+
+        def step(opt, r, m, gen):
+            u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
+            lu, li, lj = _g32(last_u, u), _g32(last_i, i), _g32(last_i, j)
+            if cfg.fast_table_adam:
+                xs = [mf.user_emb[u].requires_grad_(),
+                      mf.item_emb[i].requires_grad_(),
+                      mf.item_emb[j].requires_grad_()]
+                with torch.enable_grad():
+                    loss = row_loss(*xs, theta, lu, li, lj, m)
+                    gu, gi, gj = torch.autograd.grad(loss, xs)
+                sparse = {"user_emb": TableGrad(u, gu),
+                          "item_emb": TableGrad(torch.cat([i, j]),
+                                                torch.cat([gi, gj], dim=0))}
+                opt = sparse_dense_adam_update(mf, opt, sparse,
+                                               lr=cfg.mf_lr)
+                return opt, loss
+            tabs = {f: getattr(mf, f).detach().requires_grad_()
+                    for f in ("user_emb", "item_emb")}
+            with torch.enable_grad():
+                loss = row_loss(tabs["user_emb"][u], tabs["item_emb"][i],
+                                tabs["item_emb"][j], theta, lu, li, lj, m)
+                grads = dict(zip(tabs, torch.autograd.grad(
+                    loss, list(tabs.values()))))
+            opt = adam_update(mf._asdict(), grads, opt, lr=cfg.mf_lr)
+            return opt, loss
+
+        opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
+                                 step, shuffle=mode != "replay")
+        return mf, opt, losses
+
+    return epoch
+
+
+def make_outer_epoch(cfg: SMLConfig):
+    """Outer (Θ) epoch on the detached snapshots: ``epoch(theta, opt,
+    last_u, last_i, hat_u, hat_i, rows, mask, n_real, generator,
+    index=None) -> (theta, opt, losses)``, with Θ updated in place."""
+    tcfg = cfg.transfer
+    batch = cfg.tr_batch_size
+    mode = "replay" if cfg.replay_mode else cfg.tr_sample_type
+
+    def epoch(theta: TransferParams, opt: AdamState, last_u, last_i, hat_u,
+              hat_i, rows, mask, n_real: int, generator: torch.Generator,
+              index: Optional[PeriodIndex] = None):
+        rows = _epoch_triples(rows, generator, mode)
+        leaves = theta_leaves(theta)
+
+        def step(opt, r, m, gen):
+            u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
+            with torch.enable_grad():
+                loss = transferred_pair_loss(
+                    theta, tcfg, _g32(last_u, u), _g32(last_i, i),
+                    _g32(last_i, j), _g32(hat_u, u), _g32(hat_i, i),
+                    _g32(hat_i, j), m, cfg.use_bce)
+                grads = dict(zip(leaves, torch.autograd.grad(
+                    loss, list(leaves.values()))))
+            opt = adam_update(leaves, grads, opt, lr=cfg.tr_lr,
+                              weight_decay=cfg.tr_l2)
+            return opt, loss
+
+        opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
+                                 step, shuffle=mode != "replay")
+        return theta, opt, losses
+
+    return epoch

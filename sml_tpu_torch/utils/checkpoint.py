@@ -3,18 +3,25 @@
 
 One ``ckpt_<step>.npz`` per checkpoint plus ``manifest.json`` naming the
 latest, both written atomically (tmp + rename). Leaves are keyed by path:
-``mf/user_emb``, ``theta/user/fc1_w``, ``last_user``, ``hat_item``, …;
-bfloat16 leaves are stored as their uint16 bits, with the true dtype names
-recorded under ``__dtypes__``. So a checkpoint that ``sml_tpu`` wrote loads
-here (:func:`state_from_checkpoint`), and the port writes the same keys.
+``mf/user_emb``, ``theta/user/fc1_w``, ``last_user``, ``hat_item``,
+``mf_opt/1/count``, ``mf_opt/1/mu/user_emb``, ``tr_opt/1/nu/item/fc2_b``,
+``key``; bfloat16 leaves are stored as their uint16 bits, with the true
+dtype names under ``__dtypes__``. So a checkpoint that ``sml_tpu`` wrote
+loads here (:func:`state_from_checkpoint`), and one the port wrote restores
+in ``sml_tpu`` (``restore_checkpoint`` reads the keys of its template).
 
-The port's state holds the serving leaves (tables, Θ, snapshots); the
-optimizer states and the PRNG key that ``sml_tpu`` also stores are read by
-the training slice.
+The random streams differ: ``sml_tpu`` stores its PRNG key (two uint32
+words) under ``key``; the port stores its generator's state under
+``torch_generator_state``, an extra key ``sml_tpu`` never reads, and under
+``key`` two words digested from that state. Resuming a port checkpoint on a
+device of the same kind restores the generator exactly; resuming one that
+``sml_tpu`` wrote (or one from another kind of device) seeds the port's
+generator from the ``key`` words, which starts a new stream.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import tempfile
@@ -25,28 +32,50 @@ import torch
 
 from sml_tpu_torch.device import resolve_device
 from sml_tpu_torch.models.mf import MFParams
-from sml_tpu_torch.models.transfer import TOWER_FIELDS, theta_from_numpy
+from sml_tpu_torch.models.transfer import (TOWER_FIELDS, theta_from_numpy,
+                                           theta_leaves)
 from sml_tpu_torch.train.engine import SMLState
+from sml_tpu_torch.train.optim import AdamState
 
 SNAPSHOTS = ("last_user", "last_item", "hat_user", "hat_item")
+GENERATOR_KEY = "torch_generator_state"
+
+
+def _key_words(gen: torch.Generator) -> torch.Tensor:
+    """Two uint32 words (held in int64) digested from the generator's
+    state, written under ``key`` for ``sml_tpu``'s restore."""
+    digest = hashlib.blake2b(gen.get_state().numpy().tobytes(),
+                             digest_size=8).digest()
+    return torch.tensor([int.from_bytes(digest[:4], "little"),
+                         int.from_bytes(digest[4:], "little")],
+                        dtype=torch.int64)
 
 
 def flatten_state(state: SMLState) -> Dict[str, torch.Tensor]:
-    """``{path: tensor}`` under the JAX package's key names."""
+    """``{path: tensor}`` under the JAX package's key names, plus the
+    port's generator state."""
     flat = {f"mf/{f}": getattr(state.mf, f) for f in MFParams._fields}
-    for side in ("user", "item"):
-        tower = getattr(state.theta, side)
-        for f in TOWER_FIELDS:
-            flat[f"theta/{side}/{f}"] = getattr(tower, f).detach()
+    for name, p in theta_leaves(state.theta).items():
+        flat[f"theta/{name}"] = p.detach()
     for f in SNAPSHOTS:
         flat[f] = getattr(state, f)
+    for opt in ("mf_opt", "tr_opt"):
+        ost: AdamState = getattr(state, opt)
+        flat[f"{opt}/1/count"] = torch.tensor(ost.count, dtype=torch.int32)
+        for part in ("mu", "nu"):
+            for name, t in getattr(ost, part).items():
+                flat[f"{opt}/1/{part}/{name}"] = t
+    flat["key"] = _key_words(state.gen)
+    flat[GENERATOR_KEY] = state.gen.get_state()
     return flat
 
 
-def _to_numpy(t: torch.Tensor):
+def _to_numpy(key: str, t: torch.Tensor):
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    if key == "key":
+        return t.numpy().astype(np.uint32), None
     return t.numpy(), None
 
 
@@ -66,7 +95,7 @@ def save_checkpoint(directory: str, step: int, state: SMLState,
     os.makedirs(directory, exist_ok=True)
     flat, ext = {}, {}
     for key, t in flatten_state(state).items():
-        flat[key], name = _to_numpy(t)
+        flat[key], name = _to_numpy(key, t)
         if name is not None:
             ext[key] = name
     if ext:
@@ -102,14 +131,32 @@ def latest_step(directory: str) -> Optional[int]:
         return int(json.load(fh)["step"])
 
 
+def read_manifest(directory: str) -> Dict[str, Any]:
+    with open(os.path.join(directory, "manifest.json")) as fh:
+        return json.load(fh)
+
+
+def _generator(data, dev: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=dev)
+    if GENERATOR_KEY in data.files:
+        saved = torch.from_numpy(np.ascontiguousarray(data[GENERATOR_KEY]))
+        # a CPU generator's state and a CUDA generator's differ in size:
+        # only a state saved on the same kind of device restores
+        if saved.numel() == gen.get_state().numel():
+            gen.set_state(saved)
+            return gen
+    words = np.asarray(data["key"]).astype(np.uint64)
+    return gen.manual_seed(int((words[0] << np.uint64(32)) | words[1])
+                           & ((1 << 63) - 1))
+
+
 def state_from_checkpoint(directory: str, device="cuda",
                           step: Optional[int] = None) -> SMLState:
     """The port's :class:`SMLState` from checkpoint ``step`` (default: the
-    latest) that ``sml_tpu`` (or this package) wrote, on ``device``;
-    snapshot dtypes are kept."""
+    latest) that ``sml_tpu`` or the port wrote, on ``device``: tables, Θ,
+    snapshots (dtypes kept), both Adam states and the run's generator."""
     dev = resolve_device(device)
-    with open(os.path.join(directory, "manifest.json")) as fh:
-        manifest = json.load(fh)
+    manifest = read_manifest(directory)
     fname = manifest["file"] if step is None else f"ckpt_{step:06d}.npz"
     with np.load(os.path.join(directory, fname)) as data:
         ext = (json.loads(str(data["__dtypes__"]))
@@ -118,8 +165,18 @@ def state_from_checkpoint(directory: str, device="cuda",
         def leaf(key):
             return _to_tensor(data[key], ext.get(key)).to(dev)
 
+        def opt_state(opt: str, names) -> AdamState:
+            return AdamState(
+                int(data[f"{opt}/1/count"]),
+                {n: leaf(f"{opt}/1/mu/{n}").contiguous() for n in names},
+                {n: leaf(f"{opt}/1/nu/{n}").contiguous() for n in names})
+
         mf = MFParams(*(leaf(f"mf/{f}") for f in MFParams._fields))
         theta = theta_from_numpy(
             {side: {f: leaf(f"theta/{side}/{f}") for f in TOWER_FIELDS}
              for side in ("user", "item")}, device=dev)
-        return SMLState(mf=mf, theta=theta, **{f: leaf(f) for f in SNAPSHOTS})
+        return SMLState(
+            mf=mf, theta=theta, **{f: leaf(f) for f in SNAPSHOTS},
+            mf_opt=opt_state("mf_opt", MFParams._fields),
+            tr_opt=opt_state("tr_opt", theta_leaves(theta)),
+            gen=_generator(data, dev))

@@ -7,14 +7,19 @@ JAX conftest (this file imports no JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 1e-4 (f32 sums over C2*d and H terms in another order);
-K2 exact on integer-valued tables.
+K2 exact on integer-valued tables; K3 bit-equal to its plain version
+(every operation explicitly rounded), ``p`` held to rtol 1e-6.
 """
 
+import json
+
+import numpy as np
 import pytest
 import torch
 
 from sml_tpu_torch.config import SMLConfig, TransferConfig
 from sml_tpu_torch.models.transfer import init_transfer
+from sml_tpu_torch.ops import adam_kernel as AK
 from sml_tpu_torch.ops import eval_kernel as E
 from sml_tpu_torch.ops import transfer_kernel as TK
 
@@ -105,3 +110,81 @@ def test_engine_serving_path_on_card(card):
                                rtol=1e-4, atol=1e-4)
     for k in cfg.topk:
         assert abs(gm[k]["recall"] - cm[k]["recall"]) * 200 <= 1 + 1e-6
+
+
+@pytest.mark.parametrize("shape,offset", [((1001, 64), 0), ((777, 1), 0),
+                                          ((4099,), 1), ((5,), 0)])
+def test_decay_adam_kernel_matches_plain(card, shape, offset):
+    from sml_tpu_torch.train.optim import (ADAM_B1, ADAM_B2, ADAM_EPS,
+                                           bias_corrections)
+    g = torch.Generator().manual_seed(5)
+    n = int(np.prod(shape))
+    bufs = [torch.randn(n + 1, generator=g) for _ in range(3)]
+    bufs[1] *= 1e-2
+    bufs[2] = bufs[2].abs() * 1e-4
+    # offset 1: a view 4 bytes past an aligned buffer (the scalar path)
+    got = [b.to(card)[offset:offset + n].view(shape) for b in bufs]
+    plain = [t.clone() for t in got]
+    bc1, bc2 = bias_corrections(7)
+    kw = dict(lr=0.01, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
+    before = AK.decay_adam_cuda.launches
+    AK.fused_decay_adam(*got, bc1, bc2, **kw)
+    assert AK.decay_adam_cuda.launches == before + 1
+    AK.decay_adam_plain(*plain, bc1, bc2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-6, atol=0)
+    assert int((got[0] != plain[0]).sum()) == 0
+
+
+def test_decay_adam_kernel_rejects_what_it_cannot_take(card):
+    p = torch.zeros(8, device=card)
+    with pytest.raises(ValueError, match="distinct"):
+        AK.decay_adam_cuda(p, p, torch.zeros(8, device=card), 0.1, 0.01,
+                           lr=0.01, b1=0.9, b2=0.999, eps=1e-8)
+    with pytest.raises(ValueError, match="float32"):
+        AK.decay_adam_cuda(p.double(), p.double().clone(),
+                           p.double().clone(), 0.1, 0.01, lr=0.01, b1=0.9,
+                           b2=0.999, eps=1e-8)
+
+
+def test_pair_hash_on_card_matches_numpy(card):
+    from sml_tpu_torch.ops import sampling as S
+    rng = np.random.default_rng(6)
+    u = rng.integers(0, 2**32, 100_000, dtype=np.uint64)
+    i = rng.integers(0, 2**32, 100_000, dtype=np.uint64)
+    u[:2], i[:2] = 2**32 - 1, 0
+    want = S._hash_pair_np(u, i).astype(np.int64)
+    got = S._hash_pair_torch(torch.from_numpy(u.astype(np.int64)).to(card),
+                             torch.from_numpy(i.astype(np.int64)).to(card))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    inter = np.stack([u[:5000] % 1000, i[:5000] % 300], 1).astype(np.int64)
+    idx = S.build_period_index(inter, 300, device=card)
+    assert S.is_positive(idx, torch.from_numpy(inter[:, 0]).to(card),
+                         torch.from_numpy(inter[:, 1]).to(card)).all()
+
+
+def test_sml_cli_on_card(card, tmp_path, capsys):
+    from sml_tpu_torch import cli
+    d = str(tmp_path)
+    assert cli.main(["synth", "--out", f"{d}/synth", "--users", "300",
+                     "--items", "150", "--periods", "6", "--interactions",
+                     "600", "--first-test", "3", "--neg-num", "49"]) == 0
+    capsys.readouterr()
+    counts = (AK.decay_adam_cuda.launches, TK.transfer_rows_cuda.launches,
+              E.masked_rank_cuda.launches)
+    assert cli.main(["--device", "cuda", "sml", "--data-root", d,
+                     "--data-name", "synth", "--num-periods", "6",
+                     "--online-train-start", "2", "--online-test-start",
+                     "4", "--multi-num", "2", "--latent", "16",
+                     "--mf-sample", "alone", "--eval-scoring", "masked",
+                     "--saddle-retries", "0"]) == 0
+    out = capsys.readouterr().out
+    summary = json.loads(out[out.index("{"):])
+    assert 0.0 <= summary["test_recall@5"] <= 1.0
+    after = (AK.decay_adam_cuda.launches, TK.transfer_rows_cuda.launches,
+             E.masked_rank_cuda.launches)
+    # 420 users + items: the auto rule keeps the dense path (no K3);
+    # refreshes (K1) and masked tests (K2) run on the card
+    assert after[0] == counts[0]
+    assert after[1] > counts[1] and after[2] > counts[2]

@@ -140,3 +140,53 @@ def test_cpu_tensors_never_launch_kernels(synthetic_dataset):
     eng.evaluate(state.mf, ev)
     assert (transfer_kernel.transfer_rows_cuda.launches,
             eval_kernel.masked_rank_cuda.launches) == before == (0, 0)
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_gpu(
+        synthetic_dataset, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from sml_tpu_torch import cli
+    from sml_tpu_torch.config import SMLConfig
+    from sml_tpu_torch.ops.sampling import build_period_index
+    from sml_tpu_torch.train.driver import SMLDriver
+    from sml_tpu_torch.train.optim import opt_state_from_numpy
+
+    dspec, _, _ = synthetic_dataset
+    args = ["sml", "--data-root", dspec.root, "--data-name", dspec.name,
+            "--num-periods", str(dspec.num_periods), "--online-train-start",
+            str(dspec.online_train_start), "--online-test-start",
+            str(dspec.online_test_start), "--latent", "8"]
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(args)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SMLDriver(SMLConfig(latent_dim=8), dspec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_period_index(np.zeros((4, 2), np.int64), 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        opt_state_from_numpy({"count": 0, "mu": {}, "nu": {}})
+    # the same command runs when asked for the CPU
+    out = tmp_path / "m.npz"
+    assert cli.main(["--device", "cpu"] + args + [
+        "--multi-num", "1", "--mf-sample", "alone", "--saddle-retries", "0",
+        "--save-model", str(out)]) == 0
+    assert out.exists()
+
+
+def test_cpu_training_never_launches_kernels(synthetic_dataset):
+    from sml_tpu_torch.config import SMLConfig, TransferConfig
+    from sml_tpu_torch.ops import adam_kernel, eval_kernel, transfer_kernel
+    from sml_tpu_torch.train.driver import SMLDriver
+
+    dspec, _, _ = synthetic_dataset
+    cfg = SMLConfig(latent_dim=8, multi_num=1, mf_sample="alone",
+                    fast_table_adam=True, eval_scoring="masked",
+                    eval_batch_size=64, mf_batch_size=64,
+                    transfer=TransferConfig(latent_dim=8, fc_hidden=32))
+    driver = SMLDriver(cfg, dspec, device="cpu")
+    report = driver.run(max_periods=3)
+    driver.close()
+    assert report.test_counts
+    assert (adam_kernel.decay_adam_cuda.launches,
+            transfer_kernel.transfer_rows_cuda.launches,
+            eval_kernel.masked_rank_cuda.launches) == (0, 0, 0)

@@ -167,17 +167,33 @@ def test_engine_eval_set_cache_is_content_keyed():
     assert teng.make_eval_set(other) is not upgraded
 
 
-def test_training_entry_points_raise_until_ported():
+def test_training_entry_points_raise_until_ported(synthetic_dataset,
+                                                  tmp_path):
+    """Training is ported (slice 2); what is not yet ported still raises,
+    naming its ROADMAP item: the six other transfer kinds, attributed
+    evaluation and the profiler."""
+    from sml_tpu_torch.train.driver import SMLDriver
+
+    dspec, _, _ = synthetic_dataset
     _, tcfg = _cfgs("float32")
-    teng = SMLEngine(tcfg, 10, 10, device="cpu")
+    teng = SMLEngine(tcfg.replace(theta_warmstart_steps=2,
+                                  theta_warmstart_rows=8), 10, 10,
+                     device="cpu")
     state = teng.init_state()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        teng.inner_epoch(state, None, None)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        teng.outer_epoch(state, None, None)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        SMLEngine(tcfg.replace(theta_warmstart_steps=5), 10, 10,
+    rows = np.stack([np.arange(10), np.arange(10), np.arange(10)[::-1]], 1)
+    state, losses = teng.inner_epoch(teng.snapshot_last(state),
+                                     *teng.prep_inner(rows))
+    state, losses = teng.outer_epoch(teng.snapshot_hat(state),
+                                     *teng.prep_outer(rows))
+    assert torch.isfinite(losses).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SMLEngine(tcfg.replace(transfer=TransferConfig(kind="gru")), 10, 10,
                   device="cpu").init_state()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SMLDriver(tcfg.replace(attributed_eval=True), dspec, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SMLDriver(tcfg.replace(profile_dir=str(tmp_path)), dspec,
+                  device="cpu")
 
 
 def test_init_state_is_seeded_and_keeps_pretrained():
