@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's serving and training paths once on one NVIDIA GPU.
+"""Drive the port's paths once on one NVIDIA GPU: serving, the training
+sweep, the eval-design probes, the pretrainer and the baselines.
 
 Run from the repository root, on a host with one CUDA card:
 
@@ -49,14 +50,50 @@ Phases, one JSON line each:
             record.
             With two test periods the summary's test side is empty (the
             reference averages test periods [N3:-1]) and reads 0.
-10. the card's name and power limit as nvidia-smi prints them, the
-   ``kernels`` line (launches from the train-sweep run), and last
+10. P1      every instantiation of ``masked_rank_kernel`` that the
+            eval-design probe ``eval_kernel_probe`` runs (rows per block 32
+            or 64, grid order ij or ji, f32 or bf16) at the probe's shape
+            (16,384 rows x 20,480 items, d=64, 999 negatives; integer
+            tables), each exact against K2's plain version; times, bound,
+            a ``torch.matmul`` yardstick. Then the probe itself
+            (``python -m sml_tpu_torch.scripts.eval_kernel_probe``) with
+            its launches counted.
+11. P2      ``candidate_scores_kernel`` against its plain version at B=1024,
+            C=1001, I=20,000, d=64, bf16: exact on integer tables, within
+            1e-4 on N(0,1) ones; times, bound, and the nearest library
+            route (a bf16 matmul of all scores, then ``torch.gather``: two
+            calls).
+12. P3      ``dense_mask_rank_kernel`` against its plain version on 16
+            batches of 1024 rows, I_pad=20,480, 1,001 distinct candidates
+            per row, the target included: exact on integer tables, at most
+            ``K2_RANDOM_FLIPS_PER_16K`` flips on random ones; times, bound,
+            a matmul of the scores as yardstick.
+13. eval-probes  ``python -m sml_tpu_torch.scripts.eval_variants`` at its
+            defaults (16,384 rows, 100,000 users, 20,000 items, 1,000
+            candidates) for ``PROBE_ROUNDS`` rounds: every variant runs,
+            and P2's and P3's launches equal 16 per evaluation.
+14. pretrain ``pretrain_mf`` on a seeded ``generate_synthetic_dataset`` at
+            the Yelp widths (``PRE_PERIODS`` periods of ``PRE_ROWS``
+            interactions, the test from period ``PRE_TEST``): recall@20
+            above random (20/1,000) by ``PRE_RECALL_Z`` standard errors of
+            its measurement on ``PRE_ROWS`` rows; no K3 launch (the auto rule
+            keeps 120,000 table rows on the dense path); then one dense
+            and one forced ``fast_lr`` plain epoch, timed, the latter with
+            its derived K3 launches.
+15. baselines ``BaselineDriver`` full, fine and spmf over the two periods
+            after the pretrain period, from the pretrained tables: two
+            attributed ``baseline_test`` records each (the dataset ships
+            new-entity ids), metrics in [0, 1], full retrain above random
+            by ``BASE_RECALL_Z`` standard errors.
+16. the card's name and power limit as nvidia-smi prints them, the
+   ``kernels`` line (launches from each kernel's own path: the train
+   sweep for K1-K3, the probes for P1-P3), and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits 1 before doing anything. Bounds
-use the H100 SXM data sheet: 67 TFLOP/s f32 outside the tensor cores and
-3.35 TB/s HBM.
+use the H100 SXM data sheet: 67 TFLOP/s f32 outside the tensor cores, 989
+TFLOP/s bf16 in them (for bf16 inputs) and 3.35 TB/s HBM.
 """
 
 from __future__ import annotations
@@ -71,6 +108,7 @@ import tempfile
 import time
 
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 without tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
 
 N_USERS, N_ITEMS, DIM = 100_000, 20_000, 64
@@ -98,6 +136,23 @@ TRAIN_ATOL = 1e-4
 LOSS_RTOL = 1e-5
 INNER_ROWS, OUTER_ROWS = 8192, 4096
 SWEEP_PERIODS, SWEEP_TRAIN_ROWS, SWEEP_TEST_ROWS = 4, 65_536, 16_384
+# eval-design probes: P1 at its probe's shape; the probe mains' repeats
+PROBE_ROWS, PROBE_ITEMS = 16_384, 20_480
+PROBE_TRIALS, PROBE_ROUNDS = 3, 3
+# P2 on N(0,1) tables: bf16 products are exact in f32, only the order of
+# the 64 sums differs (scores ~N(0, 64))
+P2_RANDOM_ATOL = 1e-4
+# pretrain and baselines: a synthetic dataset with signal at the Yelp
+# widths; the 999-negative test rows of the last PRE_PERIODS - PRE_TEST
+# periods are the slow part of writing it (numpy, on the host)
+PRE_PERIODS, PRE_TEST, PRE_ROWS = 30, 27, 20_000
+PRE_EPOCHS, PRE_BATCH, PRE_INIT_SCALE = 8, 1024, 0.1
+BASE_EPOCHS, BASE_POOL = 1, 100_000
+# recall@20 on PRE_ROWS test rows must clear random (20/1,000) by this
+# many standard errors of such a measurement: pretraining by a clear
+# margin, the full retrain (one epoch from the pretrained tables) at all
+RANDOM_RECALL20 = 20 / (1 + NEG)
+PRE_RECALL_Z, BASE_RECALL_Z = 5.0, 3.0
 
 
 def emit(obj) -> None:
@@ -124,8 +179,8 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
@@ -219,8 +274,8 @@ def phase_k1(torch):
 
 
 def distinct_eval_rows(torch, n_rows: int, n_users: int, n_items: int,
-                       seed: int):
-    """(n_rows, 2 + NEG) int64 rows ``[user, pos, 999 negatives]`` with
+                       seed: int, neg: int = NEG):
+    """(n_rows, 2 + neg) int64 rows ``[user, pos, neg negatives]`` with
     distinct candidates per row, made on the card from a seed."""
     import numpy as np
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -230,7 +285,7 @@ def distinct_eval_rows(torch, n_rows: int, n_users: int, n_items: int,
     for s in range(0, n_rows, 2048):
         r = min(2048, n_rows - s)
         keys = torch.rand(r, n_items, generator=g, device="cuda")
-        parts.append(torch.topk(keys, 1 + NEG, dim=1).indices)
+        parts.append(torch.topk(keys, 1 + neg, dim=1).indices)
     rows = torch.cat([users, torch.cat(parts)], dim=1)
     return np.ascontiguousarray(rows.cpu().numpy().astype(np.int64))
 
@@ -764,6 +819,391 @@ def phase_train_sweep(torch):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def quiet_main(main, argv):
+    """Run a probe's ``main(argv)`` with its JSON document captured (this
+    script's stdout carries one JSON line per phase)."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def phase_p1(torch):
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.scripts import eval_kernel_probe as probe
+
+    ue, items_t, sstar, maskp = probe.probe_inputs(
+        PROBE_ROWS, PROBE_ITEMS, DIM, NEG, torch.device("cuda"))
+    ipad = ek.pad_items(PROBE_ITEMS)
+    want = ek.masked_rank_plain(ue, items_t, sstar, maskp)
+    mismatch, variants_ms = {}, {}
+    for name, spec in probe.VARIANTS.items():
+        run = probe.make_variant(**spec)
+        got = run(ue, items_t, sstar, maskp)
+        torch.cuda.synchronize()
+        mismatch[name] = int((got != want).sum())
+        variants_ms[name] = cuda_ms(
+            torch, lambda: run(ue, items_t, sstar, maskp), 10)
+    check(not any(mismatch.values()),
+          f"P1 ranks differ from the plain version: {mismatch}")
+    out = {"phase": "P1", "rows": PROBE_ROWS, "I_pad": ipad, "d": DIM,
+           "rank_mismatch": mismatch, "variants_ms": variants_ms,
+           "ms": variants_ms["v0"],
+           "plain_ms": cuda_ms(
+               torch, lambda: ek.masked_rank_plain(ue, items_t, sstar, maskp),
+               2),
+           "library_ms": cuda_ms(torch, lambda: torch.matmul(ue, items_t),
+                                 10)}
+    # the function needs the scores of the set mask bits only; it reads ue,
+    # the item table, the mask and sstar and writes rank once each
+    flops = 2 * DIM * set_bits(maskp)
+    rest = PROBE_ROWS * ipad // 8 + 2 * PROBE_ROWS * 4
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        flops, (PROBE_ROWS * DIM + DIM * ipad) * 4 + rest)
+    out["bf16_bound_ms"], out["bf16_bound_by"] = bound_ms(
+        flops, (PROBE_ROWS * DIM + DIM * ipad) * 2 + rest, PEAK_BF16_FLOPS)
+    out["dense_design_bound_ms"] = bound_ms(2 * PROBE_ROWS * DIM * ipad,
+                                            0)[0]
+    out["flops"] = flops
+
+    # the probe's own path, its launches counted
+    ek.masked_rank_variant_cuda.launches = 0
+    res = quiet_main(probe.main, ["--device", "cuda", "--trials",
+                                  str(PROBE_TRIALS)])
+    launches = ek.masked_rank_variant_cuda.launches
+    want_launches = len(probe.VARIANTS) * (1 + PROBE_TRIALS)
+    check(launches == want_launches,
+          f"P1 launched {launches} times in the probe, expected "
+          f"{want_launches}")
+    check(all(v.get("exact_vs_v0") for v in res["variants"].values()),
+          f"eval_kernel_probe variants not exact: {res['variants']}")
+    out["probe_best_ms"] = {n: v["best_ms"]
+                            for n, v in res["variants"].items()}
+    out["launches"] = launches
+    emit(out)
+    return {"max_abs_err": 0, "launches": launches,
+            **{k: out[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "variants_ms")}}
+
+
+def probe_eval_rows(torch):
+    """16,384 eval rows ``[user, pos, 1,000 negatives]``: 1,001 distinct
+    candidates per row, the probes' shape."""
+    return torch.from_numpy(distinct_eval_rows(
+        torch, EVAL_ROWS, N_USERS, N_ITEMS, SEED + 91, neg=1000)).cuda()
+
+
+def int_or_randn(torch, g, shape, kind):
+    if kind == "int":
+        return torch.randint(-1, 2, shape, generator=g).bfloat16().cuda()
+    return torch.randn(shape, generator=g).bfloat16().cuda()
+
+
+def phase_p2(torch, rows):
+    from sml_tpu_torch.ops import probe_kernels as pk
+
+    cand = rows[:, 1:].to(torch.int32).contiguous()          # (16384, 1001)
+    n_cand = cand.shape[1]
+    g = torch.Generator().manual_seed(SEED + 92)
+    tables = {kind: (int_or_randn(torch, g, (EVAL_ROWS, DIM), kind),
+                     int_or_randn(torch, g, (N_ITEMS, DIM), kind))
+              for kind in ("int", "randn")}
+    err = {"int": 0.0, "randn": 0.0}
+    batches = range(0, EVAL_ROWS, EVAL_BATCH)
+    for kind, (ue, tab) in tables.items():
+        for s in batches:
+            sl = slice(s, s + EVAL_BATCH)
+            got = pk.candidate_scores_cuda(ue[sl], cand[sl], tab)
+            want = pk.candidate_scores_plain(ue[sl], cand[sl], tab)
+            err[kind] = max(err[kind], (got - want).abs().max().item())
+    torch.cuda.synchronize()
+    check(err["int"] == 0.0, f"P2 scores differ on integer tables: {err}")
+    check(err["randn"] <= P2_RANDOM_ATOL,
+          f"P2 max abs err {err['randn']} over {P2_RANDOM_ATOL}")
+
+    ue, tab = tables["randn"]
+    tab_t = tab.T.contiguous()
+    parts = [(ue[s:s + EVAL_BATCH], cand[s:s + EVAL_BATCH]) for s in batches]
+    nb = len(parts)
+
+    def kernel():
+        for u, c in parts:
+            pk.candidate_scores_cuda(u, c, tab)
+
+    def plain():
+        for u, c in parts:
+            pk.candidate_scores_plain(u, c, tab)
+
+    def library():
+        for u, c in parts:
+            torch.gather(torch.mm(u, tab_t, out_dtype=torch.float32), 1,
+                         c.long())
+
+    out = {"phase": "P2", "B": EVAL_BATCH, "C": n_cand, "items": N_ITEMS,
+           "d": DIM, "max_abs_err": err, "ms": cuda_ms(torch, kernel, 10) / nb,
+           "plain_ms": cuda_ms(torch, plain, 3) / nb,
+           "library_ms": cuda_ms(torch, library, 10) / nb,
+           "library_calls": 2}
+    # per call, the mean over the batches: cand read and scores written
+    # once, ue once, and each distinct candidate row of the table once
+    rows_read = sum(int(torch.unique(c).numel()) for _, c in parts) / nb
+    nbytes = 2 * EVAL_BATCH * n_cand * 4 + EVAL_BATCH * DIM * 2 \
+        + rows_read * DIM * 2
+    flops = 2 * EVAL_BATCH * n_cand * DIM
+    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes,
+                                                PEAK_BF16_FLOPS)
+    out["flops"], out["bytes"] = flops, nbytes
+    out["tpu_design_flops"] = 2 * EVAL_BATCH * N_ITEMS * DIM
+    emit(out)
+    return {"max_abs_err": err["randn"],
+            **{k: out[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+
+
+def phase_p3(torch, rows):
+    from sml_tpu_torch.ops import probe_kernels as pk
+    from sml_tpu_torch.scripts.eval_variants import build_candidate_mask
+
+    ipad = -(-N_ITEMS // 2048) * 2048
+    maskm = build_candidate_mask(rows, ipad)                  # targets in
+    check(int(maskm.sum(dtype=torch.int64)) == EVAL_ROWS * (rows.shape[1] - 1),
+          "the dense masks do not hold one entry per distinct candidate")
+    tgt = rows[:, 1]
+    g = torch.Generator().manual_seed(SEED + 93)
+    mismatch = {"int": 0, "randn": 0}
+    max_diff = 0
+    tables = {}
+    for kind in mismatch:
+        tab = torch.zeros(ipad, DIM, dtype=torch.bfloat16, device="cuda")
+        tab[:N_ITEMS] = int_or_randn(torch, g, (N_ITEMS, DIM), kind)
+        ue = int_or_randn(torch, g, (EVAL_ROWS, DIM), kind)
+        tables[kind] = (tab, ue)
+        for s in range(0, EVAL_ROWS, EVAL_BATCH):
+            sl = slice(s, s + EVAL_BATCH)
+            got = pk.dense_mask_rank_cuda(tab, ue[sl], tgt[sl], maskm[sl])
+            want = pk.dense_mask_rank_plain(tab, ue[sl], tgt[sl], maskm[sl])
+            mismatch[kind] += int((got != want).sum())
+            max_diff = max(max_diff, int((got - want).abs().max()))
+    torch.cuda.synchronize()
+    check(mismatch["int"] == 0, f"P3 ranks differ on integer tables")
+    check(mismatch["randn"] <= K2_RANDOM_FLIPS_PER_16K,
+          f"P3 random-table flips {mismatch['randn']} over "
+          f"{K2_RANDOM_FLIPS_PER_16K} per {EVAL_ROWS} rows")
+
+    tab, ue = tables["randn"]
+    tab_t = tab.T.contiguous()
+    parts = [(ue[s:s + EVAL_BATCH], tgt[s:s + EVAL_BATCH],
+              maskm[s:s + EVAL_BATCH]) for s in range(0, EVAL_ROWS,
+                                                      EVAL_BATCH)]
+    nb = len(parts)
+
+    def kernel():
+        for u, t, m in parts:
+            pk.dense_mask_rank_cuda(tab, u, t, m)
+
+    def plain():
+        for u, t, m in parts:
+            pk.dense_mask_rank_plain(tab, u, t, m)
+
+    def library():
+        for u, _, _ in parts:
+            torch.mm(u, tab_t, out_dtype=torch.float32)
+
+    out = {"phase": "P3", "B": EVAL_BATCH, "I_pad": ipad, "d": DIM,
+           "candidates": rows.shape[1] - 1, "rank_mismatch": mismatch,
+           "max_abs_rank_diff": max_diff,
+           "ms": cuda_ms(torch, kernel, 10) / nb,
+           "plain_ms": cuda_ms(torch, plain, 3) / nb,
+           "library_ms": cuda_ms(torch, library, 10) / nb}
+    # per call: the int8 mask, the bf16 table, ue, tgt and rank once each;
+    # the scores of the set entries and of each row's target
+    set_entries = int(maskm.sum(dtype=torch.int64)) / nb
+    nbytes = EVAL_BATCH * ipad + ipad * DIM * 2 + EVAL_BATCH * DIM * 2 \
+        + 2 * EVAL_BATCH * 4
+    flops = 2 * DIM * (set_entries + EVAL_BATCH)
+    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes,
+                                                PEAK_BF16_FLOPS)
+    out["flops"], out["bytes"] = flops, nbytes
+    out["tpu_design_flops"] = 2 * 2 * EVAL_BATCH * ipad * DIM
+    emit(out)
+    return {"max_abs_err": max_diff,
+            **{k: out[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+
+
+def phase_eval_probes(torch):
+    from sml_tpu_torch.ops import probe_kernels as pk
+    from sml_tpu_torch.scripts import eval_variants as ev
+
+    pk.candidate_scores_cuda.launches = 0
+    pk.dense_mask_rank_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = quiet_main(ev.main, ["--device", "cuda", "--rounds",
+                               str(PROBE_ROUNDS)])
+    wall = time.perf_counter() - t0
+    launches = {"candidate_scores_kernel": pk.candidate_scores_cuda.launches,
+                "dense_mask_rank_kernel": pk.dense_mask_rank_cuda.launches}
+    names = ("v0_gather_f32", "v1_gather_bf16", "v2_matmul_gather",
+             "v3_matmul_bf16", "v4_pallas", "v5_masked_xla_f32",
+             "v5b_masked_xla_bf16", "v6_masked_pallas")
+    missing = [n for n in names if n not in res or "error" in res[n]]
+    check(not missing, f"eval_variants variants failed: "
+                       f"{ {n: res.get(n) for n in missing} }")
+    # one launch per 1024-row batch, in the warm-up run and every round
+    want = res["rows"] // ev.BATCH * (1 + PROBE_ROUNDS)
+    check(launches == {"candidate_scores_kernel": want,
+                       "dense_mask_rank_kernel": want},
+          f"probe launches {launches}, expected {want} each")
+    # P2 and P3 score bf16 inputs exactly; only sums in another order
+    # separate them from the bf16 gather and masked matmul variants
+    for a, b in (("v4_pallas", "v1_gather_bf16"),
+                 ("v6_masked_pallas", "v5b_masked_xla_bf16")):
+        check(abs(res[a]["hit_sum@20"] - res[b]["hit_sum@20"])
+              <= SLICE_HIT_TOL, f"{a} and {b} hit sums differ: "
+                                f"{res[a]['hit_sum@20']} {res[b]['hit_sum@20']}")
+    emit({"phase": "eval-probes", "rows": res["rows"], "items": res["items"],
+          "cands": res["cands"], "rounds": PROBE_ROUNDS, "wall_s": wall,
+          "mask_build_ms": res["mask_build_ms"], "launches": launches,
+          "variants": {n: {k: res[n][k] for k in (
+              "total_ms", "speedup_vs_v0", "hit_sum@20",
+              "max_hit_delta_vs_v0")} for n in names}})
+    return launches
+
+
+def recall_floor(z: float) -> float:
+    p = RANDOM_RECALL20
+    return p + z * math.sqrt(p * (1.0 - p) / PRE_ROWS)
+
+
+def write_pretrain_dataset(root: str):
+    from sml_tpu_torch.config import DataSpec
+    from sml_tpu_torch.data.synthetic import (SyntheticSpec,
+                                              generate_synthetic_dataset)
+    generate_synthetic_dataset(os.path.join(root, "synth"), SyntheticSpec(
+        n_users=N_USERS, n_items=N_ITEMS, n_periods=PRE_PERIODS,
+        interactions_per_period=PRE_ROWS, first_test_period=PRE_TEST,
+        neg_num=NEG, seed=SEED))
+    return DataSpec(root=root, name="synth", num_periods=PRE_PERIODS,
+                    online_train_start=1, online_test_start=PRE_TEST + 1)
+
+
+class Records:
+    """A metrics logger that keeps the records."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, **record):
+        self.records.append(record)
+
+
+def phase_pretrain(torch, spec, data_s):
+    from sml_tpu_torch.config import PretrainConfig
+    from sml_tpu_torch.data.feeder import StreamingPeriods
+    from sml_tpu_torch.models.mf import MFParams
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops.batching import pad_rows
+    from sml_tpu_torch.ops.sampling import build_period_index
+    from sml_tpu_torch.train.optim import adam_init
+    from sml_tpu_torch.train.pretrain import pretrain_mf
+    from sml_tpu_torch.train.steps import make_plain_mf_epoch
+
+    cfg = PretrainConfig(batch_size=PRE_BATCH, max_epochs=PRE_EPOCHS,
+                         eval_every=1, emb_init_scale=PRE_INIT_SCALE)
+    logger = Records()
+    ak.decay_adam_cuda.launches = 0
+    t0 = time.perf_counter()
+    params, metrics = pretrain_mf(cfg, spec, PRE_TEST, logger=logger,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3_auto = ak.decay_adam_cuda.launches
+
+    # one dense and one forced fast_lr (K3) plain epoch from the best tables
+    train, _ = StreamingPeriods(spec).get_next(PRE_TEST)
+    padded = pad_rows(train, PRE_BATCH, device="cuda")
+    index = build_period_index(train, N_ITEMS, device="cuda")
+    steps = -(-padded.n_real // PRE_BATCH)
+    epoch_ms, k3 = {}, {}
+    for name, fast_lr in (("dense", None), ("fast", cfg.lr)):
+        mf = MFParams(*(t.clone() for t in params))
+        epoch = make_plain_mf_epoch(PRE_BATCH, cfg.l2_user, cfg.l2_item,
+                                    cfg.lr, fast_lr=fast_lr)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 101)
+        ak.decay_adam_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, losses = epoch(mf, adam_init(mf._asdict()), padded.rows,
+                             padded.mask, padded.n_real, gen, index)
+        torch.cuda.synchronize()
+        epoch_ms[name] = (time.perf_counter() - t0) * 1e3 / steps
+        k3[name] = ak.decay_adam_cuda.launches
+        check(bool(torch.isfinite(losses).all()), f"{name} losses not finite")
+    evals = [{k: r[k] for k in ("epoch", "loss", "recall@20")}
+             for r in logger.records]
+    emit({"phase": "pretrain", "users": N_USERS, "items": N_ITEMS,
+          "periods": PRE_TEST, "train_rows": int(train.shape[0]),
+          "batch": PRE_BATCH, "data_s": data_s, "wall_s": wall,
+          "evals": evals, "metrics": metrics,
+          "random_recall@20": RANDOM_RECALL20,
+          "recall@20_floor": recall_floor(PRE_RECALL_Z),
+          "k3_launches_auto": k3_auto, "plain_epoch_steps": steps,
+          "step_ms": epoch_ms, "k3_launches": k3})
+    check(k3_auto == 0, f"K3 launched {k3_auto} times under the auto rule "
+                        f"at {N_USERS + N_ITEMS} table rows, expected 0")
+    check(k3 == {"dense": 0, "fast": 4 * steps},
+          f"plain-epoch K3 launches {k3}, expected 0 and {4 * steps}")
+    check(all(math.isfinite(e["loss"]) for e in evals),
+          "a pretrain loss is not finite")
+    check(metrics["recall@20"] >= recall_floor(PRE_RECALL_Z),
+          f"pretrain recall@20 {metrics['recall@20']} is not clearly above "
+          f"random ({RANDOM_RECALL20})")
+    return params
+
+
+def phase_baselines(torch, spec, pretrained):
+    from sml_tpu_torch.config import BaselineConfig
+    from sml_tpu_torch.train.baselines import BaselineDriver
+
+    out = {"phase": "baselines", "periods": [PRE_TEST + 1, PRE_TEST + 2],
+           "epochs": BASE_EPOCHS, "batch": PRE_BATCH, "methods": {}}
+    for method in ("full", "fine", "spmf"):
+        cfg = BaselineConfig(method=method, epochs=BASE_EPOCHS,
+                             batch_size=PRE_BATCH, pool_size=BASE_POOL,
+                             start_period=PRE_TEST + 1, seed=SEED)
+        logger = Records()
+        t0 = time.perf_counter()
+        driver = BaselineDriver(cfg, spec, pretrained=pretrained,
+                                logger=logger, device="cuda")
+        summary = driver.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["methods"][method] = {
+            "wall_s": wall, "summary": summary,
+            "records": [{k: v for k, v in r.items() if k != "ts"}
+                        for r in logger.records]}
+    out["recall@20_floor"] = recall_floor(BASE_RECALL_Z)
+    emit(out)
+    for method, res in out["methods"].items():
+        recs = res["records"]
+        check([r["period"] for r in recs] == out["periods"]
+              and all(r["kind"] == "baseline_test" for r in recs),
+              f"{method}: expected baseline_test records for "
+              f"{out['periods']}: {recs}")
+        for r in recs:
+            vals = {k: v for k, v in r.items()
+                    if k.startswith(("recall", "ndcg", "hit_new"))}
+            check("hit_new_user@20" in vals and "hit_new_item@20" in vals,
+                  f"{method}: no attributed fields in {r}")
+            check(all(0.0 <= v <= 1.0 for v in vals.values()),
+                  f"{method}: metrics out of [0, 1]: {r}")
+        check(all(0.0 <= v <= 1.0 for v in res["summary"].values()),
+              f"{method}: summary out of [0, 1]: {res['summary']}")
+    full = out["methods"]["full"]["records"]
+    check(min(r["recall@20"] for r in full) >= out["recall@20_floor"],
+          f"full retrain recall@20 not above random: {full}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -785,6 +1225,20 @@ def main() -> int:
     phase_crossover(torch)
     phase_train_lockstep(torch)
     launches = phase_train_sweep(torch)
+    p1 = phase_p1(torch)
+    probe_rows = probe_eval_rows(torch)
+    p2 = phase_p2(torch, probe_rows)
+    p3 = phase_p3(torch, probe_rows)
+    del probe_rows
+    probe_launches = phase_eval_probes(torch)
+    root = tempfile.mkdtemp(prefix="sml_pretrain_")
+    try:
+        t0 = time.perf_counter()
+        spec = write_pretrain_dataset(root)
+        pretrained = phase_pretrain(torch, spec, time.perf_counter() - t0)
+        phase_baselines(torch, spec, pretrained)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     kernels = [
         {"name": "transfer_rows_kernel", "route": "cuda",
@@ -799,6 +1253,17 @@ def main() -> int:
          "source": "sml_tpu_torch/csrc/adam_kernel.cu",
          "replaces": "sml_tpu/ops/adam_kernel.py:71",
          "launches": launches["decay_adam_kernel"], **k3},
+        {"name": "masked_rank_kernel (P1 variants)", "route": "cuda",
+         "source": "sml_tpu_torch/csrc/eval_kernel.cu",
+         "replaces": "scripts/eval_kernel_probe.py:74", **p1},
+        {"name": "candidate_scores_kernel", "route": "cuda",
+         "source": "sml_tpu_torch/csrc/candidate_scores.cu",
+         "replaces": "scripts/eval_variants.py:155",
+         "launches": probe_launches["candidate_scores_kernel"], **p2},
+        {"name": "dense_mask_rank_kernel", "route": "cuda",
+         "source": "sml_tpu_torch/csrc/dense_mask_rank.cu",
+         "replaces": "scripts/eval_variants.py:284",
+         "launches": probe_launches["dense_mask_rank_kernel"], **p3},
     ]
     print(smi_line, flush=True)
     emit({"kernels": kernels})

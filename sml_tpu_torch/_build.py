@@ -38,8 +38,13 @@ SIGNATURES = {
     # last, hat, in_bf16, conv1_w, conv1_b, conv2_w, conv2_b, fc1_w, fc1_b,
     # fc2_w, fc2_b, out, n, d, c1, c2, h, stream
     "sml_transfer_rows": [_P, _P, _I] + [_P] * 9 + [_I] * 5 + [_P],
-    # ue, items_t, in_bf16, sstar, maskp, rank, B, d, ipad, stream
-    "sml_masked_rank": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # ue, items_t, in_bf16, sstar, maskp, rank, B, d, ipad, rows_per_block,
+    # items_on_x, stream
+    "sml_masked_rank": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
+    # ue, cand, table, out, B, C, n_items, stream
+    "sml_candidate_scores": [_P] * 4 + [_I] * 3 + [_P],
+    # ue, tgt, maskm, table, rank, B, ipad, stream
+    "sml_dense_mask_rank": [_P] * 5 + [_I] * 2 + [_P],
     # p, mu, nu, n, vec, lr, b1, b2, eps, bc1, bc2, stream
     "sml_decay_adam": [_P, _P, _P, _L, _I] + [_F] * 6 + [_P],
 }

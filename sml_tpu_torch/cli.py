@@ -1,15 +1,18 @@
 """Command-line entry point (counterpart of ``sml_tpu/cli.py``).
 
     python -m sml_tpu_torch synth --out D/synth --users 400 --items 200 ...
-    python -m sml_tpu_torch sml --data-root D --data-name synth ...
+    python -m sml_tpu_torch pretrain --data-root D --data-name synth --out pre.npz ...
+    python -m sml_tpu_torch sml --data-root D --data-name synth --pre-model pre.npz ...
+    python -m sml_tpu_torch baseline --data-root D --method spmf --pool-size 300 ...
     python -m sml_tpu_torch rank --model final.npz --users 17,42 -k 20
     python -m sml_tpu_torch --device cpu sml --data-root D ...
 
-``sml``, ``synth`` and ``rank`` take the same flags and print the same JSON
-as ``python -m sml_tpu``; ``--device {cuda,cpu}`` (before the subcommand)
-takes the place of ``--platform`` and defaults to ``cuda``. The multi-host
-options, ``pretrain``, ``baseline`` and ``ingest`` come with later slices
-(ROADMAP.md §1).
+``sml``, ``pretrain``, ``baseline``, ``synth`` and ``rank`` take the same
+flags and print the same JSON as ``python -m sml_tpu``, and the ``.npz``
+tables of either package load in the other; ``--device {cuda,cpu}`` (before
+the subcommand) takes the place of ``--platform`` and defaults to ``cuda``.
+The multi-host options and ``ingest`` come with later slices (ROADMAP.md
+§1).
 """
 
 from __future__ import annotations
@@ -59,8 +62,6 @@ def _load_mf(path: str, device):
 
 def cmd_sml(args) -> int:
     """The SML sweep, with period-boundary checkpoints and resume."""
-    import numpy as np
-
     from sml_tpu_torch.device import resolve_device
     from sml_tpu_torch.train.driver import RunReport, SMLDriver
     from sml_tpu_torch.utils.checkpoint import (latest_step, read_manifest,
@@ -135,14 +136,68 @@ def cmd_sml(args) -> int:
     finally:
         driver.close()
         logger.close()
-    state = driver.final_state
     if args.save_model:
-        np.savez(args.save_model,
-                 **{f: getattr(state.mf, f).detach().cpu().numpy()
-                    for f in ("user_emb", "item_emb", "user_bias",
-                              "item_bias")})
+        _save_mf(args.save_model, driver.final_state.mf)
         print(f"saved final tables to {args.save_model}", file=sys.stderr)
     print(json.dumps(driver.report.summary(), indent=2))
+    return 0
+
+
+def _save_mf(path: str, mf) -> None:
+    import numpy as np
+    np.savez(path, **{f: getattr(mf, f).detach().cpu().numpy()
+                      for f in ("user_emb", "item_emb", "user_bias",
+                                "item_bias")})
+
+
+def cmd_pretrain(args) -> int:
+    from sml_tpu_torch.device import resolve_device
+    from sml_tpu_torch.train.pretrain import pretrain_mf
+    from sml_tpu_torch.utils.logging import MetricsLogger
+
+    device = resolve_device(args.device)
+    spec = _dataspec(args)
+    pcfg = C.PretrainConfig(lr=args.lr, l2_user=args.l2, l2_item=args.l2,
+                            batch_size=args.batch_size,
+                            max_epochs=args.epochs, latent_dim=args.latent,
+                            seed=args.seed)
+    period = args.period if args.period is not None \
+        else spec.online_test_start - 1
+    logger = MetricsLogger(args.metrics_jsonl, echo=True)
+    try:
+        params, metrics = pretrain_mf(pcfg, spec, period, logger=logger,
+                                      device=device)
+    finally:
+        logger.close()
+    _save_mf(args.out, params)
+    print(json.dumps(metrics, indent=2))
+    return 0
+
+
+def cmd_baseline(args) -> int:
+    from sml_tpu_torch.device import resolve_device
+    from sml_tpu_torch.train.baselines import BaselineDriver
+    from sml_tpu_torch.utils.logging import MetricsLogger
+
+    device = resolve_device(args.device)
+    spec = _dataspec(args)
+    start = args.start_period if args.start_period is not None \
+        else spec.online_test_start
+    bcfg = C.BaselineConfig(
+        method=args.method, lr=args.lr, l2_user=args.l2, l2_item=args.l2,
+        epochs=args.epochs, batch_size=args.batch_size,
+        pool_size=args.pool_size, start_period=start,
+        pool_init_type=1 if spec.name == "news" else 0,
+        latent_dim=args.latent, seed=args.seed)
+    pretrained = _load_mf(args.pre_model, device) if args.pre_model else None
+    logger = MetricsLogger(args.metrics_jsonl, echo=True)
+    try:
+        driver = BaselineDriver(bcfg, spec, pretrained=pretrained,
+                                logger=logger, device=device)
+        summary = driver.run()
+    finally:
+        logger.close()
+    print(json.dumps(summary, indent=2))
     return 0
 
 
@@ -265,6 +320,34 @@ def main(argv=None) -> int:
                     help="a profiler trace of one period (not ported yet: "
                          "raises)")
     ps.set_defaults(fn=cmd_sml)
+
+    pp = sub.add_parser("pretrain", help="pretrain the base MF model")
+    _add_data_args(pp)
+    pp.add_argument("--out", required=True, help="output .npz path")
+    pp.add_argument("--period", type=int, default=None,
+                    help="pretrain period (default online_test_start-1)")
+    pp.add_argument("--lr", type=float, default=0.01)
+    pp.add_argument("--l2", type=float, default=1e-5)
+    pp.add_argument("--epochs", type=int, default=200)
+    pp.add_argument("--batch-size", type=int, default=256)
+    pp.add_argument("--latent", type=int, default=64)
+    pp.add_argument("--seed", type=int, default=2000)
+    pp.set_defaults(fn=cmd_pretrain)
+
+    pb = sub.add_parser("baseline", help="full-retrain / fine-tune / SPMF")
+    _add_data_args(pb)
+    pb.add_argument("--method", default="full",
+                    choices=["full", "fine", "spmf"])
+    pb.add_argument("--pre-model", default=None)
+    pb.add_argument("--start-period", type=int, default=None)
+    pb.add_argument("--lr", type=float, default=0.01)
+    pb.add_argument("--l2", type=float, default=1e-5)
+    pb.add_argument("--epochs", type=int, default=20)
+    pb.add_argument("--batch-size", type=int, default=256)
+    pb.add_argument("--pool-size", type=int, default=0)
+    pb.add_argument("--latent", type=int, default=64)
+    pb.add_argument("--seed", type=int, default=2000)
+    pb.set_defaults(fn=cmd_baseline)
 
     pg = sub.add_parser("synth", help="generate a synthetic dataset")
     pg.add_argument("--out", required=True)

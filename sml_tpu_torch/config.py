@@ -2,8 +2,7 @@
 
 The port keeps its own copy (it imports nothing of ``sml_tpu``) with the
 same class names, field names and defaults, so a configuration means the
-same thing in both packages. The fields of the pretrainer and the
-baselines (``PretrainConfig``, ``BaselineConfig``) come with their slice.
+same thing in both packages.
 """
 
 from __future__ import annotations
@@ -158,6 +157,52 @@ class SMLConfig:
 
     def replace(self, **kw) -> "SMLConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class PretrainConfig:
+    """Pretraining of the base MF model (reference
+    ``model/baseline.py:161-223``): BCE + per-side L2, Adam, early stopping
+    on recall@20 measured every ``eval_every`` epochs."""
+
+    lr: float = 0.01
+    l2_user: float = 1e-5
+    l2_item: float = 1e-5
+    batch_size: int = 256
+    max_epochs: int = 200
+    eval_every: int = 2
+    patience: int = 50              # eval rounds without a new best
+    seed: int = 2000
+    latent_dim: int = 64
+    neg_tries: int = 16
+    emb_init_scale: float = 1.0
+    eval_scoring: str = "gather"
+
+
+@dataclass(frozen=True)
+class BaselineConfig:
+    """Full-retrain / fine-tune / SPMF baselines
+    (``model/baseline.py:102-556``)."""
+
+    method: str = "full"            # 'full' | 'fine' | 'spmf'
+    lr: float = 0.01
+    l2_user: float = 1e-5
+    l2_item: float = 1e-5
+    epochs: int = 20
+    batch_size: int = 256
+    neg_num: int = 1
+    pool_size: int = 0              # reservoir size (spmf only)
+    # 0: warm by reservoir update (yelp), 1: fill with the latest (news)
+    pool_init_type: int = 0
+    start_period: int = 30          # yelp 30, adressa 48
+    early_stop: bool = False        # the reference breaks only when pool_init_type == 1
+    topk: Sequence[int] = (5, 10, 20)
+    eval_batch_size: int = 1024
+    latent_dim: int = 64
+    seed: int = 2000
+    neg_tries: int = 16
+    emb_init_scale: float = 1.0
+    eval_scoring: str = "gather"
 
 
 def yelp_data(root: str) -> DataSpec:

@@ -30,6 +30,26 @@
 // shuffles and added into rank[b] with one int32 atomicAdd per row and
 // warp; integer atomics do not depend on order, so results are
 // deterministic. ue/items_t may be f32 or bf16 (widened on load).
+//
+// P1, the eval-design probe scripts/eval_kernel_probe.py make_variant
+// (Pallas body _kernel_body :49-68, the same function under layout
+// variants), is this kernel as a template over two of its axes:
+//   RB          rows per block: 32 (K2) or 64 (the probe's rblk 512, twice
+//               the rows of its rblk 256); a warp owns RB/8 rows.
+//   ITEMS_ON_X  grid order: false puts row tiles on blockIdx.x (K2, the
+//               probe's "ij"); true puts item blocks on blockIdx.x ("ji").
+//               The card rasterises blockIdx.x fastest, so the order only
+//               decides which operand neighbouring blocks share in L2.
+// The probe's dimension_semantics has no counterpart: blocks run in any
+// order and the counts are added with integer atomics. K2 is the
+// instantiation <T, 32, false>; P1 reaches every instantiation through the
+// same entry point, sml_masked_rank. P1's bound at the probe's
+// shape (B=16,384, I_pad=20,480, d=64, 999 negatives) is computed the same
+// way: 2*d*popcount(mask) = 2.1 GFLOP (0.031 ms at 67 TFLOP/s in f32)
+// against 51.5 MB (0.0154 ms) for f32 inputs, so operations bound it; with
+// bf16 inputs the tensor cores' rate leaves the 46.7 MB (0.0139 ms) of
+// bytes as the bound. The dense design's floor is 2*B*I_pad*d = 42.9
+// GFLOP, 0.64 ms in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,11 +72,13 @@ __device__ __forceinline__ float widen(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
-template <typename T>
+template <typename T, int RB, bool ITEMS_ON_X>
 __global__ void __launch_bounds__(THREADS) masked_rank_kernel(
     const T* __restrict__ ue, const T* __restrict__ items_t,
     const float* __restrict__ sstar, const uint32_t* __restrict__ maskp,
     int* __restrict__ rank, int B, int d, int ipad) {
+  constexpr int ROWS = RB / (THREADS / 32);   // rows per warp: 4 or 8
+  static_assert(ROWS % 4 == 0, "a warp owns a multiple of 4 rows");
   extern __shared__ __align__(16) float smem[];
   float* ueT = smem;              // [d][RB]
   float* its = smem + d * RB;     // [d][LANES]
@@ -64,8 +86,8 @@ __global__ void __launch_bounds__(THREADS) masked_rank_kernel(
   const int tid = threadIdx.x;
   const int tx = tid & 31;
   const int ty = tid >> 5;
-  const int row0 = blockIdx.x * RB;
-  const int jb = blockIdx.y;
+  const int row0 = (ITEMS_ON_X ? blockIdx.y : blockIdx.x) * RB;
+  const int jb = ITEMS_ON_X ? blockIdx.x : blockIdx.y;
   const int words = ipad / PLANES;
 
   for (int i = tid; i < RB * d; i += THREADS) {
@@ -74,11 +96,11 @@ __global__ void __launch_bounds__(THREADS) masked_rank_kernel(
     ueT[k * RB + r] = gr < B ? widen(ue, (size_t)gr * d + k) : 0.f;
   }
 
-  float ss[4];
-  uint32_t mw[4][4];
+  float ss[ROWS];
+  uint32_t mw[ROWS][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gr = row0 + ty * 4 + r;
+  for (int r = 0; r < ROWS; ++r) {
+    const int gr = row0 + ty * ROWS + r;
     ss[r] = gr < B ? sstar[gr] : INFINITY;
 #pragma unroll
     for (int m = 0; m < 4; ++m)
@@ -86,7 +108,9 @@ __global__ void __launch_bounds__(THREADS) masked_rank_kernel(
           ? maskp[(size_t)gr * words + jb * LANES + tx + 32 * m] : 0u;
   }
 
-  int cnt[4] = {0, 0, 0, 0};
+  int cnt[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) cnt[r] = 0;
   for (int k = 0; k < PLANES; ++k) {
     __syncthreads();   // ueT staged; the previous plane's tile consumed
     const size_t base = (size_t)jb * I_BLK + k * LANES;
@@ -96,74 +120,103 @@ __global__ void __launch_bounds__(THREADS) masked_rank_kernel(
     }
     __syncthreads();
 
-    float acc[4][4];
+    float acc[ROWS][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < ROWS; ++r)
 #pragma unroll
       for (int m = 0; m < 4; ++m) acc[r][m] = 0.f;
     for (int dd = 0; dd < d; ++dd) {
-      const float4 u = *reinterpret_cast<const float4*>(&ueT[dd * RB + ty * 4]);
       const float* it = its + dd * LANES + tx;
       const float v[4] = {it[0], it[32], it[64], it[96]};
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        acc[0][m] = fmaf(u.x, v[m], acc[0][m]);
-        acc[1][m] = fmaf(u.y, v[m], acc[1][m]);
-        acc[2][m] = fmaf(u.z, v[m], acc[2][m]);
-        acc[3][m] = fmaf(u.w, v[m], acc[3][m]);
+      for (int q = 0; q < ROWS / 4; ++q) {
+        const float4 u = *reinterpret_cast<const float4*>(
+            &ueT[dd * RB + ty * ROWS + 4 * q]);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          acc[4 * q + 0][m] = fmaf(u.x, v[m], acc[4 * q + 0][m]);
+          acc[4 * q + 1][m] = fmaf(u.y, v[m], acc[4 * q + 1][m]);
+          acc[4 * q + 2][m] = fmaf(u.z, v[m], acc[4 * q + 2][m]);
+          acc[4 * q + 3][m] = fmaf(u.w, v[m], acc[4 * q + 3][m]);
+        }
       }
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < ROWS; ++r)
 #pragma unroll
       for (int m = 0; m < 4; ++m)
         cnt[r] += (int)((((mw[r][m] >> k) & 1u) != 0u) && (acc[r][m] > ss[r]));
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < ROWS; ++r) {
     int c = cnt[r];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
-    const int gr = row0 + ty * 4 + r;
+    const int gr = row0 + ty * ROWS + r;
     if (tx == 0 && c != 0 && gr < B) atomicAdd(&rank[gr], c);
   }
 }
 
-template <typename T>
+template <typename T, int RB, bool ITEMS_ON_X>
 int launch(const void* ue, const void* items_t, const float* sstar,
            const uint32_t* maskp, int* rank, int B, int d, int ipad,
-           cudaStream_t stream, size_t smem) {
+           cudaStream_t stream) {
   static std::atomic<uint64_t> smem_ready{0};
-  const cudaError_t err = allow_max_smem(masked_rank_kernel<T>, smem_ready);
+  const size_t smem = (size_t)d * (RB + LANES) * sizeof(float);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const unsigned row_tiles = (B + RB - 1) / RB;
+  const unsigned item_blocks = ipad / I_BLK;
+  if ((ITEMS_ON_X ? row_tiles : item_blocks) > 65535u)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || ipad == 0) return (int)cudaSuccess;
+  const cudaError_t err =
+      allow_max_smem(masked_rank_kernel<T, RB, ITEMS_ON_X>, smem_ready);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + RB - 1) / RB, ipad / I_BLK);
-  masked_rank_kernel<T><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid = ITEMS_ON_X ? dim3(item_blocks, row_tiles)
+                               : dim3(row_tiles, item_blocks);
+  masked_rank_kernel<T, RB, ITEMS_ON_X><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(ue), static_cast<const T*>(items_t), sstar, maskp,
       rank, B, d, ipad);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_variant(const void* ue, const void* items_t, const float* sstar,
+                   const uint32_t* maskp, int* rank, int B, int d, int ipad,
+                   int rows_per_block, int items_on_x, cudaStream_t s) {
+  if (rows_per_block == 32)
+    return items_on_x
+        ? launch<T, 32, true>(ue, items_t, sstar, maskp, rank, B, d, ipad, s)
+        : launch<T, 32, false>(ue, items_t, sstar, maskp, rank, B, d, ipad, s);
+  if (rows_per_block == 64)
+    return items_on_x
+        ? launch<T, 64, true>(ue, items_t, sstar, maskp, rank, B, d, ipad, s)
+        : launch<T, 64, false>(ue, items_t, sstar, maskp, rank, B, d, ipad, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // ue: (B, d), items_t: (d, ipad), both f32 (in_bf16 = 0) or bf16; sstar:
 // (B,) f32; maskp: (B, ipad/32) uint32; rank: (B,) int32, zeroed by the
-// caller. ipad is a multiple of 4096.
+// caller. ipad is a multiple of 4096. rows_per_block (32 or 64) and
+// items_on_x (0: row tiles on blockIdx.x; 1: item blocks) pick the
+// instantiation: K2 is (32, 0), P1 any of the four.
 extern "C" int sml_masked_rank(const void* ue, const void* items_t,
                                int in_bf16, const void* sstar,
                                const void* maskp, void* rank, int B, int d,
-                               int ipad, void* stream) {
-  if (B < 0 || d <= 0 || ipad < 0 || ipad % I_BLK != 0 ||
-      ipad / I_BLK > 65535)
+                               int ipad, int rows_per_block, int items_on_x,
+                               void* stream) {
+  if (B < 0 || d <= 0 || ipad < 0 || ipad % I_BLK != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)d * (RB + LANES) * sizeof(float);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (B == 0 || ipad == 0) return (int)cudaSuccess;
   const auto* ss = static_cast<const float*>(sstar);
   const auto* mp = static_cast<const uint32_t*>(maskp);
   auto* rk = static_cast<int*>(rank);
   auto s = static_cast<cudaStream_t>(stream);
   if (in_bf16)
-    return launch<__nv_bfloat16>(ue, items_t, ss, mp, rk, B, d, ipad, s, smem);
-  return launch<float>(ue, items_t, ss, mp, rk, B, d, ipad, s, smem);
+    return launch_variant<__nv_bfloat16>(ue, items_t, ss, mp, rk, B, d, ipad,
+                                         rows_per_block, items_on_x, s);
+  return launch_variant<float>(ue, items_t, ss, mp, rk, B, d, ipad,
+                               rows_per_block, items_on_x, s);
 }

@@ -15,7 +15,7 @@ regime C (test periods, the default):     ``(set_t, set_tt, now_test, val)``
 * ``now_test``: ``test/<online_test_start + k>``, k = test periods served.
 * ``val``: ``test/(t+1)``, for metric-only evals.
 
-``StreamingPeriods`` (the baselines' feeder) comes with the baselines.
+``StreamingPeriods`` serves the baselines and the pretrainer.
 """
 
 from __future__ import annotations
@@ -113,3 +113,41 @@ class PeriodFeeder:
             self.spec.path, self.spec.online_test_start + self.test_count)
         self.test_count += 1
         return StageData(set_t, set_tt, now_test, val)
+
+
+class StreamingPeriods:
+    """Baseline feeder: ``get_next(p, mode)`` -> (train_pool, test_rows).
+
+    ``mode='not_only_new'`` concatenates ``train/0..p-1`` (full retrain);
+    ``'only_new'`` returns just ``train/(p-1)`` (fine-tune). Returns
+    ``(None, None)`` past the end. ``test_new_user``/``test_new_item`` hold
+    the dataset's new-entity ids (empty when it ships none)."""
+
+    def __init__(self, spec: DataSpec):
+        self.spec = spec
+        self.info = load_info(spec.path)
+        p = spec.path
+        try:
+            self.test_new_user = np.load(
+                f"{p}/test_new_user.npy").astype(np.int64)
+            self.test_new_item = np.load(
+                f"{p}/test_new_item.npy").astype(np.int64)
+        except FileNotFoundError:
+            self.test_new_user = np.zeros(0, dtype=np.int64)
+            self.test_new_item = np.zeros(0, dtype=np.int64)
+
+    def get_next(self, period: int, mode: str = "not_only_new"):
+        try:
+            if mode == "not_only_new":
+                parts = [load_train(self.spec.path, i) for i in range(period)]
+                if not parts:
+                    return None, None
+                train = np.concatenate(parts, axis=0)
+            else:
+                train = load_train(self.spec.path, period - 1)
+        except FileNotFoundError:
+            return None, None
+        test = load_test(self.spec.path, period)
+        if test is None:
+            return None, None
+        return train, test

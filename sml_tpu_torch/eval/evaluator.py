@@ -21,6 +21,8 @@ JAX package:
 
 Batches run as a Python loop; on the card each masked batch is one K2
 launch. Sums accumulate in f32 in batch order, as the JAX scan does.
+:func:`make_attributed_eval_fn` adds hit attribution by entity freshness
+(new users, new items) on the same ranks.
 """
 
 from __future__ import annotations
@@ -115,5 +117,61 @@ def make_eval_fn(topks: Sequence[int], batch_size: int,
                 acc = {k: (acc[k][0] + res[k][0], acc[k][1] + res[k][1])
                        for k in topks}
             return acc
+
+    return evaluate
+
+
+def make_attributed_eval_fn(topks: Sequence[int], batch_size: int,
+                            scoring: str = "gather"):
+    """Evaluation with hit attribution by entity freshness (the reference's
+    ``test_hit_new`` / ``test_model_pre``): besides the hit/NDCG sums per
+    K, the hits that fall on new users and on new items per K, and the four
+    old/new-user x old/new-item buckets at the largest K.
+
+    ``evaluate(mf, rows, mask, is_new_user, is_new_item, cand_mask=None)``
+    with ``is_new_user`` (U,) and ``is_new_item`` (I,) 0/1 float tensors;
+    returns ``{"base": {K: (hit_sum, ndcg_sum)}, "hit_new_user": {K: sum},
+    "hit_new_item": {K: sum}, "buckets_at_max_k": (4,)}`` (f32 tensors on
+    the tables' device)."""
+    topks = tuple(topks)
+    kmax = max(topks)
+    prep, rank_fn = _make_ranker(scoring)
+
+    def evaluate(mfp: MFParams, rows: torch.Tensor, mask: torch.Tensor,
+                 is_new_user: torch.Tensor, is_new_item: torch.Tensor,
+                 cand_mask: torch.Tensor = None):
+        with torch.no_grad():
+            ctx = prep(mfp)
+            dev = mfp.user_emb.device
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            base = {k: (zero, zero) for k in topks}
+            new_u = [zero for _ in topks]
+            new_i = [zero for _ in topks]
+            buckets = torch.zeros(4, dtype=torch.float32, device=dev)
+            for s in range(0, rows.shape[0] - batch_size + 1, batch_size):
+                sl = slice(s, s + batch_size)
+                r, m = rows[sl], mask[sl]
+                cm = None if cand_mask is None else cand_mask[sl]
+                rank = rank_fn(ctx, r, cm)
+                res = hits_and_ndcg_at(rank, m, topks)
+                base = {k: (base[k][0] + res[k][0], base[k][1] + res[k][1])
+                        for k in topks}
+                nu = is_new_user[r[:, 0].long()]
+                ni = is_new_item[r[:, 1].long()]
+                for n, k in enumerate(topks):
+                    hit = (rank < k).to(torch.float32) * m
+                    new_u[n] = new_u[n] + torch.sum(hit * nu)
+                    new_i[n] = new_i[n] + torch.sum(hit * ni)
+                hit_kmax = (rank < kmax).to(torch.float32) * m
+                buckets = buckets + torch.stack([
+                    torch.sum(hit_kmax * (1 - nu) * (1 - ni)),   # old u, old i
+                    torch.sum(hit_kmax * (1 - nu) * ni),         # old u, new i
+                    torch.sum(hit_kmax * nu * (1 - ni)),         # new u, old i
+                    torch.sum(hit_kmax * nu * ni),               # new u, new i
+                ])
+            return {"base": base,
+                    "hit_new_user": dict(zip(topks, new_u)),
+                    "hit_new_item": dict(zip(topks, new_i)),
+                    "buckets_at_max_k": buckets}
 
     return evaluate

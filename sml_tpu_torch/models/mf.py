@@ -43,6 +43,13 @@ def score_pairs(params: MFParams, users: torch.Tensor,
     return (params.user_emb[users] * params.item_emb[items]).sum(-1)
 
 
+def score_pairs_biased(params: MFParams, users: torch.Tensor,
+                       items: torch.Tensor) -> torch.Tensor:
+    """Biased variant: the dot product plus both bias terms."""
+    return (score_pairs(params, users, items) + params.user_bias[users, 0]
+            + params.item_bias[items, 0])
+
+
 def score_candidates(params: MFParams, users: torch.Tensor,
                      cand_items: torch.Tensor) -> torch.Tensor:
     """``users`` (B,), ``cand_items`` (B, C) -> (B, C) scores."""

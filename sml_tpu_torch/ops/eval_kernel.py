@@ -8,7 +8,9 @@ kernel streams the whole item table instead of gathering C rows per eval
 row, and the (B, I) score matrix is never written out. The function is
 bound by bytes (the item table and the mask); the kernel
 (``csrc/eval_kernel.cu``) scores every column densely in f32, and its
-source note gives both bounds and the design.
+source note gives both bounds and the design. The same kernel, under the
+layout variants of the eval-design probe ``scripts/eval_kernel_probe.py``,
+is P1 (:func:`masked_rank_variant`).
 
 Mask layout (bitplane packing, unchanged from the JAX package): items are
 grouped into blocks of ``I_BLK = 4096 = 32 planes x 128 lanes``; bit ``k``
@@ -88,13 +90,30 @@ def masked_rank_plain(ue: torch.Tensor, items_t: torch.Tensor,
     return (bits & gt).sum(dim=(1, 2, 3)).to(torch.int32)
 
 
-def masked_rank_cuda(ue: torch.Tensor, items_t: torch.Tensor,
-                     sstar: torch.Tensor,
-                     maskp: torch.Tensor) -> torch.Tensor:
-    """Launch ``masked_rank_kernel`` once for the batch; (B,) int32."""
+# P1: the eval-design probe ``scripts/eval_kernel_probe.py`` runs this
+# kernel's function under layout variants. On the card a variant is an
+# instantiation of the same kernel: rows per block (32 is K2's; the probe's
+# rblk 256/512 become 32/64) and grid order ("ij": row tiles on blockIdx.x,
+# K2's; "ji": item blocks on blockIdx.x). The probe's dimension_semantics
+# has no counterpart (see csrc/eval_kernel.cu).
+VARIANT_ROWS_PER_BLOCK = (32, 64)
+VARIANT_ORDERS = ("ij", "ji")
+
+
+def _launch(name: str, ue: torch.Tensor, items_t: torch.Tensor,
+            sstar: torch.Tensor, maskp: torch.Tensor, rows_per_block: int,
+            order: str) -> torch.Tensor:
+    """Check what the kernel takes and launch one instantiation; (B,)
+    int32."""
     tensors = (ue, items_t, sstar, maskp)
     if not all(t.is_cuda for t in tensors):
-        raise ValueError("masked_rank_cuda takes CUDA tensors")
+        raise ValueError(f"{name} takes CUDA tensors")
+    if rows_per_block not in VARIANT_ROWS_PER_BLOCK:
+        raise ValueError(f"rows_per_block must be one of "
+                         f"{VARIANT_ROWS_PER_BLOCK}, got {rows_per_block}")
+    if order not in VARIANT_ORDERS:
+        raise ValueError(f"order must be one of {VARIANT_ORDERS}, got "
+                         f"{order!r}")
     B, d = ue.shape
     ipad = items_t.shape[1]
     if items_t.shape[0] != d or ipad % I_BLK:
@@ -119,13 +138,52 @@ def masked_rank_cuda(ue: torch.Tensor, items_t: torch.Tensor,
         rc = lib.sml_masked_rank(
             ue.data_ptr(), items_t.data_ptr(), int(ue.dtype == torch.bfloat16),
             sstar.data_ptr(), maskp.data_ptr(), rank.data_ptr(),
-            B, d, ipad, _build.stream_of(ue))
+            B, d, ipad, rows_per_block, int(order == "ji"),
+            _build.stream_of(ue))
     _build.check(rc, "masked_rank_kernel")
+    return rank
+
+
+def masked_rank_cuda(ue: torch.Tensor, items_t: torch.Tensor,
+                     sstar: torch.Tensor,
+                     maskp: torch.Tensor) -> torch.Tensor:
+    """K2: launch ``masked_rank_kernel`` (32 rows per block, row tiles on
+    blockIdx.x) once for the batch; (B,) int32."""
+    rank = _launch("masked_rank_cuda", ue, items_t, sstar, maskp, 32, "ij")
     masked_rank_cuda.launches += 1
     return rank
 
 
 masked_rank_cuda.launches = 0
+
+
+def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
+                             sstar: torch.Tensor, maskp: torch.Tensor,
+                             rows_per_block: int = 32,
+                             order: str = "ij") -> torch.Tensor:
+    """P1: launch one instantiation of ``masked_rank_kernel``; (B,)
+    int32."""
+    rank = _launch("masked_rank_variant_cuda", ue, items_t, sstar, maskp,
+                   rows_per_block, order)
+    masked_rank_variant_cuda.launches += 1
+    return rank
+
+
+masked_rank_variant_cuda.launches = 0
+
+
+def masked_rank_variant(ue: torch.Tensor, items_t: torch.Tensor,
+                        sstar: torch.Tensor, maskp: torch.Tensor,
+                        rows_per_block: int = 32,
+                        order: str = "ij") -> torch.Tensor:
+    """P1's rank counts: one kernel instantiation for tensors on the card,
+    the plain version (the same function) for CPU tensors."""
+    if ue.is_cuda:
+        return masked_rank_variant_cuda(ue, items_t, sstar, maskp,
+                                        rows_per_block, order)
+    if ue.device.type == "cpu":
+        return masked_rank_plain(ue, items_t, sstar, maskp)
+    raise ValueError(f"unsupported device {ue.device}")
 
 
 def masked_rank(ue: torch.Tensor, items_t: torch.Tensor, sstar: torch.Tensor,

@@ -17,6 +17,10 @@ Gradient flow, as in the JAX package:
 * outer epoch (Θ): the rows come from the detached ``last``/``hat``
   snapshots, upcast to f32 (snapshots may be stored bf16), and only Θ
   learns.
+* plain MF epoch (the pretrainer and the full-retrain / fine-tune
+  baselines): mean BCE plus per-side L2 on the tables alone, with sampled
+  negatives; dense :func:`adam_update`, or the row-sparse path (K3) with
+  ``fast_lr``.
 
 Parameters and moments are updated in place. Random draws (negative
 columns, shuffles, sampled negatives) come from one ``torch.Generator`` on
@@ -30,7 +34,8 @@ from typing import Optional
 import torch
 
 from sml_tpu_torch.config import SMLConfig, TransferConfig
-from sml_tpu_torch.models.mf import MFParams
+from sml_tpu_torch.models.mf import (MFParams, score_pairs,
+                                     score_pairs_biased)
 from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
                                            theta_leaves)
 from sml_tpu_torch.ops.batching import num_batches, shuffle_real_first
@@ -186,5 +191,70 @@ def make_outer_epoch(cfg: SMLConfig):
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
                                  step, shuffle=mode != "replay")
         return theta, opt, losses
+
+    return epoch
+
+
+def make_plain_mf_epoch(batch_size: int, l2_user: float, l2_item: float,
+                        lr: float, neg_tries: int = 16, biased: bool = False,
+                        fast_lr: Optional[float] = None):
+    """Plain BCE-MF epoch for the pretrainer and the full-retrain /
+    fine-tune baselines: mean BCE plus per-side summed L2, uniform
+    rejection-sampled negatives. ``epoch(mf, opt, rows, mask, n_real,
+    generator, index) -> (mf, opt, losses)``, with ``mf`` updated in place.
+
+    The dense step is :func:`adam_update` at ``lr`` with weight decay 0 (the
+    JAX package's ``torch_adam(lr, 0.0)``). ``fast_lr``: when set (and
+    ``biased`` is False) the step takes :func:`sparse_dense_adam_update` at
+    that rate instead (K3 on the card), the same numbers with less memory
+    traffic. The biased variant scores through the bias tables, whose
+    row-sparse gradients are not plumbed, so it keeps the dense path."""
+    score = score_pairs_biased if biased else score_pairs
+    use_fast = fast_lr is not None and not biased
+    leaves = (("user_emb", "item_emb", "user_bias", "item_bias") if biased
+              else ("user_emb", "item_emb"))
+
+    def row_loss(xu, xi, xj, m):
+        pos = torch.sum(xu * xi, dim=-1)
+        neg = torch.sum(xu * xj, dim=-1)
+        return (bce_pair_loss(pos, neg, m)
+                + l2_user * l2_embedding_penalty(m, xu)
+                + l2_item * l2_embedding_penalty(m, xi, xj))
+
+    def loss_fn(mfp: MFParams, u, i, j, m):
+        xu, xi, xj = mfp.user_emb[u], mfp.item_emb[i], mfp.item_emb[j]
+        return (bce_pair_loss(score(mfp, u, i), score(mfp, u, j), m)
+                + l2_user * l2_embedding_penalty(m, xu)
+                + l2_item * l2_embedding_penalty(m, xi, xj))
+
+    def epoch(mf: MFParams, opt: AdamState, rows, mask, n_real: int,
+              generator: torch.Generator, index: PeriodIndex):
+        def step(opt, r, m, gen):
+            u, i = r[:, 0].long(), r[:, 1].long()
+            j = sample_negatives(index, u, gen, neg_tries)
+            if use_fast:
+                xs = [mf.user_emb[u].requires_grad_(),
+                      mf.item_emb[i].requires_grad_(),
+                      mf.item_emb[j].requires_grad_()]
+                with torch.enable_grad():
+                    loss = row_loss(*xs, m)
+                    gu, gi, gj = torch.autograd.grad(loss, xs)
+                sparse = {"user_emb": TableGrad(u, gu),
+                          "item_emb": TableGrad(torch.cat([i, j]),
+                                                torch.cat([gi, gj], dim=0))}
+                opt = sparse_dense_adam_update(mf, opt, sparse, lr=fast_lr)
+                return opt, loss
+            tabs = {f: getattr(mf, f).detach().requires_grad_()
+                    for f in leaves}
+            with torch.enable_grad():
+                loss = loss_fn(mf._replace(**tabs), u, i, j, m)
+                grads = dict(zip(tabs, torch.autograd.grad(
+                    loss, list(tabs.values()))))
+            opt = adam_update(mf._asdict(), grads, opt, lr=lr)
+            return opt, loss
+
+        opt, losses = scan_epoch(opt, rows, mask, n_real, generator,
+                                 batch_size, step)
+        return mf, opt, losses
 
     return epoch

@@ -7,8 +7,11 @@ JAX conftest (this file imports no JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 1e-4 (f32 sums over C2*d and H terms in another order);
-K2 exact on integer-valued tables; K3 bit-equal to its plain version
-(every operation explicitly rounded), ``p`` held to rtol 1e-6.
+K2 and every P1 instantiation exact on integer-valued tables; K3 bit-equal
+to its plain version (every operation explicitly rounded), ``p`` held to
+rtol 1e-6; P2 exact on integer tables and within 1e-4 on N(0,1) ones
+(bf16 products are exact in f32, only the order of the sums differs); P3
+exact on integer tables.
 """
 
 import json
@@ -21,6 +24,7 @@ from sml_tpu_torch.config import SMLConfig, TransferConfig
 from sml_tpu_torch.models.transfer import init_transfer
 from sml_tpu_torch.ops import adam_kernel as AK
 from sml_tpu_torch.ops import eval_kernel as E
+from sml_tpu_torch.ops import probe_kernels as PK
 from sml_tpu_torch.ops import transfer_kernel as TK
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +84,66 @@ def test_masked_rank_kernel_exact_on_integer_tables(card, rows, n_items, d,
                         mask)
     assert E.masked_rank_cuda.launches == before + 1
     want = E.masked_rank_plain(ue.to(dtype), it.to(dtype), ss, mask.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_per_block", E.VARIANT_ROWS_PER_BLOCK)
+@pytest.mark.parametrize("order", E.VARIANT_ORDERS)
+def test_masked_rank_variants_exact_on_integer_tables(card, order,
+                                                      rows_per_block, dtype):
+    g = torch.Generator().manual_seed(7)
+    rows, n_items, d = 1000, 9000, 64
+    ipad = E.pad_items(n_items)
+    ue = torch.randint(-1, 2, (rows, d), generator=g).float()
+    it = torch.randint(-1, 2, (d, ipad), generator=g).float()
+    ss = torch.randint(-4, 5, (rows, 1), generator=g).float()
+    neg = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :999]
+    mask = E.build_packed_mask(neg.to(card), n_items)
+    before = E.masked_rank_variant_cuda.launches
+    got = E.masked_rank_variant(ue.to(card, dtype), it.to(card, dtype),
+                                ss.to(card), mask, rows_per_block, order)
+    assert E.masked_rank_variant_cuda.launches == before + 1
+    want = E.masked_rank_plain(ue, it, ss, mask.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["int", "randn"])
+def test_candidate_scores_kernel_matches_plain(card, kind):
+    g = torch.Generator().manual_seed(8)
+    rows, n_cand, n_items = 777, 1001, 5000
+    if kind == "int":
+        tab = torch.randint(-1, 2, (n_items, 64), generator=g).bfloat16()
+        ue = torch.randint(-1, 2, (rows, 64), generator=g).bfloat16()
+    else:
+        tab = torch.randn(n_items, 64, generator=g).bfloat16()
+        ue = torch.randn(rows, 64, generator=g).bfloat16()
+    cand = torch.randint(0, n_items, (rows, n_cand), generator=g)
+    before = PK.candidate_scores_cuda.launches
+    got = PK.candidate_scores(ue.to(card), cand.to(card), tab.to(card))
+    assert PK.candidate_scores_cuda.launches == before + 1
+    want = PK.candidate_scores_plain(ue, cand, tab)
+    if kind == "int":
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_dense_mask_rank_kernel_exact_on_integer_tables(card):
+    g = torch.Generator().manual_seed(9)
+    rows, n_items, ipad = 600, 9000, 10240
+    tab = torch.zeros(ipad, 64, dtype=torch.bfloat16)
+    tab[:n_items] = torch.randint(-1, 2, (n_items, 64), generator=g)
+    ue = torch.randint(-1, 2, (rows, 64), generator=g).float()
+    cand = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :1001]
+    maskm = torch.zeros(rows, ipad, dtype=torch.int8)
+    maskm.scatter_(1, cand, 1)
+    tgt = cand[:, 0]
+    before = PK.dense_mask_rank_cuda.launches
+    got = PK.dense_mask_rank(tab.to(card), ue.to(card), tgt.to(card),
+                             maskm.to(card))
+    assert PK.dense_mask_rank_cuda.launches == before + 1
+    want = PK.dense_mask_rank_plain(tab, ue, tgt, maskm)
     assert torch.equal(got.cpu(), want)
 
 

@@ -173,6 +173,53 @@ def test_training_entry_points_default_to_cuda_and_raise_without_gpu(
     assert out.exists()
 
 
+def test_pretrain_baseline_and_probes_raise_without_gpu(synthetic_dataset):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from sml_tpu_torch import cli
+    from sml_tpu_torch.config import BaselineConfig, PretrainConfig
+    from sml_tpu_torch.scripts import eval_kernel_probe, eval_variants
+    from sml_tpu_torch.train.baselines import BaselineDriver
+    from sml_tpu_torch.train.pretrain import pretrain_mf
+
+    dspec, _, _ = synthetic_dataset
+    with pytest.raises(RuntimeError, match="cuda"):
+        pretrain_mf(PretrainConfig(latent_dim=4), dspec, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        BaselineDriver(BaselineConfig(latent_dim=4), dspec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        eval_variants.main(["--rows", "1024", "--items", "300"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        eval_kernel_probe.main(["--rows", "256", "--items", "4096"])
+    data = ["--data-root", dspec.root, "--data-name", dspec.name,
+            "--num-periods", "8", "--online-train-start", "3",
+            "--online-test-start", "5", "--latent", "4"]
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["pretrain", "--out", "unused.npz"] + data)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["baseline"] + data)
+
+
+def test_kernel_wrappers_take_only_cuda_tensors():
+    from sml_tpu_torch.ops import eval_kernel, probe_kernels
+    ue = torch.zeros(4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        probe_kernels.candidate_scores_cuda(
+            ue, torch.zeros(4, 3, dtype=torch.int32), ue)
+    with pytest.raises(ValueError, match="CUDA"):
+        probe_kernels.dense_mask_rank_cuda(
+            torch.zeros(16, 64, dtype=torch.bfloat16), ue,
+            torch.zeros(4, dtype=torch.int32),
+            torch.zeros(4, 16, dtype=torch.int8))
+    with pytest.raises(ValueError, match="CUDA"):
+        eval_kernel.masked_rank_variant_cuda(
+            torch.zeros(4, 8), torch.zeros(8, 4096), torch.zeros(4),
+            torch.zeros(4, 128, dtype=torch.int32))
+    assert (probe_kernels.candidate_scores_cuda.launches,
+            probe_kernels.dense_mask_rank_cuda.launches,
+            eval_kernel.masked_rank_variant_cuda.launches) == (0, 0, 0)
+
+
 def test_cpu_training_never_launches_kernels(synthetic_dataset):
     from sml_tpu_torch.config import SMLConfig, TransferConfig
     from sml_tpu_torch.ops import adam_kernel, eval_kernel, transfer_kernel
