@@ -13,12 +13,18 @@ Phases, one JSON line each:
 3. K1       ``transfer_rows_kernel`` against its plain PyTorch version at
             the Yelp refresh shape (100,000 user + 20,000 item rows, d=64,
             C1=10, C2=5, H=512), f32 and bf16 snapshots; times and bound.
-4. K2       ``masked_rank_kernel`` against its plain version at B=1024,
-            I=20,000, d=64, 999 distinct negatives per row: exact on
-            integer-valued tables, near-exact on random ones; times, bound
-            and a ``torch.matmul`` yardstick.
+4. K2       ``masked_rank_gather_kernel`` against its plain version at
+            B=1024, I=20,000, d=64, 999 distinct negatives per row: exact
+            on integer-valued f32 and bf16 tables, and equal there to the
+            dense design (P1's ``<f32, 32, ij>``); near-exact on random
+            ones; exact on a ``EDGE_ROWS``-row batch of edge-case masks (no
+            bit, every item, one 16-byte chunk, the last chunk). Times of
+            f32, bf16, an empty mask, the dense design and a
+            ``torch.matmul`` yardstick, each eager and by CUDA-graph
+            replay; the build's registers and blocks per SM; bound.
 5. slice    ``SMLEngine(device="cuda")`` with masked scoring: snapshot,
-            refresh (K1), a 16,384-row leave-one-out test (K2), then
+            refresh (K1), a 16,384-row leave-one-out test (K2, one launch
+            per 1024-row batch), then
             ``recommend`` top-20 for 4 batches of 1024 users. The launch
             counters are zeroed just before and read just after; the same
             slice runs on the CPU through the plain versions and the two
@@ -41,7 +47,8 @@ Phases, one JSON line each:
             warm-up, two test periods), 65,536 train and 16,384 test rows
             per period, ``yelp_sml()`` with ``fast_table_adam`` and masked
             scoring. Launch counts must equal those derived from the data
-            (K3 1,920, K1 126, K2 32); losses finite, metrics in [0, 1].
+            (K3 1,920, K1 126, K2 32: one per eval batch); losses finite,
+            metrics in [0, 1].
             The data carry no signal, so training drives the loss to the
             BCE saddle (2 ln 2) and the item rows together (scores tie,
             and the strictly-greater rank then counts every target a
@@ -50,12 +57,13 @@ Phases, one JSON line each:
             record.
             With two test periods the summary's test side is empty (the
             reference averages test periods [N3:-1]) and reads 0.
-10. P1      every instantiation of ``masked_rank_kernel`` that the
-            eval-design probe ``eval_kernel_probe`` runs (rows per block 32
-            or 64, grid order ij or ji, f32 or bf16) at the probe's shape
-            (16,384 rows x 20,480 items, d=64, 999 negatives; integer
-            tables), each exact against K2's plain version; times, bound,
-            a ``torch.matmul`` yardstick. Then the probe itself
+10. P1      every instantiation of ``masked_rank_kernel`` (K2's earlier,
+            dense design) that the eval-design probe ``eval_kernel_probe``
+            runs (rows per block 32 or 64, grid order ij or ji, f32 or
+            bf16) at the probe's shape (16,384 rows x 20,480 items, d=64,
+            999 negatives; integer tables), each exact against K2's plain
+            version; times, bound, a ``torch.matmul`` yardstick. Then the
+            probe itself
             (``python -m sml_tpu_torch.scripts.eval_kernel_probe``) with
             its launches counted.
 11. P2      ``candidate_scores_kernel`` against its plain version at B=1024,
@@ -65,9 +73,12 @@ Phases, one JSON line each:
             calls).
 12. P3      ``dense_mask_rank_kernel`` against its plain version on 16
             batches of 1024 rows, I_pad=20,480, 1,001 distinct candidates
-            per row, the target included: exact on integer tables, at most
-            ``K2_RANDOM_FLIPS_PER_16K`` flips on random ones; times, bound,
-            a matmul of the scores as yardstick.
+            per row, the target included: exact on integer tables and on
+            an ``EDGE_ROWS``-row batch of edge-case masks, at most
+            ``K2_RANDOM_FLIPS_PER_16K`` flips on random ones; times of the
+            kernel, an empty mask and a matmul of the scores as yardstick,
+            each eager and by CUDA-graph replay; the build's registers and
+            blocks per SM; bound.
 13. eval-probes  ``python -m sml_tpu_torch.scripts.eval_variants`` at its
             defaults (16,384 rows, 100,000 users, 20,000 items, 1,000
             candidates) for ``PROBE_ROUNDS`` rounds: every variant runs,
@@ -123,6 +134,8 @@ K1_TOL = 1e-4
 # K2 on random tables: ranks move only where a negative's score lies
 # within f32 reduction-order rounding (~1e-6) of the target score
 K2_RANDOM_FLIPS_PER_16K = 1
+# K2 and P3 edge-case batches: a row count that is not a multiple of 8
+EDGE_ROWS = 1021
 # slice, card vs CPU: hit counts per K may move by the rank flips above
 SLICE_HIT_TOL = 4
 # K3: mu/nu bit-equal; p within this relative tolerance (expected exact)
@@ -179,10 +192,55 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean device time of ``fn()`` over ``iters`` replays of one CUDA graph
+    of it: the kernels back to back, without the host's launch gaps (which
+    eager timing includes where a launch costs the host more than the
+    device)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up, off the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(torch, graph.replay, iters)
+    del graph
+    return ms
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     t_ops = flops / peak * 1e3
     t_mem = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def build_usage(log: str, *name_parts: str, threads: int = 256) -> dict:
+    """Registers, spill bytes and static shared memory that ptxas reported
+    for the one kernel whose mangled name holds every string of
+    ``name_parts``, and the blocks of ``threads`` threads that one H100 SM
+    holds at that use: registers are handed out per warp in units of 256
+    of the SM's 65,536, at most 2,048 threads, and 228 KB of shared memory
+    less 1 KB per block."""
+    import re
+    entries = log.split("Compiling entry function '")[1:]
+    hits = [e for e in entries
+            if all(p in e.split("'")[0] for p in name_parts)]
+    check(len(hits) == 1, f"ptxas reported {len(hits)} kernels named like "
+                          f"{name_parts}")
+    text = hits[0]
+    regs = int(re.search(r"Used (\d+) registers", text).group(1))
+    smem = re.search(r"(\d+) bytes smem", text)
+    smem = int(smem.group(1)) if smem else 0
+    spill = int(re.search(r"(\d+) bytes spill stores", text).group(1))
+    warp_regs = -(-regs * 32 // 256) * 256
+    blocks = min(65536 // warp_regs // (threads // 32), 2048 // threads,
+                 233472 // (smem + 1024))
+    return {"registers": regs, "spill_store_bytes": spill,
+            "smem_bytes": smem, "blocks_per_sm": blocks}
 
 
 def set_bits(words) -> int:
@@ -290,7 +348,24 @@ def distinct_eval_rows(torch, n_rows: int, n_users: int, n_items: int,
     return np.ascontiguousarray(rows.cpu().numpy().astype(np.int64))
 
 
+def k2_edge_batch(torch, ek, masks):
+    """A batch of ``EDGE_ROWS`` rows of packed masks whose rows 0-3 are:
+    no bit set, every item below N_ITEMS, all 128 bits of one 16-byte chunk
+    (4 words), and the items of the last chunk."""
+    full = ek.build_packed_mask(torch.arange(N_ITEMS, device="cuda")[None],
+                                N_ITEMS)[0]
+    edge = masks[:EDGE_ROWS].clone()
+    edge[0] = 0
+    edge[1] = full
+    edge[2] = 0
+    edge[2, 40:44] = -1
+    edge[3] = 0
+    edge[3, -4:] = full[-4:]
+    return edge
+
+
 def phase_k2(torch):
+    from sml_tpu_torch import _build
     from sml_tpu_torch.ops import eval_kernel as ek
 
     ipad = ek.pad_items(N_ITEMS)
@@ -303,17 +378,22 @@ def phase_k2(torch):
     out = {"phase": "K2", "B": EVAL_BATCH, "items": N_ITEMS, "I_pad": ipad,
            "d": DIM}
 
-    # integer-valued tables: every score is exact, so ranks must be equal
+    # integer-valued tables: every score is exact, so ranks must be equal;
+    # K2 takes the row-major (I_pad, d) table, the plain version and the
+    # dense design (P1's template) the transposed one
     ue_i = torch.randint(-2, 3, (EVAL_ROWS, DIM), generator=g).float().cuda()
-    it_i = torch.randint(-2, 3, (DIM, ipad), generator=g).float().cuda()
+    it_i = torch.randint(-2, 3, (ipad, DIM), generator=g).float().cuda()
+    it_i_t = it_i.T.contiguous()
     ss_i = torch.randint(-6, 7, (EVAL_ROWS, 1), generator=g).float().cuda()
     # random tables, the target score as the evaluator computes it
     ue_r = torch.randn(EVAL_ROWS, DIM, generator=g).cuda()
-    it_r = torch.randn(DIM, ipad, generator=g).cuda()
-    it_r[:, N_ITEMS:] = 0.0
-    ss_r = (ue_r * it_r.T[rows[:, 1]]).sum(dim=1, keepdim=True)
+    it_r = torch.randn(ipad, DIM, generator=g).cuda()
+    it_r[N_ITEMS:] = 0.0
+    it_r_t = it_r.T.contiguous()
+    ss_r = (ue_r * it_r[rows[:, 1]]).sum(dim=1, keepdim=True)
 
-    mismatch = {"int_f32": 0, "int_bf16": 0, "random_f32": 0}
+    mismatch = {"int_f32": 0, "int_bf16": 0, "random_f32": 0,
+                "int_f32_vs_dense_design": 0}
     max_diff = 0
     for s in range(0, EVAL_ROWS, EVAL_BATCH):
         sl = slice(s, s + EVAL_BATCH)
@@ -322,15 +402,34 @@ def phase_k2(torch):
                 ("int_bf16", ue_i.bfloat16(), it_i.bfloat16(), ss_i),
                 ("random_f32", ue_r, it_r, ss_r)):
             got = ek.masked_rank_cuda(ue[sl], it, ss[sl], masks[sl])
-            want = ek.masked_rank_plain(ue[sl], it, ss[sl], masks[sl])
+            want = ek.masked_rank_plain(ue[sl], it.T, ss[sl], masks[sl])
             mismatch[name] += int((got != want).sum())
             max_diff = max(max_diff, int((got - want).abs().max()))
+            if name == "int_f32":
+                old = ek.masked_rank_variant_cuda(ue[sl], it_i_t, ss[sl],
+                                                  masks[sl], 32, "ij")
+                mismatch["int_f32_vs_dense_design"] += int((got != old).sum())
+    # edge-case rows, exact on integer tables
+    edge = k2_edge_batch(torch, ek, masks)
+    edge_mismatch = {}
+    for name, ue, it in (("f32", ue_i, it_i),
+                         ("bf16", ue_i.bfloat16(), it_i.bfloat16())):
+        want = ek.masked_rank_plain(ue[:EDGE_ROWS], it.T, ss_i[:EDGE_ROWS],
+                                    edge)
+        check(int(want[0]) == 0 and int(want[1]) > 0,
+              f"K2 edge rows: plain ranks {want[:4].tolist()}")
+        got = ek.masked_rank_cuda(ue[:EDGE_ROWS], it, ss_i[:EDGE_ROWS], edge)
+        edge_mismatch[name] = int((got != want).sum())
     torch.cuda.synchronize()
     out["rows_compared"] = EVAL_ROWS
     out["rank_mismatch"] = mismatch
+    out["edge_rows"] = EDGE_ROWS
+    out["edge_rank_mismatch"] = edge_mismatch
     out["max_abs_rank_diff"] = max_diff
-    check(mismatch["int_f32"] == 0 and mismatch["int_bf16"] == 0,
+    check(all(mismatch[k] == 0 for k in mismatch if k != "random_f32"),
           f"K2 ranks differ on integer tables: {mismatch}")
+    check(not any(edge_mismatch.values()),
+          f"K2 ranks differ on the edge-case rows: {edge_mismatch}")
     check(mismatch["random_f32"] <= K2_RANDOM_FLIPS_PER_16K,
           f"K2 random-table flips {mismatch['random_f32']} over "
           f"{K2_RANDOM_FLIPS_PER_16K} per {EVAL_ROWS} rows")
@@ -340,22 +439,47 @@ def phase_k2(torch):
                 masks[s:s + EVAL_BATCH])
                for s in range(0, EVAL_ROWS, EVAL_BATCH)]
     nb = len(batches)
+    it_b = it_r.bfloat16()
+    batches_b = [(ue.bfloat16(), ss, m) for ue, ss, m in batches]
 
-    def kernel():
-        for ue, ss, m in batches:
-            ek.masked_rank_cuda(ue, it_r, ss, m)
+    def per_batch(fn, iters, parts=batches, timer=cuda_ms):
+        return timer(torch, lambda: [fn(*b) for b in parts], iters) / nb
 
-    def plain():
-        for ue, ss, m in batches:
-            ek.masked_rank_plain(ue, it_r, ss, m)
+    def k2(ue, ss, m):
+        return ek.masked_rank_cuda(ue, it_r, ss, m)
 
-    def library():
-        for ue, _, _ in batches:
-            torch.matmul(ue, it_r)
+    def k2_bf16(ue, ss, m):
+        return ek.masked_rank_cuda(ue, it_b, ss, m)
 
-    out["ms"] = cuda_ms(torch, kernel, 10) / nb
-    out["plain_ms"] = cuda_ms(torch, plain, 3) / nb
-    out["library_ms"] = cuda_ms(torch, library, 10) / nb
+    def dense(ue, ss, m):
+        return ek.masked_rank_variant_cuda(ue, it_r_t, ss, m, 32, "ij")
+
+    def library(ue, ss, m):
+        return torch.matmul(ue, it_r_t)
+
+    zero = torch.zeros_like(masks[:EVAL_BATCH])
+
+    def empty(ue, ss, m):
+        return k2(ue, ss, zero)
+
+    # each by eager launches (cuda_ms, the host's launch gaps included, as
+    # every kernel is timed and as the path pays) and by CUDA-graph replay
+    # (the device alone)
+    for key, fn, parts in (
+            ("", k2, batches), ("bf16_", k2_bf16, batches_b),
+            ("empty_mask_", empty, batches),
+            ("dense_design_", dense, batches),
+            ("library_", library, batches)):
+        out[f"{key}ms"] = per_batch(fn, 10, parts)
+        out[f"{key}graph_ms"] = per_batch(fn, 20, parts, graph_ms)
+    out["plain_ms"] = per_batch(
+        lambda ue, ss, m: ek.masked_rank_plain(ue, it_r_t, ss, m), 3)
+    log = _build.build_log()
+    out["build"] = {
+        "f32": build_usage(log, "masked_rank_gather_kernelIf",
+                           "VecScorerIfLi2E"),
+        "bf16": build_usage(log, "masked_rank_gather_kernelI13__nv_bfloat16",
+                            "VecScorer", "Li1E")}
     # per call, the mean over the timed batches: the function scores only
     # the set mask bits, and reads ue, the item table, the mask and sstar
     # and writes rank once each
@@ -364,10 +488,16 @@ def phase_k2(torch):
         + 2 * EVAL_BATCH * 4
     out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
     out["flops"], out["bytes"] = flops, nbytes
-    # the floor of this design, which scores every column densely
+    # the floor of the dense design, which scores every column, and
+    # the bytes a gather design moves from L2: one table row per set bit
     out["dense_design_flops"] = 2 * EVAL_BATCH * DIM * ipad
     out["dense_design_bound_ms"] = bound_ms(out["dense_design_flops"],
                                             nbytes)[0]
+    out["l2_gather_bytes_f32"] = set_bits(masks) / nb * DIM * 4
+    # the rate at which the candidates' rows arrived, over the device time
+    # the kernel takes beyond an empty mask's
+    out["l2_gather_tb_s"] = out["l2_gather_bytes_f32"] / (
+        out["graph_ms"] - out["empty_mask_graph_ms"]) * 1e-9
     emit(out)
     return {"max_abs_err": max_diff, "ms": out["ms"],
             "plain_ms": out["plain_ms"],
@@ -443,13 +573,13 @@ def phase_slice(torch):
     state, ev, hits, metrics, served, times = run_slice(
         torch, "cuda", pretrained, hat_tables, test_rows, serve_users)
     launches = {"transfer_rows_kernel": tk.transfer_rows_cuda.launches,
-                "masked_rank_kernel": ek.masked_rank_cuda.launches}
+                "masked_rank_gather_kernel": ek.masked_rank_cuda.launches}
     n_batches = ev.rows.shape[0] // EVAL_BATCH
     check(launches["transfer_rows_kernel"] == 2,
           f"K1 launched {launches['transfer_rows_kernel']} times in one "
           "refresh, expected 2")
-    check(launches["masked_rank_kernel"] == n_batches,
-          f"K2 launched {launches['masked_rank_kernel']} times for "
+    check(launches["masked_rank_gather_kernel"] == n_batches,
+          f"K2 launched {launches['masked_rank_gather_kernel']} times for "
           f"{n_batches} eval batches")
 
     cpu_state, _, cpu_hits, cpu_metrics, cpu_served, cpu_times = run_slice(
@@ -609,7 +739,7 @@ def phase_crossover(torch):
 def kernel_counts(ak, tk, ek):
     return {"decay_adam_kernel": ak.decay_adam_cuda.launches,
             "transfer_rows_kernel": tk.transfer_rows_cuda.launches,
-            "masked_rank_kernel": ek.masked_rank_cuda.launches}
+            "masked_rank_gather_kernel": ek.masked_rank_cuda.launches}
 
 
 def zero_counts(ak, tk, ek):
@@ -728,7 +858,7 @@ def expected_sweep_launches(spec, cfg, feeder_rows, eval_batches) -> dict:
             k2 += eval_batches(feeder_rows("test", t + 1))
         d_time += 1
     return {"decay_adam_kernel": k3, "transfer_rows_kernel": k1,
-            "masked_rank_kernel": k2}
+            "masked_rank_gather_kernel": k2}
 
 
 def phase_train_sweep(torch):
@@ -960,7 +1090,25 @@ def phase_p2(torch, rows):
                                    "library_ms")}}
 
 
+def p3_edge_batch(torch, maskm, tgt, ipad):
+    """``EDGE_ROWS`` rows of int8 masks and targets whose rows 0-3 are: no
+    entry set; every item below N_ITEMS, the target among them; the 16
+    entries of one 16-byte chunk, the target among them; the last chunk
+    (pad items, whose table rows are zero)."""
+    edge, t = maskm[:EDGE_ROWS].clone(), tgt[:EDGE_ROWS].clone()
+    edge[0] = 0
+    edge[1] = 0
+    edge[1, :N_ITEMS] = 1
+    edge[2] = 0
+    edge[2, 8192:8208] = 1
+    t[2] = 8200
+    edge[3] = 0
+    edge[3, ipad - 16:] = 1
+    return edge, t
+
+
 def phase_p3(torch, rows):
+    from sml_tpu_torch import _build
     from sml_tpu_torch.ops import probe_kernels as pk
     from sml_tpu_torch.scripts.eval_variants import build_candidate_mask
 
@@ -973,21 +1121,32 @@ def phase_p3(torch, rows):
     mismatch = {"int": 0, "randn": 0}
     max_diff = 0
     tables = {}
-    for kind in mismatch:
+    for kind in ("int", "randn"):
         tab = torch.zeros(ipad, DIM, dtype=torch.bfloat16, device="cuda")
         tab[:N_ITEMS] = int_or_randn(torch, g, (N_ITEMS, DIM), kind)
         ue = int_or_randn(torch, g, (EVAL_ROWS, DIM), kind)
         tables[kind] = (tab, ue)
         for s in range(0, EVAL_ROWS, EVAL_BATCH):
             sl = slice(s, s + EVAL_BATCH)
-            got = pk.dense_mask_rank_cuda(tab, ue[sl], tgt[sl], maskm[sl])
             want = pk.dense_mask_rank_plain(tab, ue[sl], tgt[sl], maskm[sl])
+            got = pk.dense_mask_rank_cuda(tab, ue[sl], tgt[sl], maskm[sl])
             mismatch[kind] += int((got != want).sum())
             max_diff = max(max_diff, int((got - want).abs().max()))
+    # edge-case rows on the integer tables, exact
+    tab, ue = tables["int"]
+    edge, edge_tgt = p3_edge_batch(torch, maskm, tgt, ipad)
+    want = pk.dense_mask_rank_plain(tab, ue[:EDGE_ROWS], edge_tgt, edge)
+    check(int(want[0]) == 0 and 0 < int(want[1]) < N_ITEMS,
+          f"P3 edge rows: plain ranks {want[:4].tolist()}")
+    edge_mismatch = int((pk.dense_mask_rank_cuda(
+        tab, ue[:EDGE_ROWS], edge_tgt, edge) != want).sum())
     torch.cuda.synchronize()
-    check(mismatch["int"] == 0, f"P3 ranks differ on integer tables")
+    check(mismatch["int"] == 0,
+          f"P3 ranks differ on integer tables: {mismatch}")
+    check(edge_mismatch == 0,
+          f"P3 ranks differ on {edge_mismatch} edge-case rows")
     check(mismatch["randn"] <= K2_RANDOM_FLIPS_PER_16K,
-          f"P3 random-table flips {mismatch['randn']} over "
+          f"P3 random-table flips {mismatch} over "
           f"{K2_RANDOM_FLIPS_PER_16K} per {EVAL_ROWS} rows")
 
     tab, ue = tables["randn"]
@@ -997,24 +1156,32 @@ def phase_p3(torch, rows):
                                                       EVAL_BATCH)]
     nb = len(parts)
 
-    def kernel():
-        for u, t, m in parts:
-            pk.dense_mask_rank_cuda(tab, u, t, m)
+    def per_batch(fn, iters, timer=cuda_ms):
+        return timer(torch, lambda: [fn(*b) for b in parts], iters) / nb
 
-    def plain():
-        for u, t, m in parts:
-            pk.dense_mask_rank_plain(tab, u, t, m)
+    def p3(u, t, m):
+        return pk.dense_mask_rank_cuda(tab, u, t, m)
 
-    def library():
-        for u, _, _ in parts:
-            torch.mm(u, tab_t, out_dtype=torch.float32)
+    zero = torch.zeros_like(maskm[:EVAL_BATCH])
+
+    def empty(u, t, m):
+        return p3(u, t, zero)
+
+    def library(u, t, m):
+        return torch.mm(u, tab_t, out_dtype=torch.float32)
 
     out = {"phase": "P3", "B": EVAL_BATCH, "I_pad": ipad, "d": DIM,
            "candidates": rows.shape[1] - 1, "rank_mismatch": mismatch,
-           "max_abs_rank_diff": max_diff,
-           "ms": cuda_ms(torch, kernel, 10) / nb,
-           "plain_ms": cuda_ms(torch, plain, 3) / nb,
-           "library_ms": cuda_ms(torch, library, 10) / nb}
+           "edge_rows": EDGE_ROWS, "edge_rank_mismatch": edge_mismatch,
+           "max_abs_rank_diff": max_diff}
+    # each by eager launches (as every kernel is timed and as the probe
+    # pays) and by CUDA-graph replay (the device alone)
+    for key, fn in (("", p3), ("empty_mask_", empty), ("library_", library)):
+        out[f"{key}ms"] = per_batch(fn, 10)
+        out[f"{key}graph_ms"] = per_batch(fn, 20, graph_ms)
+    out["plain_ms"] = per_batch(
+        lambda u, t, m: pk.dense_mask_rank_plain(tab, u, t, m), 3)
+    out["build"] = build_usage(_build.build_log(), "dense_mask_rank_kernel")
     # per call: the int8 mask, the bf16 table, ue, tgt and rank once each;
     # the scores of the set entries and of each row's target
     set_entries = int(maskm.sum(dtype=torch.int64)) / nb
@@ -1025,6 +1192,9 @@ def phase_p3(torch, rows):
                                                 PEAK_BF16_FLOPS)
     out["flops"], out["bytes"] = flops, nbytes
     out["tpu_design_flops"] = 2 * 2 * EVAL_BATCH * ipad * DIM
+    out["l2_gather_bytes"] = (set_entries + EVAL_BATCH) * DIM * 2
+    out["l2_gather_tb_s"] = out["l2_gather_bytes"] / (
+        out["graph_ms"] - out["empty_mask_graph_ms"]) * 1e-9
     emit(out)
     return {"max_abs_err": max_diff,
             **{k: out[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1245,15 +1415,15 @@ def main() -> int:
          "source": "sml_tpu_torch/csrc/transfer_kernel.cu",
          "replaces": "sml_tpu/ops/transfer_kernel.py:87",
          "launches": launches["transfer_rows_kernel"], **k1},
-        {"name": "masked_rank_kernel", "route": "cuda",
-         "source": "sml_tpu_torch/csrc/eval_kernel.cu",
+        {"name": "masked_rank_gather_kernel", "route": "cuda",
+         "source": "sml_tpu_torch/csrc/masked_rank_gather.cu",
          "replaces": "sml_tpu/ops/eval_kernel.py:159",
-         "launches": launches["masked_rank_kernel"], **k2},
+         "launches": launches["masked_rank_gather_kernel"], **k2},
         {"name": "decay_adam_kernel", "route": "cuda",
          "source": "sml_tpu_torch/csrc/adam_kernel.cu",
          "replaces": "sml_tpu/ops/adam_kernel.py:71",
          "launches": launches["decay_adam_kernel"], **k3},
-        {"name": "masked_rank_kernel (P1 variants)", "route": "cuda",
+        {"name": "masked_rank_kernel", "route": "cuda",
          "source": "sml_tpu_torch/csrc/eval_kernel.cu",
          "replaces": "scripts/eval_kernel_probe.py:74", **p1},
         {"name": "candidate_scores_kernel", "route": "cuda",

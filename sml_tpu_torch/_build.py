@@ -4,9 +4,10 @@ At first use, every ``csrc/*.cu`` is compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) by its own ``nvcc`` process,
 all started together, and the objects are linked into one shared library
 under ``<repo>/build/kernels/`` (listed in ``.gitignore``), named by a hash
-of the sources and flags so an edited source rebuilds. The library has a
-plain C interface and loads through ``ctypes``: pointers and the stream
-travel as ``c_void_p``. Every C entry point returns ``cudaGetLastError()``
+of the sources and flags so an edited source rebuilds. ptxas's report of
+each kernel's registers and shared memory is kept beside it
+(:func:`build_log`). The library has a plain C interface and loads
+through ``ctypes``: pointers and the stream travel as ``c_void_p``. Every C entry point returns ``cudaGetLastError()``
 after its launch; :func:`check` raises on a non-zero code.
 
 Nothing here runs at import time: this module is imported on hosts without
@@ -27,7 +28,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "--resource-usage")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +43,8 @@ SIGNATURES = {
     # ue, items_t, in_bf16, sstar, maskp, rank, B, d, ipad, rows_per_block,
     # items_on_x, stream
     "sml_masked_rank": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
+    # ue, items, in_bf16, sstar, maskp, rank, B, d, ipad, stream
+    "sml_masked_rank_gather": [_P, _P, _I, _P, _P, _P] + [_I] * 3 + [_P],
     # ue, cand, table, out, B, C, n_items, stream
     "sml_candidate_scores": [_P] * 4 + [_I] * 3 + [_P],
     # ue, tgt, maskm, table, rank, B, ipad, stream
@@ -87,9 +91,10 @@ def _compile(out: Path) -> None:
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for u, o in zip(units, objs)]
-        failed = []
+        failed, logs = [], []
         for u, p in zip(units, procs):
             log, _ = p.communicate()
+            logs.append(log)
             if p.returncode != 0:
                 failed.append(f"{u.name} (rc {p.returncode}):\n{log}")
         if failed:
@@ -101,6 +106,7 @@ def _compile(out: Path) -> None:
                               stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        out.with_suffix(".log").write_text("".join(logs))
         os.replace(so_tmp, out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -120,6 +126,12 @@ def load_library() -> ctypes.CDLL:
     lib.sml_error_string.argtypes = [ctypes.c_int]
     lib.sml_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def build_log() -> str:
+    """ptxas's resource report for every kernel of the built library."""
+    load_library()
+    return library_path().with_suffix(".log").read_text()
 
 
 def check(code: int, kernel: str) -> None:

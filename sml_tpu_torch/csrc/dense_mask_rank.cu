@@ -9,107 +9,107 @@
 //
 // The mask holds ALL C+1 candidates, the target included, so the target
 // meets itself in the count and that comparison must come out false: the
-// target's score s* is computed by row_score, the one device function that
-// computes every column's score, in the same order of operations (the TPU
-// kernel took s* from the same score tiles for the same reason). Each
-// product of two bf16 values is exact in f32, so fmaf and a multiply-add
-// round alike and only the (fixed, sequential) order of the sums matters.
+// target's score s* is computed by the scorer that computes every
+// candidate's score, with the same lane layout and the same order of
+// operations (the TPU kernel took s* from the same score tiles for the same
+// reason). Each product of two bf16 values is exact in f32, so fmaf and a
+// multiply-add round alike and only the (fixed) order of the sums matters.
 //
 // Bound on an H100 SXM. The function reads the int8 mask (B*I_pad bytes),
 // the bf16 table (I_pad*d*2), ue (B*d*2) and tgt, and writes rank; it needs
 // the scores of the set mask entries only, 2*d*(popcount + B) operations.
 // At B=1024, I_pad=20,480, d=64 and 1,001 candidates per row: ~23.8 MB,
 // 0.0071 ms at 3.35 TB/s, against 0.131 GFLOP (0.002 ms even at the f32
-// rate): bound by bytes.
+// rate): bound by bytes. The 2.6 MB table stays in the 50 MB L2, so the
+// floor of a gather design is L2 bandwidth: 1024 x 1,001 rows of 128 bytes
+// = 131 MB, ~0.028 ms at the ~4.7 TB/s that P2's gather reached from L2 on
+// this card (csrc/candidate_scores.cu).
 //
 // The TPU kernel scored every column twice (one pass for s*, one for the
-// count), 2*2*B*I_pad*d = 5.4 GFLOP. This kernel skips the unmasked
-// columns: one block per row streams the row's mask once with 16-byte
-// loads, skips all-zero chunks, and scores only the set entries (~1,001 of
-// 20,480), each with one thread reading the candidate's 128-byte table row
-// from L2 (the 2.6 MB table stays there) against the user row in shared
-// memory. Per-thread counts are summed with shuffles and one shared-memory
-// pass; the block owns its row, so rank[b] is written once, without
-// atomics. A target id outside [0, I_pad) gives s* = 0, as the TPU kernel's
-// one-hot sum does.
+// count), 2*2*B*I_pad*d = 5.4 GFLOP. This kernel scores only the set
+// entries (csrc/gather_rank.cuh): one block per row, the 8 warps split the
+// row's mask into spans of 16-byte chunks; each lane loads ROUNDS chunks at
+// a time, turns the nonzero bytes of each into item ids in its warp's list,
+// and 8 lanes score each listed candidate, one 16-byte load of its 128-byte
+// row each, against 8 user values held in registers (P2's layout). Every
+// warp scores the target the same way first, so every lane holds s*. The
+// per-warp counts are summed in shared memory and rank[b] is stored once,
+// without atomics. A target id outside [0, I_pad) gives s* = 0, as the TPU
+// kernel's one-hot sum does.
+//
+// The mask reaches the warps by coalesced 16-byte loads from global memory,
+// two chunks per lane in flight. A 1-D bulk copy (cp.async.bulk on an
+// mbarrier) of each warp's span into shared memory, issued at block start
+// to overlap the target's score, was timed against it on an H100 and left
+// out: within 3% either way across runs (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather_rank.cuh"
+
 namespace {
 
-constexpr int DIM = 64;          // latent width (the probe's DIM)
-constexpr int THREADS = 256;
-constexpr int CHUNK = 16;        // mask bytes per 16-byte load
+using namespace gather_rank;
 
-__device__ __forceinline__ void widen8(const uint4 raw, float (&out)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    out[2 * k] = f.x;
-    out[2 * k + 1] = f.y;
-  }
-}
+constexpr int DIM = 64;                    // latent width (the probe's DIM)
+constexpr int CHUNK = 16;                  // mask bytes per 16-byte load
+constexpr int ROUNDS = 2;                  // mask loads per lane in flight
+using Scorer = VecScorer<__nv_bfloat16, 1>;   // 8 lanes x 16 bytes a row
 
-// The score of table row i against the row's user vector u (shared memory):
-// every score of the kernel, s* included, comes from here.
-__device__ __forceinline__ float row_score(const float* __restrict__ u,
-                                           const uint4* __restrict__ tab,
-                                           int i) {
-  const uint4* r = tab + (size_t)i * (DIM / 8);
-  float acc = 0.f;
+// Bit k set where byte k of the 16-byte chunk is nonzero.
+__device__ __forceinline__ uint32_t nonzero_bytes(const uint4 m) {
+  const uint32_t w[4] = {m.x, m.y, m.z, m.w};
+  uint32_t bits = 0;
 #pragma unroll
-  for (int q = 0; q < DIM / 8; ++q) {
-    float v[8];
-    widen8(r[q], v);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc = fmaf(u[q * 8 + k], v[k], acc);
+  for (int q = 0; q < 4; ++q) {
+    // 0x01/0x02/0x04/0x08 in the nonzero bytes, summed into the top byte
+    const uint32_t t = __vcmpne4(w[q], 0u) & 0x08040201u;
+    bits |= ((t * 0x01010101u) >> 24) << (4 * q);
   }
-  return acc;
+  return bits;
 }
 
 __global__ void __launch_bounds__(THREADS) dense_mask_rank_kernel(
     const __nv_bfloat16* __restrict__ ue, const int* __restrict__ tgt,
     const int8_t* __restrict__ maskm, const __nv_bfloat16* __restrict__ table,
     int* __restrict__ rank, int ipad) {
-  __shared__ float u[DIM];
-  __shared__ int warp_cnt[THREADS / 32];
+  __shared__ int lists[WARPS][CAP];
   const int b = blockIdx.x;
-  if (threadIdx.x < DIM)
-    u[threadIdx.x] = __bfloat162float(ue[(size_t)b * DIM + threadIdx.x]);
-  __syncthreads();
-
-  const uint4* tab = reinterpret_cast<const uint4*>(table);
-  const int t = tgt[b];
-  const float ss = (t >= 0 && t < ipad) ? row_score(u, tab, t) : 0.f;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int chunks = ipad / CHUNK;
+  const int lo = warp * chunks / WARPS;
+  const int hi = (warp + 1) * chunks / WARPS;
   const uint4* mrow = reinterpret_cast<const uint4*>(maskm + (size_t)b * ipad);
-  int cnt = 0;
-  for (int w = threadIdx.x; w < ipad / CHUNK; w += THREADS) {
-    const uint4 m = mrow[w];
-    if ((m.x | m.y | m.z | m.w) == 0u) continue;
-    const uint32_t quad[4] = {m.x, m.y, m.z, m.w};
+
+  const Scorer s(table, ue + (size_t)b * DIM, DIM, lane);
+  const int t = tgt[b];
+  const bool in_range = t >= 0 && t < ipad;
+  Scorer::Regs row;
+  s.fetch(in_range ? t : 0, in_range, row);
+  const float st = s.dot(row);
+  const float ss = in_range ? st : 0.f;
+
+  int* list = lists[warp];
+  int n = 0, cnt = 0;
+  auto flush = [&](int m) { cnt += score_list(s, list, m, ss, lane); };
+  for (int c0 = lo; c0 < hi; c0 += 32 * ROUNDS) {
+    uint4 m[ROUNDS];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t x = quad[q];
-      while (x != 0u) {
-        const int byte = (__ffs(x) - 1) >> 3;
-        x &= ~(0xffu << (8 * byte));
-        cnt += (int)(row_score(u, tab, w * CHUNK + 4 * q + byte) > ss);
-      }
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int c = c0 + 32 * r + lane;
+      m[r] = c < hi ? __ldg(mrow + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int c = c0 + 32 * r + lane;
+      append(list, n, nonzero_bytes(m[r]), lane,
+             [&](int k) { return CHUNK * c + k; }, flush);
     }
   }
-
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-  if ((threadIdx.x & 31) == 0) warp_cnt[threadIdx.x >> 5] = cnt;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) total += warp_cnt[w];
-    rank[b] = total;
-  }
+  flush(n);
+  store_block_count(cnt, rank + b);
 }
 
 }  // namespace
@@ -124,7 +124,8 @@ extern "C" int sml_dense_mask_rank(const void* ue, const void* tgt,
   if (B < 0 || ipad < 0 || ipad % CHUNK != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  dense_mask_rank_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto s = static_cast<cudaStream_t>(stream);
+  dense_mask_rank_kernel<<<B, THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(ue), static_cast<const int*>(tgt),
       static_cast<const int8_t*>(maskm),
       static_cast<const __nv_bfloat16*>(table), static_cast<int*>(rank),

@@ -1,7 +1,6 @@
-// K2 masked_rank_kernel: masked leave-one-out rank counts.
-//
-// Replaces the Pallas TPU kernel sml_tpu/ops/eval_kernel.py
-// masked_rank_pallas (kernel body _kernel, :133-156). For each eval row b:
+// masked_rank_kernel: masked leave-one-out rank counts by dense scoring,
+// K2's earlier design, kept as P1's kernel (K2 is now the gather kernel of
+// csrc/masked_rank_gather.cu). For each eval row b:
 //
 //   rank[b] = #{ i : bit(mask[b], i) and ue[b] . items_t[:, i] > sstar[b] }
 //
@@ -9,47 +8,41 @@
 // covers the row's negatives only, so the target never compares with
 // itself. Mask layout (unchanged from the JAX package, so masks compare word
 // for word): bit k of uint32 word jb*128 + w marks item jb*4096 + k*128 + w.
+// The item table is transposed, (d, I_pad), as in the JAX package.
 //
-// Bound on an H100 SXM. The function needs the scores of the set mask bits
-// only: 2*d*popcount(mask) operations, against (B*d + d*I_pad)*itemsize +
-// B*I_pad/8 + 8*B bytes (ue, the item table, the mask, sstar, rank). At
-// B=1024, d=64, I_pad=20,480 and 999 negatives per row that is 0.13 GFLOP
-// (0.002 ms at 67 TFLOP/s, f32 outside the tensor cores) against ~8.1 MB
-// (0.0024 ms at 3.35 TB/s): bound by bytes at ~0.0024 ms per call. This
-// design scores every column densely, 2*B*d*I_pad = 2.68 GFLOP, whose floor
-// is 0.040 ms; only a design that skips the unmasked columns can go below it.
+// P1 replaces the eval-design probe scripts/eval_kernel_probe.py
+// make_variant (Pallas body _kernel_body :49-68, K2's function under layout
+// variants); this kernel is a template over two of its axes:
+//   RB          rows per block: 32 or 64 (the probe's rblk 256 and 512);
+//               a warp owns RB/8 rows.
+//   ITEMS_ON_X  grid order: false puts row tiles on blockIdx.x (the probe's
+//               "ij"); true puts item blocks on blockIdx.x ("ji"). The card
+//               rasterises blockIdx.x fastest, so the order only decides
+//               which operand neighbouring blocks share in L2.
+// The probe's dimension_semantics has no counterpart: blocks run in any
+// order and the counts are added with integer atomics. Every instantiation
+// is reached through one entry point, sml_masked_rank.
 //
-// Design: a 2-D grid of (32-row tiles) x (4096-item mask blocks), so the
+// Bound on an H100 SXM at the probe's shape (B=16,384, I_pad=20,480, d=64,
+// 999 negatives per row). The function needs the scores of the set mask
+// bits only: 2*d*popcount(mask) = 2.1 GFLOP (0.031 ms at 67 TFLOP/s, f32
+// outside the tensor cores) against 51.5 MB of f32 inputs (0.0154 ms at
+// 3.35 TB/s), so operations bound it; with bf16 inputs the tensor cores'
+// rate leaves the 46.7 MB (0.0139 ms) of bytes as the bound. This design's
+// floor is its dense work, 2*B*I_pad*d = 42.9 GFLOP, 0.64 ms in f32; only a
+// design that skips the unmasked columns goes below it (K2's gather).
+//
+// Design: a 2-D grid of (RB-row tiles) x (4096-item mask blocks), so the
 // blocks are independent (the TPU kernel summed over the item axis in
-// sequence; here blocks run in no order). A block stages its 32 user rows
-// in shared memory (k-major), loads its 32x128 mask words once into
-// registers (each thread owns 4 rows x 4 lanes), then walks the 32 bit
-// planes: per plane it stages the d x 128 item tile, computes a 4x4
-// register tile of f32 scores (fmaf, no tensor cores, no TF32), and counts
+// sequence; here blocks run in no order). A block stages its RB user rows
+// in shared memory (k-major), loads its RBx128 mask words once into
+// registers (each thread owns RB/8 rows x 4 lanes), then walks the 32 bit
+// planes: per plane it stages the d x 128 item tile, computes a register
+// tile of f32 scores (fmaf, no tensor cores, no TF32), and counts
 // bit & (score > sstar). The per-row counts are summed across the warp with
 // shuffles and added into rank[b] with one int32 atomicAdd per row and
 // warp; integer atomics do not depend on order, so results are
 // deterministic. ue/items_t may be f32 or bf16 (widened on load).
-//
-// P1, the eval-design probe scripts/eval_kernel_probe.py make_variant
-// (Pallas body _kernel_body :49-68, the same function under layout
-// variants), is this kernel as a template over two of its axes:
-//   RB          rows per block: 32 (K2) or 64 (the probe's rblk 512, twice
-//               the rows of its rblk 256); a warp owns RB/8 rows.
-//   ITEMS_ON_X  grid order: false puts row tiles on blockIdx.x (K2, the
-//               probe's "ij"); true puts item blocks on blockIdx.x ("ji").
-//               The card rasterises blockIdx.x fastest, so the order only
-//               decides which operand neighbouring blocks share in L2.
-// The probe's dimension_semantics has no counterpart: blocks run in any
-// order and the counts are added with integer atomics. K2 is the
-// instantiation <T, 32, false>; P1 reaches every instantiation through the
-// same entry point, sml_masked_rank. P1's bound at the probe's
-// shape (B=16,384, I_pad=20,480, d=64, 999 negatives) is computed the same
-// way: 2*d*popcount(mask) = 2.1 GFLOP (0.031 ms at 67 TFLOP/s in f32)
-// against 51.5 MB (0.0154 ms) for f32 inputs, so operations bound it; with
-// bf16 inputs the tensor cores' rate leaves the 46.7 MB (0.0139 ms) of
-// bytes as the bound. The dense design's floor is 2*B*I_pad*d = 42.9
-// GFLOP, 0.64 ms in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,8 +52,7 @@
 
 namespace {
 
-constexpr int RB = 32;         // eval rows per block
-constexpr int THREADS = 256;   // warp w owns rows 4w..4w+3 of the tile
+constexpr int THREADS = 256;   // warp w owns rows w*RB/8.. of the tile
 constexpr int LANES = 128;     // items per bit plane
 constexpr int PLANES = 32;     // bits per mask word
 constexpr int I_BLK = LANES * PLANES;
@@ -201,8 +193,8 @@ int launch_variant(const void* ue, const void* items_t, const float* sstar,
 // ue: (B, d), items_t: (d, ipad), both f32 (in_bf16 = 0) or bf16; sstar:
 // (B,) f32; maskp: (B, ipad/32) uint32; rank: (B,) int32, zeroed by the
 // caller. ipad is a multiple of 4096. rows_per_block (32 or 64) and
-// items_on_x (0: row tiles on blockIdx.x; 1: item blocks) pick the
-// instantiation: K2 is (32, 0), P1 any of the four.
+// items_on_x (0: row tiles on blockIdx.x; 1: item blocks) pick P1's
+// instantiation.
 extern "C" int sml_masked_rank(const void* ue, const void* items_t,
                                int in_bf16, const void* sstar,
                                const void* maskp, void* rank, int B, int d,

@@ -53,23 +53,23 @@ def _resolve_mode(scoring: str, n_items: int, n_cand: int,
 
 def _make_ranker(scoring: str):
     """``(prep, rank)``: ``prep(mf) -> ctx`` once per eval (casts and the
-    transposed, padded item table), ``rank(ctx, rows, cand_mask) -> (B,)
-    int32`` per batch."""
+    padded item table), ``rank(ctx, rows, cand_mask) -> (B,) int32`` per
+    batch."""
 
     def prep(mfp: MFParams):
         ue_t, ie_t = mfp.user_emb, mfp.item_emb
         if scoring.endswith("bf16"):
             ue_t = ue_t.to(torch.bfloat16)
             ie_t = ie_t.to(torch.bfloat16)
-        it_t = None
+        it_pad = None
         if scoring.startswith("masked") or scoring == "auto":
-            # (d, I_pad): the pad columns are never in a mask
+            # (I_pad, d), row-major: the pad rows are never in a mask
             ipad = eval_kernel.pad_items(ie_t.shape[0])
-            it_t = F.pad(ie_t, (0, 0, 0, ipad - ie_t.shape[0])).T.contiguous()
-        return ue_t, ie_t, it_t
+            it_pad = F.pad(ie_t, (0, 0, 0, ipad - ie_t.shape[0]))
+        return ue_t, ie_t, it_pad
 
     def rank(ctx, r: torch.Tensor, cand_mask) -> torch.Tensor:
-        ue_t, ie_t, it_t = ctx
+        ue_t, ie_t, it_pad = ctx
         users, cand = r[:, 0].long(), r[:, 1:].long()
         mode = _resolve_mode(scoring, ie_t.shape[0], cand.shape[1],
                              cand_mask is not None)
@@ -79,7 +79,7 @@ def _make_ranker(scoring: str):
             # only, so the target never compares with itself
             sstar = (ue.float() * ie_t[r[:, 1].long()].float()).sum(
                 dim=1, keepdim=True)
-            return eval_kernel.masked_rank(ue, it_t, sstar, cand_mask)
+            return eval_kernel.masked_rank(ue, it_pad, sstar, cand_mask)
         if mode.startswith("matmul"):
             all_s = ue_t[users].float() @ ie_t.float().T       # (B, I)
             return rank_of_target(torch.gather(all_s, 1, cand))

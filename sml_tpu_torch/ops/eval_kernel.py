@@ -3,14 +3,21 @@
 Replaces the Pallas TPU kernel ``sml_tpu/ops/eval_kernel.py``
 ``masked_rank_pallas``. Each eval row ``[user, target, neg_1..neg_C]`` is
 ranked by the strictly-greater count of its negatives' scores over the
-target score, with the negatives given as a packed membership mask so the
-kernel streams the whole item table instead of gathering C rows per eval
-row, and the (B, I) score matrix is never written out. The function is
-bound by bytes (the item table and the mask); the kernel
-(``csrc/eval_kernel.cu``) scores every column densely in f32, and its
-source note gives both bounds and the design. The same kernel, under the
-layout variants of the eval-design probe ``scripts/eval_kernel_probe.py``,
-is P1 (:func:`masked_rank_variant`).
+target score, with the negatives given as a packed membership mask; the
+(B, I) score matrix is never written out. The function is bound by bytes:
+2*d*popcount(mask) operations against the bytes of ue, the item table and
+the mask, ~0.0024 ms per 1024-row call at the Yelp shape on an H100. K2
+(``csrc/masked_rank_gather.cu``, :func:`masked_rank_cuda`) compacts each
+row's set bits and gathers only those items' rows from the row-major
+``(I_pad, d)`` table, which stays in L2; its design floor is the L2 gather
+rate (~262 MB of f32 rows per call, ~0.056 ms at the rate P2 reached). The
+source note gives both and the design.
+
+K2's earlier design, which scores every column densely, is kept as P1's
+kernel (``csrc/eval_kernel.cu``, a template over rows per block and grid
+order, the variants of the eval-design probe ``scripts/eval_kernel_probe.py``;
+:func:`masked_rank_variant`). It takes the table transposed, ``(d, I_pad)``,
+as do the plain version and the JAX package.
 
 Mask layout (bitplane packing, unchanged from the JAX package): items are
 grouped into blocks of ``I_BLK = 4096 = 32 planes x 128 lanes``; bit ``k``
@@ -19,8 +26,8 @@ the uint32 words in an int32 tensor (same bits; ``.numpy().view(np.uint32)``
 gives JAX's words), because PyTorch's bit operations cover int32 on every
 device.
 
-:func:`masked_rank` routes by device: a CUDA tensor launches the kernel
-(or raises), a CPU tensor takes :func:`masked_rank_plain`.
+:func:`masked_rank` routes by device: a CUDA tensor launches K2 (or
+raises), a CPU tensor takes :func:`masked_rank_plain`.
 """
 
 from __future__ import annotations
@@ -90,24 +97,69 @@ def masked_rank_plain(ue: torch.Tensor, items_t: torch.Tensor,
     return (bits & gt).sum(dim=(1, 2, 3)).to(torch.int32)
 
 
-# P1: the eval-design probe ``scripts/eval_kernel_probe.py`` runs this
-# kernel's function under layout variants. On the card a variant is an
-# instantiation of the same kernel: rows per block (32 is K2's; the probe's
-# rblk 256/512 become 32/64) and grid order ("ij": row tiles on blockIdx.x,
-# K2's; "ji": item blocks on blockIdx.x). The probe's dimension_semantics
-# has no counterpart (see csrc/eval_kernel.cu).
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def masked_rank_cuda(ue: torch.Tensor, items: torch.Tensor,
+                     sstar: torch.Tensor, maskp: torch.Tensor) -> torch.Tensor:
+    """K2: launch ``masked_rank_gather_kernel`` once for the batch; ``items``
+    is the row-major ``(I_pad, d)`` table. (B,) int32."""
+    if not all(t.is_cuda for t in (ue, items, sstar, maskp)):
+        raise ValueError("masked_rank_cuda takes CUDA tensors")
+    B, d = ue.shape
+    ipad = items.shape[0]
+    if items.dim() != 2 or items.shape[1] != d or ipad % I_BLK:
+        raise ValueError(f"items must be (I_pad, d={d}) with I_pad a "
+                         f"multiple of {I_BLK}, got {tuple(items.shape)}")
+    if ue.dtype != items.dtype or ue.dtype not in (torch.float32,
+                                                   torch.bfloat16):
+        raise ValueError(f"ue/items must both be float32 or bfloat16, got "
+                         f"{ue.dtype}/{items.dtype}")
+    if tuple(maskp.shape) != (B, ipad // PLANES) or maskp.dtype != torch.int32:
+        raise ValueError(f"maskp must be ({B}, {ipad // PLANES}) int32 "
+                         f"words, got {tuple(maskp.shape)} {maskp.dtype}")
+    if sstar.numel() != B:
+        raise ValueError(f"sstar must hold {B} target scores")
+    maskp = maskp.contiguous()
+    if not _aligned(maskp):
+        raise ValueError("maskp must start on a 16-byte boundary")
+    ue = ue.contiguous()
+    items = items.contiguous()
+    sstar = sstar.reshape(B).to(torch.float32).contiguous()
+    rank = torch.empty((B,), dtype=torch.int32, device=ue.device)
+    lib = _build.load_library()
+    with torch.cuda.device(ue.device):
+        rc = lib.sml_masked_rank_gather(
+            ue.data_ptr(), items.data_ptr(), int(ue.dtype == torch.bfloat16),
+            sstar.data_ptr(), maskp.data_ptr(), rank.data_ptr(), B, d,
+            items.shape[0], _build.stream_of(ue))
+    _build.check(rc, "masked_rank_gather_kernel")
+    masked_rank_cuda.launches += 1
+    return rank
+
+
+masked_rank_cuda.launches = 0
+
+
+# P1: the eval-design probe ``scripts/eval_kernel_probe.py`` runs K2's
+# function under layout variants. On the card a variant is an instantiation
+# of K2's earlier, dense design (``masked_rank_kernel``): rows per
+# block (the probe's rblk 256/512 become 32/64) and grid order ("ij": row
+# tiles on blockIdx.x; "ji": item blocks on blockIdx.x). The probe's
+# dimension_semantics has no counterpart (see csrc/eval_kernel.cu).
 VARIANT_ROWS_PER_BLOCK = (32, 64)
 VARIANT_ORDERS = ("ij", "ji")
 
 
-def _launch(name: str, ue: torch.Tensor, items_t: torch.Tensor,
-            sstar: torch.Tensor, maskp: torch.Tensor, rows_per_block: int,
-            order: str) -> torch.Tensor:
-    """Check what the kernel takes and launch one instantiation; (B,)
-    int32."""
-    tensors = (ue, items_t, sstar, maskp)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError(f"{name} takes CUDA tensors")
+def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
+                             sstar: torch.Tensor, maskp: torch.Tensor,
+                             rows_per_block: int = 32,
+                             order: str = "ij") -> torch.Tensor:
+    """P1: launch one instantiation of ``masked_rank_kernel`` on the
+    transposed ``(d, I_pad)`` table; (B,) int32."""
+    if not all(t.is_cuda for t in (ue, items_t, sstar, maskp)):
+        raise ValueError("masked_rank_variant_cuda takes CUDA tensors")
     if rows_per_block not in VARIANT_ROWS_PER_BLOCK:
         raise ValueError(f"rows_per_block must be one of "
                          f"{VARIANT_ROWS_PER_BLOCK}, got {rows_per_block}")
@@ -141,30 +193,6 @@ def _launch(name: str, ue: torch.Tensor, items_t: torch.Tensor,
             B, d, ipad, rows_per_block, int(order == "ji"),
             _build.stream_of(ue))
     _build.check(rc, "masked_rank_kernel")
-    return rank
-
-
-def masked_rank_cuda(ue: torch.Tensor, items_t: torch.Tensor,
-                     sstar: torch.Tensor,
-                     maskp: torch.Tensor) -> torch.Tensor:
-    """K2: launch ``masked_rank_kernel`` (32 rows per block, row tiles on
-    blockIdx.x) once for the batch; (B,) int32."""
-    rank = _launch("masked_rank_cuda", ue, items_t, sstar, maskp, 32, "ij")
-    masked_rank_cuda.launches += 1
-    return rank
-
-
-masked_rank_cuda.launches = 0
-
-
-def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
-                             sstar: torch.Tensor, maskp: torch.Tensor,
-                             rows_per_block: int = 32,
-                             order: str = "ij") -> torch.Tensor:
-    """P1: launch one instantiation of ``masked_rank_kernel``; (B,)
-    int32."""
-    rank = _launch("masked_rank_variant_cuda", ue, items_t, sstar, maskp,
-                   rows_per_block, order)
     masked_rank_variant_cuda.launches += 1
     return rank
 
@@ -186,12 +214,13 @@ def masked_rank_variant(ue: torch.Tensor, items_t: torch.Tensor,
     raise ValueError(f"unsupported device {ue.device}")
 
 
-def masked_rank(ue: torch.Tensor, items_t: torch.Tensor, sstar: torch.Tensor,
+def masked_rank(ue: torch.Tensor, items: torch.Tensor, sstar: torch.Tensor,
                 maskp: torch.Tensor) -> torch.Tensor:
-    """Rank counts: the CUDA kernel for tensors on the card, the plain
-    version for CPU tensors."""
+    """Rank counts against the row-major ``(I_pad, d)`` item table: K2 for
+    tensors on the card, the plain version (on the transposed view) for
+    CPU tensors."""
     if ue.is_cuda:
-        return masked_rank_cuda(ue, items_t, sstar, maskp)
+        return masked_rank_cuda(ue, items, sstar, maskp)
     if ue.device.type == "cpu":
-        return masked_rank_plain(ue, items_t, sstar, maskp)
+        return masked_rank_plain(ue, items.T, sstar, maskp)
     raise ValueError(f"unsupported device {ue.device}")

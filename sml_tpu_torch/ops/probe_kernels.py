@@ -11,8 +11,9 @@ here (their entry point is :mod:`sml_tpu_torch.scripts.eval_variants`):
 * P3, :func:`dense_mask_rank` (``make_masked_rank_pallas``): the
   strictly-greater count of masked columns over the target's score, with a
   dense int8 mask that holds every candidate, the target included. The TPU
-  scored every column twice; ``csrc/dense_mask_rank.cu`` streams the mask
-  once and scores only its set entries.
+  scored every column twice; ``csrc/dense_mask_rank.cu`` compacts each
+  row's set entries warp by warp and gathers only their rows, in P2's
+  layout (the device code it shares with K2 is ``csrc/gather_rank.cuh``).
 
 Each source note gives the kernel's bound and design. Each function routes
 by device: a CUDA tensor launches the kernel (or raises), a CPU tensor

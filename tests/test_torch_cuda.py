@@ -7,11 +7,13 @@ JAX conftest (this file imports no JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 1e-4 (f32 sums over C2*d and H terms in another order);
-K2 and every P1 instantiation exact on integer-valued tables; K3 bit-equal
+K2 (both lane groupings), every P1 instantiation and K2 against P1's
+``<f32, 32, ij>`` exact on integer-valued tables; K3 bit-equal
 to its plain version (every operation explicitly rounded), ``p`` held to
 rtol 1e-6; P2 exact on integer tables and within 1e-4 on N(0,1) ones
 (bf16 products are exact in f32, only the order of the sums differs); P3
-exact on integer tables.
+exact on integer tables, by both mask routes. The edge-case rows: no bit
+set, every item set, one 16-byte chunk of the mask, its last chunk.
 """
 
 import json
@@ -73,8 +75,8 @@ def test_masked_rank_kernel_exact_on_integer_tables(card, rows, n_items, d,
     g = torch.Generator().manual_seed(3)
     ipad = E.pad_items(n_items)
     ue = torch.randint(-2, 3, (rows, d), generator=g).float()
-    it = torch.zeros(d, ipad)
-    it[:, :n_items] = torch.randint(-2, 3, (d, n_items), generator=g).float()
+    it = torch.zeros(ipad, d)
+    it[:n_items] = torch.randint(-2, 3, (n_items, d), generator=g).float()
     ss = torch.randint(-5, 6, (rows, 1), generator=g).float()
     neg = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :99]
     mask = E.build_packed_mask(neg.to(card), n_items)
@@ -83,8 +85,56 @@ def test_masked_rank_kernel_exact_on_integer_tables(card, rows, n_items, d,
     got = E.masked_rank(ue.to(card, dtype), it.to(card, dtype), ss.to(card),
                         mask)
     assert E.masked_rank_cuda.launches == before + 1
-    want = E.masked_rank_plain(ue.to(dtype), it.to(dtype), ss, mask.cpu())
+    want = E.masked_rank_plain(ue.to(dtype), it.to(dtype).T, ss, mask.cpu())
     assert torch.equal(got.cpu(), want)
+
+
+def _edge_rows(mask, n_items):
+    """Rows 0-3 of ``mask`` (packed words) become: no bit set, every item
+    below ``n_items``, all 128 bits of one 16-byte chunk (4 words), and
+    the items of the last chunk."""
+    full = E.build_packed_mask(torch.arange(n_items)[None], n_items)
+    mask[0] = 0
+    mask[1] = full[0]
+    mask[2] = 0
+    mask[2, 8:12] = -1
+    mask[3] = 0
+    mask[3, -4:] = full[0, -4:]
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 10])     # 10: rows of 40 or 20 bytes
+def test_masked_rank_kernel_edge_rows_exact(card, d, dtype):
+    g = torch.Generator().manual_seed(10)
+    rows, n_items = 1021, 9000                   # not a multiple of 8
+    ipad = E.pad_items(n_items)
+    ue = torch.randint(-2, 3, (rows, d), generator=g).float()
+    it = torch.zeros(ipad, d)
+    it[:n_items] = torch.randint(-2, 3, (n_items, d), generator=g).float()
+    ss = torch.randint(-5, 6, (rows, 1), generator=g).float()
+    neg = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :999]
+    mask = _edge_rows(E.build_packed_mask(neg, n_items), n_items)
+    want = E.masked_rank_plain(ue.to(dtype), it.to(dtype).T, ss, mask)
+    assert want[0] == 0 and want[1] > 0
+    got = E.masked_rank_cuda(ue.to(card, dtype), it.to(card, dtype),
+                             ss.to(card), mask.to(card))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_masked_rank_gather_equals_the_dense_template(card):
+    g = torch.Generator().manual_seed(11)
+    rows, n_items, d = 1000, 20000, 64
+    ipad = E.pad_items(n_items)
+    ue = torch.randint(-2, 3, (rows, d), generator=g).float().to(card)
+    it = torch.zeros(ipad, d, device=card)
+    it[:n_items] = torch.randint(-2, 3, (n_items, d), generator=g).float()
+    ss = torch.randint(-6, 7, (rows, 1), generator=g).float().to(card)
+    neg = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :999]
+    mask = _edge_rows(E.build_packed_mask(neg.to(card), n_items), n_items)
+    old = E.masked_rank_variant_cuda(ue, it.T.contiguous(), ss, mask, 32,
+                                     "ij")
+    assert torch.equal(E.masked_rank_cuda(ue, it, ss, mask), old)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -144,6 +194,32 @@ def test_dense_mask_rank_kernel_exact_on_integer_tables(card):
                              maskm.to(card))
     assert PK.dense_mask_rank_cuda.launches == before + 1
     want = PK.dense_mask_rank_plain(tab, ue, tgt, maskm)
+    assert torch.equal(got.cpu(), want)
+
+
+# 9008: mask rows of 563 chunks, which the 8 warps split unevenly
+@pytest.mark.parametrize("n_items,ipad", [(20000, 20480), (9000, 9008)])
+def test_dense_mask_rank_kernel_edge_rows_exact(card, n_items, ipad):
+    g = torch.Generator().manual_seed(12)
+    rows = 1021                                  # not a multiple of 8
+    tab = torch.zeros(ipad, 64, dtype=torch.bfloat16)
+    tab[:n_items] = torch.randint(-1, 2, (n_items, 64), generator=g)
+    ue = torch.randint(-1, 2, (rows, 64), generator=g).bfloat16()
+    cand = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :1001]
+    maskm = torch.zeros(rows, ipad, dtype=torch.int8)
+    maskm.scatter_(1, cand, 1)
+    tgt = cand[:, 0].clone()
+    maskm[0] = 0                                 # no entry set
+    maskm[1, :n_items] = 1                       # every item, the target too
+    maskm[2] = 0                                 # one 16-byte chunk
+    maskm[2, 4096:4112] = 1
+    tgt[2] = 4100
+    maskm[3] = 0                                 # the last chunk
+    maskm[3, ipad - 16:] = 1
+    want = PK.dense_mask_rank_plain(tab, ue, tgt, maskm)
+    assert want[0] == 0 and 0 < want[1] < n_items
+    got = PK.dense_mask_rank_cuda(tab.to(card), ue.to(card), tgt.to(card),
+                                  maskm.to(card))
     assert torch.equal(got.cpu(), want)
 
 

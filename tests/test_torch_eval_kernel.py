@@ -4,7 +4,10 @@ Masks must be word-for-word equal to ``sml_tpu``'s ``build_packed_mask``
 (both its ``mxu`` and ``compare`` methods). Ranks must be exactly equal on
 integer-valued tables, where every score is exact whatever the summation
 order (the construction of ``tests/test_eval_scoring.py``), against both
-``masked_rank_xla`` and the Pallas kernel in interpret mode.
+``masked_rank_xla`` and the Pallas kernel in interpret mode. The port's
+``masked_rank`` takes the row-major ``(I_pad, d)`` table, the JAX functions
+the transposed ``(d, I_pad)`` one: each comparison hands both the same
+values.
 """
 
 import jax
@@ -90,13 +93,58 @@ def test_masked_rank_exact_vs_jax(n_items, d, dtype):
         want_pallas = np.asarray(JE.masked_rank_pallas(*args,
                                                        interpret=True))
     got = E.masked_rank(torch.from_numpy(ue).to(tdt),
-                        torch.from_numpy(it).to(tdt),
+                        torch.from_numpy(it).to(tdt).T,
                         torch.from_numpy(ss),
                         torch.from_numpy(mask.view(np.int32).copy()))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want_xla)
     np.testing.assert_array_equal(got.numpy(), want_pallas)
     assert want_xla.max() > 0
+
+
+def _edge_mask(case, rows, n_items):
+    """(rows, mask_words) uint32 masks of one shape: no bit set, every item
+    below ``n_items`` set, or all 32 bits of one word (items 37 + 128k)."""
+    if case == "empty":
+        neg = np.zeros((rows, 0), np.int32)
+    elif case == "full":
+        neg = np.tile(np.arange(n_items, dtype=np.int32), (rows, 1))
+    else:
+        neg = np.tile(37 + 128 * np.arange(32, dtype=np.int32), (rows, 1))
+    if neg.shape[1] == 0:
+        return np.zeros((rows, JE.mask_words(n_items)), np.uint32)
+    return np.asarray(JE.build_packed_mask(jnp.asarray(neg), n_items))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["empty", "full", "one_word"])
+def test_masked_rank_edge_masks_exact_vs_jax(case, dtype):
+    from jax.experimental.pallas import tpu as pltpu
+
+    rng = np.random.default_rng(13)
+    rows, n_items, d = 24, 5000, 16
+    ue, it, ss, _ = _int_case(rng, rows, n_items, d, 1)
+    mask = _edge_mask(case, rows, n_items)
+    assert int(np.unpackbits(mask.view(np.uint8)).sum()) == rows * {
+        "empty": 0, "full": n_items, "one_word": 32}[case]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    args = (jnp.asarray(ue, jdt), jnp.asarray(it, jdt), jnp.asarray(ss),
+            jnp.asarray(mask))
+    want_xla = np.asarray(JE.masked_rank_xla(*args))
+    with pltpu.force_tpu_interpret_mode():
+        want_pallas = np.asarray(JE.masked_rank_pallas(*args,
+                                                       interpret=True))
+    got = E.masked_rank(torch.from_numpy(ue).to(tdt),
+                        torch.from_numpy(np.ascontiguousarray(it.T)).to(tdt),
+                        torch.from_numpy(ss),
+                        torch.from_numpy(mask.view(np.int32).copy()))
+    np.testing.assert_array_equal(got.numpy(), want_xla)
+    np.testing.assert_array_equal(got.numpy(), want_pallas)
+    if case == "empty":
+        assert not got.any()
+    else:
+        assert got.max() > 0
 
 
 def test_masked_rank_counts_only_masked_strictly_greater():
@@ -108,12 +156,13 @@ def test_masked_rank_counts_only_masked_strictly_greater():
     it = torch.zeros((1, ipad))
     it[0, :n_items] = torch.arange(n_items, dtype=torch.float32)
     mask = E.build_packed_mask(torch.tensor([[5, 10, 11, 4200]]), n_items)
-    rank = E.masked_rank(torch.ones((1, 1)), it, torch.tensor([[10.0]]), mask)
+    rank = E.masked_rank(torch.ones((1, 1)), it.T, torch.tensor([[10.0]]),
+                         mask)
     assert rank.tolist() == [2]
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
     x = torch.zeros((2, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        E.masked_rank_cuda(x, torch.zeros((4, 4096)), torch.zeros((2, 1)),
+        E.masked_rank_cuda(x, torch.zeros((4096, 4)), torch.zeros((2, 1)),
                            torch.zeros((2, 128), dtype=torch.int32))

@@ -10,8 +10,9 @@ their plain versions. Tolerances:
   random bf16-rounded tables (each bf16 product is exact in f32; only the
   order of the 64 f32 sums differs), with atol 1e-5 for sums that cancel
   to near zero.
-* P3 ranks: exact on integer tables; on random tables at most 1 row in 64
-  differs, by 1 (a candidate within f32 rounding of the target's score).
+* P3 ranks: exact on integer tables, edge-case masks included; on random
+  tables at most 1 row in 64 differs, by 1 (a candidate within f32
+  rounding of the target's score).
 * P1 ranks and ``build_candidate_mask``: exact.
 """
 
@@ -114,6 +115,43 @@ def test_dense_mask_rank_matches_jax(jev, kind):
     else:
         diff = np.abs(got.astype(np.int64) - want)
         assert (diff <= 1).all() and int((diff > 0).sum()) <= 1
+    assert PK.dense_mask_rank_cuda.launches == 0
+
+
+@pytest.mark.parametrize("case", ["empty", "full", "one_chunk",
+                                  "last_chunk"])
+def test_dense_mask_rank_edge_masks_match_jax(jev, case):
+    """Masks of one shape per batch, integer tables (exact): no entry set;
+    every item set, the target among them; the 16 entries of one 16-byte
+    chunk, the target among them; the last chunk (pad items, zero rows)."""
+    rng = np.random.default_rng(14)
+    ipad, n_items = 512, 500
+    tab = np.zeros((ipad, D), np.float32)
+    tab[:n_items] = _tables(rng, n_items, "int")
+    ue = _tables(rng, B, "int")
+    maskm = np.zeros((B, ipad), np.int8)
+    tgt = rng.integers(0, n_items, B).astype(np.int32)
+    if case == "full":
+        maskm[:, :n_items] = 1
+    elif case == "one_chunk":
+        maskm[:, 160:176] = 1
+        tgt = rng.integers(160, 176, B).astype(np.int32)
+    elif case == "last_chunk":
+        maskm[:, ipad - 16:] = 1
+    rank_fn = jev.make_masked_rank_pallas(ipad, row_block=32, item_block=256,
+                                          interpret=True)
+    want = np.asarray(rank_fn(jnp.asarray(tab, jnp.bfloat16),
+                              jnp.asarray(ue), jnp.asarray(tgt),
+                              jnp.asarray(maskm)))
+    got = PK.dense_mask_rank(torch.from_numpy(tab).bfloat16(),
+                             torch.from_numpy(ue), torch.from_numpy(tgt),
+                             torch.from_numpy(maskm)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "empty":
+        assert not got.any()
+    elif case in ("full", "one_chunk"):
+        # the target never outranks itself
+        assert (got <= int(maskm[0].sum()) - 1).all() and got.max() > 0
     assert PK.dense_mask_rank_cuda.launches == 0
 
 
