@@ -49,8 +49,9 @@ SIGNATURES = {
     "sml_candidate_scores": [_P] * 4 + [_I] * 3 + [_P],
     # ue, tgt, maskm, table, rank, B, ipad, stream
     "sml_dense_mask_rank": [_P] * 5 + [_I] * 2 + [_P],
-    # p, mu, nu, n, vec, lr, b1, b2, eps, bc1, bc2, stream
-    "sml_decay_adam": [_P, _P, _P, _L, _I] + [_F] * 6 + [_P],
+    # leaves (n_leaves rows of int64 p, mu, nu, n), n_leaves, lr, b1, b2,
+    # eps, bc1, bc2, stream
+    "sml_decay_adam": [ctypes.POINTER(_L), _I] + [_F] * 6 + [_P],
 }
 
 

@@ -1,7 +1,7 @@
 """K3: the full-table decay-Adam pass as a hand-written CUDA kernel.
 
 Replaces the Pallas TPU kernel ``sml_tpu/ops/adam_kernel.py``
-``fused_decay_adam``. One g=0 dense-Adam step over a whole table, in place:
+``fused_decay_adam``. One g=0 dense-Adam step over whole tables, in place:
 
     mu <- b1*mu;  nu <- b2*nu;  p <- p + (-lr) * ((mu/bc1) / (sqrt(nu/bc2) + eps))
 
@@ -12,22 +12,29 @@ are fixed up by the caller.
 
 The function is bound by bytes on the card: 24 bytes per element (read and
 write ``p``, ``mu``, ``nu``) for 8 operations. The kernel
-(``csrc/adam_kernel.cu``) streams the flat table once with 16-byte loads and
-stores and rounds every operation explicitly, so it agrees with
-:func:`decay_adam_plain` bit for bit; its source note gives the bound at
-the Yelp shape and the design. It takes every length and every f32 table,
-bias columns included (the TPU kernel's 2^20-element and 128-lane gates
-were tiling limits of the TPU).
+(``csrc/adam_kernel.cu``) takes up to :data:`MAX_LEAVES` tables in one
+launch (the MF step's four leaves: one launch per step), streams them once
+with 16-byte loads and stores and rounds every operation explicitly, so it
+agrees with :func:`decay_adam_plain` bit for bit; its source note gives the
+bound at the Yelp shape and the design. It takes every length and every
+f32 table, bias columns and views off a 16-byte boundary included (the TPU
+kernel's 2^20-element and 128-lane gates were tiling limits of the TPU).
 
-:func:`fused_decay_adam` routes by device: a CUDA tensor launches the kernel
-(or raises), a CPU tensor takes :func:`decay_adam_plain`.
+:func:`fused_decay_adam_multi` routes by device: CUDA tensors launch the
+kernel (or raise), CPU tensors take :func:`decay_adam_plain` leaf by leaf;
+:func:`fused_decay_adam` is its one-table case.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+
 import torch
 
 from sml_tpu_torch import _build
+
+MAX_LEAVES = 8    # tables per launch (the kernel's by-value leaf table)
 
 
 def decay_adam_plain(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
@@ -45,34 +52,50 @@ def decay_adam_plain(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
         p.add_((mu / bc1_t) / (torch.sqrt(nu / bc2_t) + eps) * (-lr))
 
 
-def decay_adam_cuda(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-                    bc1: float, bc2: float, *, lr: float, b1: float,
+def decay_adam_cuda(leaves, bc1: float, bc2: float, *, lr: float, b1: float,
                     b2: float, eps: float) -> None:
-    """Launch ``decay_adam_kernel`` once over the whole table, in place."""
-    tensors = (p, mu, nu)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("decay_adam_cuda takes CUDA tensors")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("p, mu and nu must be on one device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"p, mu, nu must be float32, got "
-                         f"{[str(t.dtype) for t in tensors]}")
-    if not (p.shape == mu.shape == nu.shape):
-        raise ValueError(f"p {tuple(p.shape)}, mu {tuple(mu.shape)} and nu "
-                         f"{tuple(nu.shape)} must have one shape")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("p, mu, nu must be contiguous (updated in place)")
-    if len({t.data_ptr() for t in tensors}) != 3:
-        raise ValueError("p, mu, nu must be three distinct buffers")
-    n = p.numel()
-    if n == 0:
+    """Launch ``decay_adam_kernel`` once over ``leaves``, up to
+    :data:`MAX_LEAVES` ``(p, mu, nu)`` triples on one card, in place."""
+    # every optimizer step pays these checks on the host: one pass over the
+    # tensors, and no device guard when the card is already current
+    leaves = list(leaves)
+    flat, dev = [], None
+    for leaf in leaves:
+        p, mu, nu = leaf
+        if dev is None:
+            dev = p.get_device()
+        for t in leaf:
+            if not t.is_cuda or t.get_device() != dev:
+                raise ValueError("decay_adam_cuda takes CUDA tensors, every "
+                                 "p, mu and nu on one device")
+            if t.dtype is not torch.float32:
+                raise ValueError(f"p, mu, nu must be float32, got {t.dtype}")
+            if t.shape != p.shape:
+                raise ValueError(f"p {tuple(p.shape)}, mu {tuple(mu.shape)} "
+                                 f"and nu {tuple(nu.shape)} must have one "
+                                 f"shape")
+            if not t.is_contiguous():
+                raise ValueError("p, mu, nu must be contiguous (updated in "
+                                 "place)")
+        ptrs = [t.data_ptr() for t in leaf]
+        if len(set(ptrs)) != 3:
+            raise ValueError("p, mu, nu must be three distinct buffers")
+        n = p.numel()
+        if n:
+            flat += ptrs
+            flat.append(n)
+    if not flat:
         return
-    vec = all(t.data_ptr() % 16 == 0 for t in tensors)
+    if len(flat) > 4 * MAX_LEAVES:
+        raise ValueError(f"one launch takes at most {MAX_LEAVES} non-empty "
+                         f"leaves, got {len(flat) // 4}")
     lib = _build.load_library()
-    with torch.cuda.device(p.device):
-        rc = lib.sml_decay_adam(p.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-                                n, int(vec), lr, b1, b2, eps, bc1, bc2,
-                                _build.stream_of(p))
+    guard = (torch.cuda.device(dev) if dev != torch.cuda.current_device()
+             else contextlib.nullcontext())
+    with guard:
+        rc = lib.sml_decay_adam((ctypes.c_int64 * len(flat))(*flat),
+                                len(flat) // 4, lr, b1, b2, eps, bc1, bc2,
+                                torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "decay_adam_kernel")
     decay_adam_cuda.launches += 1
 
@@ -80,14 +103,26 @@ def decay_adam_cuda(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
 decay_adam_cuda.launches = 0
 
 
+def fused_decay_adam_multi(leaves, bc1: float, bc2: float, *, lr: float,
+                           b1: float, b2: float, eps: float) -> None:
+    """One g=0 dense-Adam step over every ``(p, mu, nu)`` triple of
+    ``leaves``, in place: one kernel launch for tensors on the card, the
+    plain version leaf by leaf for CPU tensors."""
+    leaves = [tuple(leaf) for leaf in leaves]
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps)
+    if any(t.is_cuda for leaf in leaves for t in leaf):
+        return decay_adam_cuda(leaves, bc1, bc2, **kw)
+    for leaf in leaves:
+        if any(t.device.type != "cpu" for t in leaf):
+            raise ValueError(f"unsupported device {leaf[0].device}")
+    for leaf in leaves:
+        decay_adam_plain(*leaf, bc1, bc2, **kw)
+
+
 def fused_decay_adam(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                      bc1: float, bc2: float, *, lr: float, b1: float,
                      b2: float, eps: float) -> None:
-    """One g=0 dense-Adam step over a whole table, in place: the CUDA
-    kernel for tensors on the card, the plain version for CPU tensors."""
-    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps)
-    if p.is_cuda:
-        return decay_adam_cuda(p, mu, nu, bc1, bc2, **kw)
-    if p.device.type == "cpu":
-        return decay_adam_plain(p, mu, nu, bc1, bc2, **kw)
-    raise ValueError(f"unsupported device {p.device}")
+    """One g=0 dense-Adam step over one table, in place: the one-leaf case
+    of :func:`fused_decay_adam_multi`."""
+    fused_decay_adam_multi([(p, mu, nu)], bc1, bc2, lr=lr, b1=b1, b2=b2,
+                           eps=eps)

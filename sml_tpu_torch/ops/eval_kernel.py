@@ -13,11 +13,12 @@ row's set bits and gathers only those items' rows from the row-major
 rate (~262 MB of f32 rows per call, ~0.056 ms at the rate P2 reached). The
 source note gives both and the design.
 
-K2's earlier design, which scores every column densely, is kept as P1's
-kernel (``csrc/eval_kernel.cu``, a template over rows per block and grid
-order, the variants of the eval-design probe ``scripts/eval_kernel_probe.py``;
-:func:`masked_rank_variant`). It takes the table transposed, ``(d, I_pad)``,
-as do the plain version and the JAX package.
+P1 (``csrc/eval_kernel.cu``, :func:`masked_rank_variant`) computes the same
+function densely, every column scored: the variants of the eval-design
+probe ``scripts/eval_kernel_probe.py``, a template over rows per block and
+grid order, f32 on the CUDA cores and bf16 on the tensor cores. It takes
+the table transposed, ``(d, I_pad)``, as do the plain version and the JAX
+package.
 
 Mask layout (bitplane packing, unchanged from the JAX package): items are
 grouped into blocks of ``I_BLK = 4096 = 32 planes x 128 lanes``; bit ``k``
@@ -144,20 +145,21 @@ masked_rank_cuda.launches = 0
 
 # P1: the eval-design probe ``scripts/eval_kernel_probe.py`` runs K2's
 # function under layout variants. On the card a variant is an instantiation
-# of K2's earlier, dense design (``masked_rank_kernel``): rows per
-# block (the probe's rblk 256/512 become 32/64) and grid order ("ij": row
-# tiles on blockIdx.x; "ji": item blocks on blockIdx.x). The probe's
-# dimension_semantics has no counterpart (see csrc/eval_kernel.cu).
-VARIANT_ROWS_PER_BLOCK = (32, 64)
+# of the dense kernel ``masked_rank_kernel``: rows per block (the probe's
+# rblk 256/512 become 64/128), grid order ("ij": row tiles on blockIdx.x;
+# "ji": item blocks on blockIdx.x) and input type (f32 by CUDA-core FMAs,
+# bf16 by tensor-core mma.sync). The probe's dimension_semantics has no
+# counterpart (see csrc/eval_kernel.cu).
+VARIANT_ROWS_PER_BLOCK = (64, 128)
 VARIANT_ORDERS = ("ij", "ji")
 
 
 def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
                              sstar: torch.Tensor, maskp: torch.Tensor,
-                             rows_per_block: int = 32,
+                             rows_per_block: int = 64,
                              order: str = "ij") -> torch.Tensor:
     """P1: launch one instantiation of ``masked_rank_kernel`` on the
-    transposed ``(d, I_pad)`` table; (B,) int32."""
+    transposed ``(d, I_pad)`` table (d a multiple of 16); (B,) int32."""
     if not all(t.is_cuda for t in (ue, items_t, sstar, maskp)):
         raise ValueError("masked_rank_variant_cuda takes CUDA tensors")
     if rows_per_block not in VARIANT_ROWS_PER_BLOCK:
@@ -171,6 +173,9 @@ def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
     if items_t.shape[0] != d or ipad % I_BLK:
         raise ValueError(f"items_t must be (d={d}, I_pad) with I_pad a "
                          f"multiple of {I_BLK}, got {tuple(items_t.shape)}")
+    if d % 16:
+        raise ValueError(f"d must be a multiple of 16 (one bf16 k-step of "
+                         f"the tensor cores), got {d}")
     if ue.dtype != items_t.dtype or ue.dtype not in (torch.float32,
                                                      torch.bfloat16):
         raise ValueError(f"ue/items_t must both be float32 or bfloat16, got "
@@ -184,6 +189,9 @@ def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
     items_t = items_t.contiguous()
     sstar = sstar.reshape(B).to(torch.float32).contiguous()
     maskp = maskp.contiguous()
+    if not all(_aligned(t) for t in (ue, items_t, maskp)):
+        raise ValueError("ue, items_t and maskp must start on 16-byte "
+                         "boundaries (the kernel copies 16 bytes at a time)")
     rank = torch.zeros((B,), dtype=torch.int32, device=ue.device)
     lib = _build.load_library()
     with torch.cuda.device(ue.device):
@@ -202,7 +210,7 @@ masked_rank_variant_cuda.launches = 0
 
 def masked_rank_variant(ue: torch.Tensor, items_t: torch.Tensor,
                         sstar: torch.Tensor, maskp: torch.Tensor,
-                        rows_per_block: int = 32,
+                        rows_per_block: int = 64,
                         order: str = "ij") -> torch.Tensor:
     """P1's rank counts: one kernel instantiation for tensors on the card,
     the plain version (the same function) for CPU tensors."""

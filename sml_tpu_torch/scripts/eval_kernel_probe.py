@@ -8,12 +8,13 @@ The JAX probe ran the masked-rank kernel's function (K2) under layout
 variants; here each variant is an instantiation of the same CUDA kernel
 (``csrc/eval_kernel.cu``):
 
-  v0       rblk 256 -> 32 rows per block, row tiles on blockIdx.x ("ij")
+  v0       rblk 256 -> 64 rows per block, row tiles on blockIdx.x ("ij")
   v0p      v0 with dimension_semantics, which has no counterpart on the card
            (blocks run in any order): the same instantiation as v0
-  v1/v1p   rblk 512 -> 64 rows per block
+  v1/v1p   rblk 512 -> 128 rows per block
   v2p      item blocks on blockIdx.x ("ji")
-  *_bf16   bf16 inputs, f32 sums
+  *_bf16   bf16 inputs on the tensor cores, f32 sums (f32 inputs go
+           through the CUDA cores, no TF32)
 
 Each variant is held exactly to v0's rank counts on integer-valued tables
 (|x| <= 1, so every score is an exact integer in f32 and bf16) before it is
@@ -35,7 +36,7 @@ from sml_tpu_torch.ops.eval_kernel import (build_packed_mask,
 from sml_tpu_torch.scripts.eval_variants import timed_ms
 
 # the probe's rows per TPU block -> rows per CUDA block
-ROWS_PER_BLOCK = {256: 32, 512: 64}
+ROWS_PER_BLOCK = {256: 64, 512: 128}
 
 
 def log(*a):

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from sml_tpu_torch.device import resolve_device
-from sml_tpu_torch.ops.adam_kernel import fused_decay_adam
+from sml_tpu_torch.ops.adam_kernel import fused_decay_adam_multi
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -129,10 +129,11 @@ def sparse_dense_adam_update(params, state: AdamState,
     Torch's dense ``nn.Embedding`` gradient makes Adam move every row every
     step. This computes the same numbers without a dense gradient:
 
-    1. the touched rows' pre-update ``p``, ``mu``, ``nu`` are gathered;
-    2. the full-table g=0 pass runs in place on every leaf
-       (:func:`fused_decay_adam`: kernel K3 on the card, four launches for
-       the MF tables and biases);
+    1. every leaf's touched rows' pre-update ``p``, ``mu``, ``nu`` are
+       gathered, with their summed gradient;
+    2. the full-table g=0 pass runs in place on every leaf at once
+       (:func:`fused_decay_adam_multi`: kernel K3 on the card, one launch
+       for the MF tables and biases);
     3. the touched rows are recomputed from their pre-update values with
        the summed gradient and scattered back (duplicates write identical
        values).
@@ -142,26 +143,24 @@ def sparse_dense_adam_update(params, state: AdamState,
     tables) get the pure decay."""
     count = state.count + 1
     bc1, bc2 = bias_corrections(count, b1, b2)
-    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps)
+    leaves = {name: (getattr(params, name), state.mu[name], state.nu[name])
+              for name in params._fields}
     with torch.no_grad():
-        for name in params._fields:
-            p = getattr(params, name)
-            mu, nu = state.mu[name], state.nu[name]
-            fix = None
-            if name in sparse:
-                idx, g_rows = sparse[name]
-                g_sum = _collapse_duplicates(idx, g_rows)
-                fix = (idx, g_sum, p[idx], mu[idx], nu[idx])
-            fused_decay_adam(p, mu, nu, bc1, bc2, **kw)
-            if fix is not None:
-                idx, g_sum, p_rows, mu_rows, nu_rows = fix
-                mu_f = g_sum * (1 - b1) + mu_rows * b1
-                nu_f = (g_sum * g_sum) * (1 - b2) + nu_rows * b2
-                p_f = p_rows + (mu_f / _full(bc1, p)) / (
-                    torch.sqrt(nu_f / _full(bc2, p)) + eps) * (-lr)
-                mu[idx] = mu_f
-                nu[idx] = nu_f
-                p[idx] = p_f
+        fixes = []
+        for name, (idx, g_rows) in sparse.items():
+            p, mu, nu = leaves[name]
+            fixes.append((leaves[name], idx, _collapse_duplicates(idx, g_rows),
+                          p[idx], mu[idx], nu[idx]))
+        fused_decay_adam_multi(leaves.values(), bc1, bc2, lr=lr, b1=b1,
+                               b2=b2, eps=eps)
+        for (p, mu, nu), idx, g_sum, p_rows, mu_rows, nu_rows in fixes:
+            mu_f = g_sum * (1 - b1) + mu_rows * b1
+            nu_f = (g_sum * g_sum) * (1 - b2) + nu_rows * b2
+            p_f = p_rows + (mu_f / _full(bc1, p)) / (
+                torch.sqrt(nu_f / _full(bc2, p)) + eps) * (-lr)
+            mu[idx] = mu_f
+            nu[idx] = nu_f
+            p[idx] = p_f
     return state._replace(count=count)
 
 

@@ -7,13 +7,16 @@ JAX conftest (this file imports no JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 1e-4 (f32 sums over C2*d and H terms in another order);
-K2 (both lane groupings), every P1 instantiation and K2 against P1's
-``<f32, 32, ij>`` exact on integer-valued tables; K3 bit-equal
-to its plain version (every operation explicitly rounded), ``p`` held to
-rtol 1e-6; P2 exact on integer tables and within 1e-4 on N(0,1) ones
-(bf16 products are exact in f32, only the order of the sums differs); P3
-exact on integer tables, by both mask routes. The edge-case rows: no bit
-set, every item set, one 16-byte chunk of the mask, its last chunk.
+K2, every P1 instantiation and K2 against P1's ``<f32, 64, ij>`` exact on
+integer-valued tables; P1 on N(0,1) tables at most
+``K2_RANDOM_FLIPS_PER_16K`` rank flips per 16,384 rows (a negative within
+rounding of the target's score; the sums run in another order); K3
+bit-equal to its plain version (every operation explicitly rounded), ``p``
+held to rtol 1e-6; P2 exact on integer tables and within 1e-4 on N(0,1)
+ones (bf16 products are exact in f32, only the order of the sums differs);
+P3 exact on integer tables. The edge-case rows: no bit set, every item
+set, one 16-byte chunk of the mask, its last chunk (K2, P3); no bit, one
+bit, one full 4096-item mask block, every item (P1).
 """
 
 import json
@@ -132,7 +135,7 @@ def test_masked_rank_gather_equals_the_dense_template(card):
     ss = torch.randint(-6, 7, (rows, 1), generator=g).float().to(card)
     neg = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :999]
     mask = _edge_rows(E.build_packed_mask(neg.to(card), n_items), n_items)
-    old = E.masked_rank_variant_cuda(ue, it.T.contiguous(), ss, mask, 32,
+    old = E.masked_rank_variant_cuda(ue, it.T.contiguous(), ss, mask, 64,
                                      "ij")
     assert torch.equal(E.masked_rank_cuda(ue, it, ss, mask), old)
 
@@ -143,19 +146,48 @@ def test_masked_rank_gather_equals_the_dense_template(card):
 def test_masked_rank_variants_exact_on_integer_tables(card, order,
                                                       rows_per_block, dtype):
     g = torch.Generator().manual_seed(7)
-    rows, n_items, d = 1000, 9000, 64
+    rows, n_items, d = 1021, 9000, 64            # not a multiple of RB
     ipad = E.pad_items(n_items)
     ue = torch.randint(-1, 2, (rows, d), generator=g).float()
     it = torch.randint(-1, 2, (d, ipad), generator=g).float()
     ss = torch.randint(-4, 5, (rows, 1), generator=g).float()
     neg = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :999]
-    mask = E.build_packed_mask(neg.to(card), n_items)
+    mask = E.build_packed_mask(neg, n_items)
+    full = E.build_packed_mask(torch.arange(n_items)[None], n_items)[0]
+    mask[0] = 0                                  # no bit set
+    mask[1] = 0                                  # one bit
+    mask[1, 5] = 1 << 17
+    mask[2] = 0                                  # one full mask block
+    mask[2, 128:256] = -1
+    mask[3] = full                               # every item
+    mask[-1] = full                              # the last, partial tile
+    mask = mask.to(card)
     before = E.masked_rank_variant_cuda.launches
     got = E.masked_rank_variant(ue.to(card, dtype), it.to(card, dtype),
                                 ss.to(card), mask, rows_per_block, order)
     assert E.masked_rank_variant_cuda.launches == before + 1
     want = E.masked_rank_plain(ue, it, ss, mask.cpu())
+    assert want[0] == 0 and want[2] > 0 and want[3] > 0
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_per_block", E.VARIANT_ROWS_PER_BLOCK)
+def test_masked_rank_variants_on_random_tables(card, rows_per_block, dtype):
+    g = torch.Generator(device=card).manual_seed(13)
+    rows, n_items, d = 16384, 20000, 64
+    ipad = E.pad_items(n_items)
+    ue = torch.randn(rows, d, generator=g, device=card).to(dtype)
+    it = torch.zeros(d, ipad, device=card, dtype=dtype)
+    it[:, :n_items] = torch.randn(d, n_items, generator=g, device=card)
+    cand = torch.topk(torch.rand(rows, n_items, generator=g, device=card),
+                      1000, dim=1).indices
+    ss = (ue.float() * it.float()[:, cand[:, 0]].T).sum(1, keepdim=True)
+    mask = E.build_packed_mask(cand[:, 1:], n_items)
+    got = E.masked_rank_variant_cuda(ue, it, ss, mask, rows_per_block, "ij")
+    want = E.masked_rank_plain(ue, it, ss, mask)
+    assert int(want.sum()) > 0
+    assert int((got != want).sum()) <= 1         # K2_RANDOM_FLIPS_PER_16K
 
 
 @pytest.mark.parametrize("kind", ["int", "randn"])
@@ -277,15 +309,73 @@ def test_decay_adam_kernel_matches_plain(card, shape, offset):
     assert int((got[0] != plain[0]).sum()) == 0
 
 
+def test_decay_adam_multi_one_launch_for_four_leaves(card):
+    from sml_tpu_torch.train.optim import (ADAM_B1, ADAM_B2, ADAM_EPS,
+                                           bias_corrections)
+    g = torch.Generator().manual_seed(14)
+    # (300, 64) and (200, 1) whole; an odd length; a view 4 bytes past an
+    # aligned buffer (every unit of that leaf on the scalar path)
+    shapes = [((300, 64), 0), ((200, 1), 0), ((1001,), 0), ((77, 3), 1)]
+    leaves = []
+    for shape, offset in shapes:
+        n = int(np.prod(shape))
+        bufs = [torch.randn(n + 1, generator=g) for _ in range(3)]
+        bufs[1] *= 1e-2
+        bufs[2] = bufs[2].abs() * 1e-4
+        leaves.append(tuple(b.to(card)[offset:offset + n].view(shape)
+                            for b in bufs))
+    plain = [tuple(t.clone() for t in leaf) for leaf in leaves]
+    bc1, bc2 = bias_corrections(7)
+    kw = dict(lr=0.01, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
+    before = AK.decay_adam_cuda.launches
+    AK.fused_decay_adam_multi(leaves, bc1, bc2, **kw)
+    assert AK.decay_adam_cuda.launches == before + 1
+    for leaf in plain:
+        AK.decay_adam_plain(*leaf, bc1, bc2, **kw)
+    torch.cuda.synchronize()
+    for got, want in zip(leaves, plain):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_fast_inner_step_launches_k3_once(card):
+    from sml_tpu_torch.train.engine import SMLEngine
+
+    cfg = SMLConfig(latent_dim=16, mf_batch_size=64, replay_mode=True,
+                    fast_table_adam=True,
+                    transfer=TransferConfig(latent_dim=16))
+    eng = SMLEngine(cfg, 500, 300, device=card)
+    assert eng.cfg.fast_table_adam
+    rng = np.random.default_rng(15)
+    rows = np.stack([rng.integers(0, 500, 64), rng.integers(0, 300, 64),
+                     rng.integers(0, 300, 64)], axis=1).astype(np.int64)
+    state = eng.snapshot_last(eng.init_state())
+    before = AK.decay_adam_cuda.launches
+    state, losses = eng.inner_epoch(state, *eng.prep_inner(rows))
+    torch.cuda.synchronize()
+    assert state.mf_opt.count == 1
+    assert AK.decay_adam_cuda.launches == before + 1
+    assert torch.isfinite(losses).all()
+
+
 def test_decay_adam_kernel_rejects_what_it_cannot_take(card):
     p = torch.zeros(8, device=card)
+    kw = dict(lr=0.01, b1=0.9, b2=0.999, eps=1e-8)
+    before = AK.decay_adam_cuda.launches
     with pytest.raises(ValueError, match="distinct"):
-        AK.decay_adam_cuda(p, p, torch.zeros(8, device=card), 0.1, 0.01,
-                           lr=0.01, b1=0.9, b2=0.999, eps=1e-8)
+        AK.decay_adam_cuda([(p, p, torch.zeros(8, device=card))], 0.1, 0.01,
+                           **kw)
     with pytest.raises(ValueError, match="float32"):
-        AK.decay_adam_cuda(p.double(), p.double().clone(),
-                           p.double().clone(), 0.1, 0.01, lr=0.01, b1=0.9,
-                           b2=0.999, eps=1e-8)
+        AK.decay_adam_cuda([(p.double(), p.double().clone(),
+                             p.double().clone())], 0.1, 0.01, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        AK.decay_adam_cuda([(p, p.clone(), p.clone()),
+                            tuple(torch.zeros(8) for _ in range(3))],
+                           0.1, 0.01, **kw)
+    with pytest.raises(ValueError, match="at most 8"):
+        AK.decay_adam_cuda([tuple(torch.zeros(8, device=card)
+                                  for _ in range(3)) for _ in range(9)],
+                           0.1, 0.01, **kw)
+    assert AK.decay_adam_cuda.launches == before
 
 
 def test_pair_hash_on_card_matches_numpy(card):

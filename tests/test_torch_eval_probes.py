@@ -178,6 +178,34 @@ def test_masked_rank_variants_match_jax(jprobe, monkeypatch):
     assert EK.masked_rank_variant_cuda.launches == 0
 
 
+@pytest.mark.parametrize("in_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("order", EK.VARIANT_ORDERS)
+@pytest.mark.parametrize("rows_per_block", EK.VARIANT_ROWS_PER_BLOCK)
+def test_masked_rank_variant_layouts_match_jax(jprobe, monkeypatch,
+                                               rows_per_block, order,
+                                               in_dtype):
+    """Each of P1's layouts against the JAX variant at the probe's own row
+    block (rblk 256 or 512, so 512 rows), integer tables: exact."""
+    from jax.experimental import pallas as jpl
+    monkeypatch.setattr(jpl, "pallas_call",
+                        functools.partial(jpl.pallas_call, interpret=True))
+    rblk = {v: k for k, v in tprobe.ROWS_PER_BLOCK.items()}[rows_per_block]
+    ue, items_t, sstar, maskp = tprobe.probe_inputs(512, 4096, D, 99,
+                                                    torch.device("cpu"))
+    run = jax.jit(jprobe.make_variant(rblk, order, None, in_dtype))
+    want = np.asarray(run(jnp.asarray(ue.numpy()),
+                          jnp.asarray(items_t.numpy()),
+                          jnp.asarray(sstar.numpy()),
+                          jnp.asarray(maskp.numpy().view(np.uint32))))
+    if in_dtype == "bf16":
+        ue, items_t = ue.bfloat16(), items_t.bfloat16()
+    got = EK.masked_rank_variant(ue, items_t, sstar, maskp,
+                                 rows_per_block=rows_per_block, order=order)
+    assert got.dtype == torch.int32 and int(got.sum()) > 0
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert EK.masked_rank_variant_cuda.launches == 0
+
+
 def test_build_candidate_mask_matches_jax(jev):
     rng = np.random.default_rng(13)
     n_items, ipad = 700, 1024

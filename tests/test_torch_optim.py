@@ -7,7 +7,8 @@ Tolerances:
 * K3's plain version against the Pallas kernel in interpret mode: ``mu``
   and ``nu`` bit-equal (one f32 multiply each), ``p`` within rtol 1e-6 and
   atol 1e-8 (the JAX package's own bound, ``tests/test_adam_kernel.py``:
-  XLA may fuse the final multiply-add);
+  XLA may fuse the final multiply-add); ``fused_decay_adam_multi`` over
+  the four MF leaves bit-equal to the plain version leaf by leaf;
 * the functional Adam against the optax ``torch_adam`` chain over 12
   steps: rtol 1e-6 (the same f32 op order);
 * ``sparse_dense_adam_update`` against the JAX one over 7 steps with
@@ -97,6 +98,106 @@ def test_decay_adam_plain_matches_pallas(rng, shape):
     np.testing.assert_array_equal(tmu.numpy(), jmu)
     np.testing.assert_array_equal(tnu.numpy(), jnu)
     np.testing.assert_allclose(tp.numpy(), jp, rtol=1e-6, atol=1e-8)
+
+
+def _mf_leaves(rng, n_u=300, n_i=200, d=16):
+    """(p, mu, nu) numpy triples at the four MF leaf shapes."""
+    out = []
+    for shape in ((n_u, d), (n_i, d), (n_u, 1), (n_i, 1)):
+        out.append((rng.normal(size=shape).astype(np.float32),
+                    (rng.normal(size=shape) * 1e-2).astype(np.float32),
+                    (rng.random(shape) * 1e-4).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("count", [1, 7, 1000])
+def test_fused_decay_adam_multi_equals_plain_leaf_by_leaf(rng, count):
+    bc1, bc2 = O.bias_corrections(count)
+    kw = dict(lr=0.01, b1=O.ADAM_B1, b2=O.ADAM_B2, eps=O.ADAM_EPS)
+    leaves = _mf_leaves(rng)
+    multi = [tuple(_t(a.copy()) for a in leaf) for leaf in leaves]
+    AK.fused_decay_adam_multi(multi, bc1, bc2, **kw)
+    for got, leaf in zip(multi, leaves):
+        want = tuple(_t(a.copy()) for a in leaf)
+        AK.decay_adam_plain(*want, bc1, bc2, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert AK.decay_adam_cuda.launches == 0
+
+
+def test_fused_decay_adam_multi_matches_pallas(rng):
+    """One call over a leaf the TPU kernel takes (a multiple of 128 lanes)
+    and a bias column beside it. Against the Pallas kernel in interpret
+    mode: ``mu``/``nu`` bit for bit, ``p`` within the JAX package's own
+    bound (XLA fuses its final multiply-add, so ~1% of ``p`` differ in the
+    last bit); the bias column bit for bit against the plain version."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    bc1, bc2 = O.bias_corrections(7)
+    kw = dict(lr=0.01, b1=O.ADAM_B1, b2=O.ADAM_B2, eps=O.ADAM_EPS)
+    table, bias = _mf_leaves(rng, n_u=2048, d=64)[0::2]
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_decay(*map(jnp.asarray, table), jnp.float32(bc1),
+                         jnp.float32(bc2), block_rows=512, **kw)
+    leaves = [tuple(_t(a.copy()) for a in leaf) for leaf in (table, bias)]
+    AK.fused_decay_adam_multi(leaves, bc1, bc2, **kw)
+    (tp, tmu, tnu), (jp, jmu, jnu) = leaves[0], want
+    np.testing.assert_array_equal(tmu.numpy(), np.asarray(jmu))
+    np.testing.assert_array_equal(tnu.numpy(), np.asarray(jnu))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6,
+                               atol=1e-8)
+    plain = tuple(_t(a.copy()) for a in bias)
+    AK.decay_adam_plain(*plain, bc1, bc2, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(leaves[1], plain))
+    assert AK.decay_adam_cuda.launches == 0
+
+
+def test_fused_decay_adam_multi_refuses_mixed_devices():
+    leaf = tuple(torch.zeros(4, device="meta") for _ in range(3))
+    cpu = tuple(torch.zeros(4) for _ in range(3))
+    with pytest.raises(ValueError, match="device"):
+        AK.fused_decay_adam_multi([cpu, leaf], 0.1, 0.01, lr=0.01, b1=0.9,
+                                  b2=0.999, eps=1e-8)
+
+
+def test_sparse_dense_adam_decays_every_leaf_in_one_call(rng, monkeypatch):
+    """One K3 call per step over all four leaves, with every fix-up row
+    gathered before the decay; the result equals the dense-gradient Adam
+    step (two duplicates sum exactly, and both paths round alike)."""
+    n_u, n_i, d, b = 30, 20, 8, 12
+    tabs = [rng.normal(size=s).astype(np.float32)
+            for s in ((n_u, d), (n_i, d), (n_u, 1), (n_i, 1))]
+    sparse_mf = MFParams(*(_t(a.copy()) for a in tabs))
+    dense_mf = {n: _t(a.copy()) for n, a in zip(MFParams._fields, tabs)}
+    s_state = O.adam_init(sparse_mf._asdict())
+    d_state = O.adam_init(dense_mf)
+    calls = []
+    real = O.fused_decay_adam_multi
+
+    def spy(leaves, *a, **kw):
+        leaves = list(leaves)
+        calls.append(len(leaves))
+        return real(leaves, *a, **kw)
+
+    monkeypatch.setattr(O, "fused_decay_adam_multi", spy)
+    for _ in range(5):
+        u = rng.integers(0, n_u, b)
+        i = rng.integers(0, n_i, b)
+        i[1] = i[0]                                # one duplicate pair
+        gu, gi = (rng.normal(size=(b, d)).astype(np.float32)
+                  for _ in range(2))
+        s_state = O.sparse_dense_adam_update(
+            sparse_mf, s_state, {"user_emb": O.TableGrad(_t(u), _t(gu)),
+                                 "item_emb": O.TableGrad(_t(i), _t(gi))},
+            lr=0.01)
+        grads = {"user_emb": torch.zeros(n_u, d).index_add_(0, _t(u), _t(gu)),
+                 "item_emb": torch.zeros(n_i, d).index_add_(0, _t(i), _t(gi))}
+        d_state = O.adam_update(dense_mf, grads, d_state, lr=0.01)
+    assert calls == [4] * 5
+    for name in MFParams._fields:
+        assert torch.equal(getattr(sparse_mf, name), dense_mf[name]), name
+        assert torch.equal(s_state.mu[name], d_state.mu[name]), name
+        assert torch.equal(s_state.nu[name], d_state.nu[name]), name
 
 
 def test_bias_corrections_are_f32_values():
