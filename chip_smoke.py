@@ -12,7 +12,11 @@ Phases, one JSON line each:
 2. build    nvcc builds ``sml_tpu_torch/csrc/*.cu`` (timed).
 3. K1       ``transfer_rows_kernel`` against its plain PyTorch version at
             the Yelp refresh shape (100,000 user + 20,000 item rows, d=64,
-            C1=10, C2=5, H=512), f32 and bf16 snapshots; times and bound.
+            C1=10, C2=5, H=512), f32 and bf16 snapshots, and on a grid of
+            widths, channel counts and hidden sizes (``K1_GRID``); times
+            eager and by CUDA-graph replay, a products-only ``torch.matmul``
+            yardstick, bound, the build's registers and blocks per SM, and
+            times with bounds at d = 128 and 256.
 4. K2       ``masked_rank_gather_kernel`` against its plain version at
             B=1024, I=20,000, d=64, 999 distinct negatives per row: exact
             on integer-valued f32 and bf16 tables, and equal there to the
@@ -140,6 +144,15 @@ SEED = 2000
 # kernel vs plain tolerances on the card
 # K1: f32 sums over K = C2*d = 320 and H = 512 terms in another order
 K1_TOL = 1e-4
+# K1 also at every row tile (64 rows to d=128, 32 to 256, 16 to 512), odd
+# and narrow widths, C2 past what fits when all C2*d inputs sit in shared
+# memory, H in passes of 512 and H % 4 != 0 (the cp.async weight copies),
+# on K1_GRID_ROWS user rows; timed at the K1_WIDE widths
+K1_GRID = ((10, 5, 512), (80, 5, 512), (128, 5, 512), (256, 5, 512),
+           (512, 5, 512), (64, 7, 512), (64, 16, 1024), (33, 3, 102),
+           (48, 5, 98), (100, 5, 1024))
+K1_GRID_ROWS = 4096
+K1_WIDE = (128, 256)
 # K2 on random tables: ranks move only where a negative's score lies
 # within f32 reduction-order rounding (~1e-6) of the target score
 K2_RANDOM_FLIPS_PER_16K = 1
@@ -302,35 +315,66 @@ def phase_build():
           "reused_cached_build": cached})
 
 
-def phase_k1(torch):
+def k1_flops(n: int, d: int, c2: int = C2, h: int = HIDDEN) -> float:
+    """Operations of K1 on n rows: the multiply-adds of the conv mixes and
+    the two FCs, 2 operations each."""
+    return n * (2 * (3 * C1 + C1 * c2) * d + 2 * (c2 * d * h + h * d))
+
+
+def k1_inputs(torch, d: int, c2: int, h: int, sizes, seed: int):
+    """Θ at (d, C2, H) on the card and (tower, last, hat) per side, f32,
+    8 zero-norm rows each (the x_com guard)."""
     from sml_tpu_torch.config import TransferConfig
     from sml_tpu_torch.models.transfer import init_transfer
+    cfg = TransferConfig(latent_dim=d, conv1_channels=C1, conv2_channels=c2,
+                         fc_hidden=h)
+    theta = init_transfer(torch.Generator().manual_seed(seed), cfg,
+                          device="cuda")
+    g = torch.Generator().manual_seed(seed + 11)
+    sides = []
+    for tower, n in zip((theta.user, theta.item), sizes):
+        last = torch.randn(n, d, generator=g)
+        hat = last + 0.1 * torch.randn(n, d, generator=g)
+        last[:8] = 0.0
+        sides.append((tower, last.cuda(), hat.cuda()))
+    return theta, sides
+
+
+def k1_error(torch, tk, sides, dtype):
+    """K1 against its plain version on the same rows: (max abs error,
+    largest |output|)."""
+    err = scale = 0.0
+    for tower, last, hat in sides:
+        got = tk.transfer_rows_cuda(tower, last.to(dtype), hat.to(dtype))
+        want = tk.transfer_rows_plain(tower, last.to(dtype), hat.to(dtype))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "K1 output not finite")
+        err = max(err, (got - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+    return err, scale
+
+
+def flat_activations(torch, tower, last, hat):
+    """The (N, C2*d) input of fc1, as the plain version makes it."""
+    from sml_tpu_torch.models.transfer import build_x_com, gelu_sig
+    stack = torch.stack([last, hat, build_x_com(last, hat)], dim=1)
+    h1 = gelu_sig(torch.einsum("ck,nkj->ncj", tower.conv1_w, stack)
+                  + tower.conv1_b[None, :, None])
+    h2 = gelu_sig(torch.einsum("ec,ncj->nej", tower.conv2_w, h1)
+                  + tower.conv2_b[None, :, None])
+    return h2.reshape(last.shape[0], -1).detach()
+
+
+def phase_k1(torch):
+    from sml_tpu_torch import _build
     from sml_tpu_torch.ops import transfer_kernel as tk
 
-    cfg = TransferConfig(latent_dim=DIM, conv1_channels=C1,
-                         conv2_channels=C2, fc_hidden=HIDDEN)
-    theta = init_transfer(torch.Generator().manual_seed(SEED), cfg,
-                          device="cuda")
-    g = torch.Generator().manual_seed(SEED + 11)
-    sides = []
-    for tower, n in ((theta.user, N_USERS), (theta.item, N_ITEMS)):
-        last = torch.randn(n, DIM, generator=g)
-        hat = last + 0.1 * torch.randn(n, DIM, generator=g)
-        last[:8] = 0.0          # zero-norm rows take the x_com guard
-        sides.append((tower, last.cuda(), hat.cuda()))
-
+    theta, sides = k1_inputs(torch, DIM, C2, HIDDEN, (N_USERS, N_ITEMS),
+                             SEED)
     out = {"phase": "K1", "rows": N_USERS + N_ITEMS, "tolerance": K1_TOL}
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        err = scale = 0.0
-        for tower, last, hat in sides:
-            got = tk.transfer_rows_cuda(tower, last.to(dtype), hat.to(dtype))
-            want = tk.transfer_rows_plain(tower, last.to(dtype),
-                                          hat.to(dtype))
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), "K1 output not finite")
-            err = max(err, (got - want).abs().max().item())
-            scale = max(scale, want.abs().max().item())
+        err, scale = k1_error(torch, tk, sides, dtype)
         name = "f32" if dtype == torch.float32 else "bf16"
         out[f"max_abs_err_{name}"] = err
         out[f"max_rel_err_{name}"] = err / scale
@@ -346,20 +390,61 @@ def phase_k1(torch):
         for tower, last, hat in sides:
             tk.transfer_rows_plain(tower, last, hat)
 
+    # yardstick: the two products alone (f32, no TF32) on precomputed flat
+    # activations; no single PyTorch call computes the tower
+    flats = [(flat_activations(torch, tw, la, ha), tw.fc1_w.detach(),
+              tw.fc2_w.detach()) for tw, la, ha in sides]
+
+    def library():
+        for flat, w1, w2 in flats:
+            torch.matmul(torch.matmul(flat, w1), w2)
+
     out["ms"] = cuda_ms(torch, kernel, 20)
+    out["graph_ms"] = graph_ms(torch, kernel, 20)
     out["plain_ms"] = cuda_ms(torch, plain, 5)
+    out["library_ms"] = cuda_ms(torch, library, 20)
+    out["library_graph_ms"] = graph_ms(torch, library, 20)
+    out["library"] = "products only: torch.matmul of fc1 then fc2 on flat"
+    del flats
     n = N_USERS + N_ITEMS
-    # multiply-adds of the conv mixes and the two FCs, 2 operations each
-    flops = n * (2 * (3 * C1 + C1 * C2) * DIM
-                 + 2 * (C2 * DIM * HIDDEN + HIDDEN * DIM))
     weights = sum(p.numel() for p in theta.parameters()) * 4
     nbytes = 3 * n * DIM * 4 + weights
-    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
-    out["flops"], out["bytes"] = flops, nbytes
+    out["bound_ms"], out["bound_by"] = bound_ms(k1_flops(n, DIM), nbytes)
+    out["flops"], out["bytes"] = k1_flops(n, DIM), nbytes
+    lib = _build.load_library()
+    out["build"] = build_usage(_build.build_log(), "transfer_rows_kernelIf",
+                               "Li64ELi16ELi3E",
+                               dyn_smem=lib.sml_transfer_smem_bytes(DIM))
+
+    # every row tile and width the kernel takes, against the plain version
+    grid = {}
+    for d, c2, h in K1_GRID:
+        _, small = k1_inputs(torch, d, c2, h, (K1_GRID_ROWS, K1_GRID_ROWS // 4),
+                             SEED + d + c2)
+        for dtype in (torch.float32, torch.bfloat16):
+            err, scale = k1_error(torch, tk, small, dtype)
+            key = f"d{d}_c2_{c2}_h{h}_{str(dtype).split('.')[-1]}"
+            grid[key] = err
+            check(err <= K1_TOL * max(1.0, scale),
+                  f"K1 {key} max abs err {err} over {K1_TOL}")
+    out["grid_max_abs_err"] = grid
+    # times and bounds at wider tables, the Yelp row counts
+    out["wide"] = {}
+    for d in K1_WIDE:
+        th, wide = k1_inputs(torch, d, C2, HIDDEN, (N_USERS, N_ITEMS), SEED)
+        wbytes = 3 * n * d * 4 + sum(p.numel() for p in th.parameters()) * 4
+        b, by = bound_ms(k1_flops(n, d), wbytes)
+        out["wide"][d] = {
+            "ms": cuda_ms(torch, lambda: [tk.transfer_rows_cuda(*s)
+                                          for s in wide], 10),
+            "bound_ms": b, "bound_by": by,
+            "smem_bytes": lib.sml_transfer_smem_bytes(d)}
+        del wide
     emit(out)
-    return {"max_abs_err": worst, "ms": out["ms"],
-            "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
-            "bound_by": out["bound_by"], "library_ms": None}
+    return {"max_abs_err": worst,
+            **{k: out[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms",
+                                   "library_graph_ms")}}
 
 
 def distinct_eval_rows(torch, n_rows: int, n_users: int, n_items: int,
@@ -1005,17 +1090,6 @@ def quiet_main(main, argv):
         return main(argv)
 
 
-def p1_dynamic_smem(in_dtype: str, rows_per_block: int, d: int) -> int:
-    """Dynamic shared memory of one P1 block, as ``smem_bytes`` in
-    ``csrc/eval_kernel.cu`` asks for it: the int32 row counts, then for
-    f32 the k-major user rows and a 2-stage ring of d x 128 item tiles, for
-    bf16 the user rows and a 3-stage ring, each row padded by 16 bytes."""
-    counts = rows_per_block * 4
-    if in_dtype == "bf16":
-        return counts + (rows_per_block * (d + 8) + 3 * d * 136) * 2
-    return counts + d * (rows_per_block + 2 * 128) * 4
-
-
 def phase_p1(torch):
     from sml_tpu_torch import _build
     from sml_tpu_torch.ops import eval_kernel as ek
@@ -1102,7 +1176,7 @@ def phase_p1(torch):
             log, "masked_rank_kernelI" + ("f" if dt == "f32"
                                           else "13__nv_bfloat16"),
             f"Li{rb}E", f"Lb{int(order == 'ji')}E",
-            dyn_smem=p1_dynamic_smem(dt, rb, DIM))
+            dyn_smem=ek.variant_smem_bytes(dt, rb, DIM))
         for dt in ("f32", "bf16") for rb in ek.VARIANT_ROWS_PER_BLOCK
         for order in ek.VARIANT_ORDERS}
     # the function needs the scores of the set mask bits only; it reads ue,

@@ -40,6 +40,8 @@ SIGNATURES = {
     # last, hat, in_bf16, conv1_w, conv1_b, conv2_w, conv2_b, fc1_w, fc1_b,
     # fc2_w, fc2_b, out, n, d, c1, c2, h, stream
     "sml_transfer_rows": [_P, _P, _I] + [_P] * 9 + [_I] * 5 + [_P],
+    # d -> K1's dynamic shared memory per block, bytes
+    "sml_transfer_smem_bytes": [_I],
     # ue, items_t, in_bf16, sstar, maskp, rank, B, d, ipad, rows_per_block,
     # items_on_x, stream
     "sml_masked_rank": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],

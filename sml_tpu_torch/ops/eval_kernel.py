@@ -152,6 +152,41 @@ masked_rank_cuda.launches = 0
 # counterpart (see csrc/eval_kernel.cu).
 VARIANT_ROWS_PER_BLOCK = (64, 128)
 VARIANT_ORDERS = ("ij", "ji")
+VARIANT_K = 16        # the kernel's width step: one bf16 k-step of mma.sync
+MAX_SMEM = 232_448    # shared memory one H100 block may opt in to, bytes
+
+
+def variant_smem_bytes(in_dtype: str, rows_per_block: int, d: int) -> int:
+    """Dynamic shared memory of one P1 block (``in_dtype`` "f32" or
+    "bf16"), as ``smem_bytes`` in ``csrc/eval_kernel.cu`` asks for it: the
+    int32 row counts, then for f32 the k-major user rows and a 2-stage ring
+    of d x 128 item tiles, for bf16 the user rows and a 3-stage ring, each
+    row padded by 16 bytes."""
+    counts = rows_per_block * 4
+    if in_dtype == "bf16":
+        return counts + (rows_per_block * (d + 8) + 3 * d * 136) * 2
+    return counts + d * (rows_per_block + 2 * 128) * 4
+
+
+def variant_max_d(in_dtype: str, rows_per_block: int) -> int:
+    """The widest (padded) d whose tiles fit one block's shared memory."""
+    d = VARIANT_K
+    while variant_smem_bytes(in_dtype, rows_per_block,
+                             d + VARIANT_K) <= MAX_SMEM:
+        d += VARIANT_K
+    return d
+
+
+def pad_width(ue: torch.Tensor, items_t: torch.Tensor):
+    """``ue`` (B, d) and ``items_t`` (d, I_pad) with zero columns / rows up
+    to a multiple of ``VARIANT_K``: each added product is 0, so every f32
+    FMA sum and every bf16 ``mma.sync`` sum, and so every rank, is
+    unchanged."""
+    extra = -ue.shape[1] % VARIANT_K
+    if extra == 0:
+        return ue, items_t
+    return (torch.nn.functional.pad(ue, (0, extra)),
+            torch.nn.functional.pad(items_t, (0, 0, 0, extra)))
 
 
 def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
@@ -159,7 +194,8 @@ def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
                              rows_per_block: int = 64,
                              order: str = "ij") -> torch.Tensor:
     """P1: launch one instantiation of ``masked_rank_kernel`` on the
-    transposed ``(d, I_pad)`` table (d a multiple of 16); (B,) int32."""
+    transposed ``(d, I_pad)`` table, d padded by :func:`pad_width`; (B,)
+    int32."""
     if not all(t.is_cuda for t in (ue, items_t, sstar, maskp)):
         raise ValueError("masked_rank_variant_cuda takes CUDA tensors")
     if rows_per_block not in VARIANT_ROWS_PER_BLOCK:
@@ -173,9 +209,6 @@ def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
     if items_t.shape[0] != d or ipad % I_BLK:
         raise ValueError(f"items_t must be (d={d}, I_pad) with I_pad a "
                          f"multiple of {I_BLK}, got {tuple(items_t.shape)}")
-    if d % 16:
-        raise ValueError(f"d must be a multiple of 16 (one bf16 k-step of "
-                         f"the tensor cores), got {d}")
     if ue.dtype != items_t.dtype or ue.dtype not in (torch.float32,
                                                      torch.bfloat16):
         raise ValueError(f"ue/items_t must both be float32 or bfloat16, got "
@@ -185,6 +218,15 @@ def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
                          f"words, got {tuple(maskp.shape)} {maskp.dtype}")
     if sstar.numel() != B:
         raise ValueError(f"sstar must hold {B} target scores")
+    in_dtype = "bf16" if ue.dtype == torch.bfloat16 else "f32"
+    limit = variant_max_d(in_dtype, rows_per_block)
+    dp = d + -d % VARIANT_K
+    if dp > limit:
+        raise ValueError(f"P1's {in_dtype} tiles at {rows_per_block} rows per "
+                         f"block hold d <= {limit} in one block's "
+                         f"{MAX_SMEM} bytes of shared memory; d={d} pads to "
+                         f"{dp}")
+    ue, items_t = pad_width(ue, items_t)
     ue = ue.contiguous()
     items_t = items_t.contiguous()
     sstar = sstar.reshape(B).to(torch.float32).contiguous()
@@ -198,7 +240,7 @@ def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
         rc = lib.sml_masked_rank(
             ue.data_ptr(), items_t.data_ptr(), int(ue.dtype == torch.bfloat16),
             sstar.data_ptr(), maskp.data_ptr(), rank.data_ptr(),
-            B, d, ipad, rows_per_block, int(order == "ji"),
+            B, dp, ipad, rows_per_block, int(order == "ji"),
             _build.stream_of(ue))
     _build.check(rc, "masked_rank_kernel")
     masked_rank_variant_cuda.launches += 1

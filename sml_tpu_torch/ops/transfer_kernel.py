@@ -6,7 +6,9 @@ whole per-row chain ``x_com -> conv1 -> gelu -> conv2 -> gelu -> flatten ->
 fc1 -> gelu -> fc2`` with every intermediate in shared memory or registers,
 so HBM sees only ``last``, ``hat`` and the output. It is bound by
 operations (f32, ~403k per row at the Yelp shape); the source note in the
-``.cu`` file gives the bound and the design.
+``.cu`` file gives the bound and the design. It takes every ``d`` up to
+:data:`MAX_D`, ``C1`` up to :data:`MAX_C1` and any ``C2`` and ``H``: its
+shared memory grows with ``d`` only.
 
 :func:`fused_table_transfer` routes by device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes :func:`transfer_rows_plain`, the
@@ -22,8 +24,8 @@ from sml_tpu_torch import _build
 from sml_tpu_torch.models.transfer import (ConvTower, build_x_com,
                                            conv_tower_apply)
 
-MAX_D = 128    # the kernel's register tiles cover d <= 128
-MAX_C1 = 16
+MAX_D = 512    # the kernel's fc2 register tiles cover d <= 512
+MAX_C1 = 16    # conv1's outputs are held in registers
 
 
 def transfer_rows_plain(tower: ConvTower, last: torch.Tensor,
@@ -60,8 +62,8 @@ def transfer_rows_cuda(tower: ConvTower, last: torch.Tensor,
     c2 = tower.conv2_w.shape[0]
     h = tower.fc1_w.shape[1]
     if d > MAX_D or c1 > MAX_C1:
-        raise ValueError(f"transfer_rows_kernel supports d <= {MAX_D} and "
-                         f"C1 <= {MAX_C1}; got d={d}, C1={c1}")
+        raise ValueError(f"transfer_rows_kernel supports d <= MAX_D = {MAX_D} "
+                         f"and C1 <= MAX_C1 = {MAX_C1}; got d={d}, C1={c1}")
     if tower.conv1_w.shape[1] != 3 or tower.fc1_w.shape[0] != c2 * d \
             or tuple(tower.fc2_w.shape) != (h, d):
         raise ValueError("tower shapes do not match a conv_com tower at "

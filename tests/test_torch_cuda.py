@@ -6,7 +6,8 @@ JAX conftest (this file imports no JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: K1 1e-4 (f32 sums over C2*d and H terms in another order);
+Tolerances: K1 1e-4 (f32 sums over C2*d and H terms in another order),
+at every width up to ``MAX_D``;
 K2, every P1 instantiation and K2 against P1's ``<f32, 64, ij>`` exact on
 integer-valued tables; P1 on N(0,1) tables at most
 ``K2_RANDOM_FLIPS_PER_16K`` rank flips per 16,384 rows (a negative within
@@ -16,7 +17,8 @@ held to rtol 1e-6; P2 exact on integer tables and within 1e-4 on N(0,1)
 ones (bf16 products are exact in f32, only the order of the sums differs);
 P3 exact on integer tables. The edge-case rows: no bit set, every item
 set, one 16-byte chunk of the mask, its last chunk (K2, P3); no bit, one
-bit, one full 4096-item mask block, every item (P1).
+bit, one full 4096-item mask block, every item (P1). P1 also at widths
+that are not multiples of 16 (zero-padded, exact).
 """
 
 import json
@@ -44,11 +46,23 @@ def card():
     return torch.device("cuda")
 
 
+# widths up to MAX_D (each of the kernel's row tiles: 64 rows to d=128, 32
+# to 256, 16 to 512; odd and unaligned widths take scalar loads), C2 beyond
+# what fits when all C2*d inputs sit in shared memory, H in several passes
+# of 512; H % 4 != 0 (cp.async weight copies: 4-byte for fc1_w, 4- or
+# 16-byte for fc2_w); 100: bulk-copied weight rows past d in the last
+# column block
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,n", [(16, 77), (64, 1000)])
-def test_transfer_kernel_matches_plain(card, d, n, dtype):
+@pytest.mark.parametrize("d,c2,h,n", [
+    (16, 5, 512, 77), (64, 5, 512, 1000), (10, 5, 512, 300),
+    (80, 5, 512, 1000), (128, 5, 512, 700), (256, 5, 512, 300),
+    (512, 5, 512, 100), (64, 7, 512, 500), (64, 16, 1024, 300),
+    (32, 5, 2048, 200), (33, 3, 102, 129), (48, 5, 98, 150),
+    (100, 5, 1024, 200)])
+def test_transfer_kernel_matches_plain(card, d, c2, h, n, dtype):
     th = init_transfer(torch.Generator().manual_seed(1),
-                       TransferConfig(latent_dim=d), device=card)
+                       TransferConfig(latent_dim=d, conv2_channels=c2,
+                                      fc_hidden=h), device=card)
     g = torch.Generator().manual_seed(2)
     last = torch.randn(n, d, generator=g).to(card, dtype)
     hat = torch.randn(n, d, generator=g).to(card, dtype)
@@ -59,6 +73,19 @@ def test_transfer_kernel_matches_plain(card, d, n, dtype):
     want = TK.transfer_rows_plain(th.user, last, hat)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,c1,limit", [(TK.MAX_D + 1, 10, "MAX_D"),
+                                        (64, TK.MAX_C1 + 1, "MAX_C1")])
+def test_transfer_kernel_refuses_past_its_limits(card, d, c1, limit):
+    th = init_transfer(torch.Generator().manual_seed(1),
+                       TransferConfig(latent_dim=d, conv1_channels=c1,
+                                      fc_hidden=64), device=card)
+    rows = torch.ones(8, d, device=card)
+    before = TK.transfer_rows_cuda.launches
+    with pytest.raises(ValueError, match=limit):
+        TK.fused_table_transfer(th.user, rows, rows)
+    assert TK.transfer_rows_cuda.launches == before
 
 
 def test_transfer_kernel_rejects_a_tower_off_the_card(card):
@@ -188,6 +215,44 @@ def test_masked_rank_variants_on_random_tables(card, rows_per_block, dtype):
     want = E.masked_rank_plain(ue, it, ss, mask)
     assert int(want.sum()) > 0
     assert int((got != want).sum()) <= 1         # K2_RANDOM_FLIPS_PER_16K
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_per_block", E.VARIANT_ROWS_PER_BLOCK)
+@pytest.mark.parametrize("d", [24, 40])
+def test_masked_rank_variants_pad_narrow_widths(card, d, rows_per_block,
+                                                dtype):
+    g = torch.Generator().manual_seed(16)
+    rows, n_items = 1021, 9000
+    ipad = E.pad_items(n_items)
+    ue = torch.randint(-1, 2, (rows, d), generator=g).float()
+    it = torch.randint(-1, 2, (d, ipad), generator=g).float()
+    ss = torch.randint(-4, 5, (rows, 1), generator=g).float()
+    neg = torch.argsort(torch.rand(rows, n_items, generator=g), dim=1)[:, :999]
+    mask = E.build_packed_mask(neg, n_items)
+    before = E.masked_rank_variant_cuda.launches
+    got = E.masked_rank_variant(ue.to(card, dtype), it.to(card, dtype),
+                                ss.to(card), mask.to(card), rows_per_block,
+                                "ij")
+    assert E.masked_rank_variant_cuda.launches == before + 1
+    want = E.masked_rank_plain(ue, it, ss, mask)
+    assert int(want.sum()) > 0
+    assert torch.equal(got.cpu(), want)
+
+
+def test_masked_rank_variant_refuses_too_wide_a_tile(card):
+    # f32 at 128 rows per block: d = 152 pads to 160 > 144
+    assert E.variant_max_d("f32", 128) == 144
+    ue = torch.zeros(64, 152, device=card)
+    it = torch.zeros(152, 4096, device=card)
+    ss = torch.zeros(64, 1, device=card)
+    mask = torch.zeros(64, 128, dtype=torch.int32, device=card)
+    before = E.masked_rank_variant_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        E.masked_rank_variant_cuda(ue, it, ss, mask, 128, "ij")
+    assert E.masked_rank_variant_cuda.launches == before
+    E.masked_rank_variant_cuda(ue, it, ss, mask, 64, "ij")   # 160 <= 176
+    assert E.masked_rank_variant_cuda.launches == before + 1
 
 
 @pytest.mark.parametrize("kind", ["int", "randn"])
@@ -394,7 +459,7 @@ def test_pair_hash_on_card_matches_numpy(card):
                          torch.from_numpy(inter[:, 1]).to(card)).all()
 
 
-def test_sml_cli_on_card(card, tmp_path, capsys):
+def _run_sml_cli(tmp_path, capsys, latent):
     from sml_tpu_torch import cli
     d = str(tmp_path)
     assert cli.main(["synth", "--out", f"{d}/synth", "--users", "300",
@@ -406,7 +471,7 @@ def test_sml_cli_on_card(card, tmp_path, capsys):
     assert cli.main(["--device", "cuda", "sml", "--data-root", d,
                      "--data-name", "synth", "--num-periods", "6",
                      "--online-train-start", "2", "--online-test-start",
-                     "4", "--multi-num", "2", "--latent", "16",
+                     "4", "--multi-num", "2", "--latent", str(latent),
                      "--mf-sample", "alone", "--eval-scoring", "masked",
                      "--saddle-retries", "0"]) == 0
     out = capsys.readouterr().out
@@ -414,7 +479,38 @@ def test_sml_cli_on_card(card, tmp_path, capsys):
     assert 0.0 <= summary["test_recall@5"] <= 1.0
     after = (AK.decay_adam_cuda.launches, TK.transfer_rows_cuda.launches,
              E.masked_rank_cuda.launches)
+    return counts, after
+
+
+def test_sml_cli_on_card(card, tmp_path, capsys):
+    counts, after = _run_sml_cli(tmp_path, capsys, 16)
     # 420 users + items: the auto rule keeps the dense path (no K3);
     # refreshes (K1) and masked tests (K2) run on the card
     assert after[0] == counts[0]
     assert after[1] > counts[1] and after[2] > counts[2]
+
+
+@pytest.mark.parametrize("latent", [80, 128])
+def test_sml_cli_wide_latent_on_card(card, tmp_path, capsys, latent):
+    counts, after = _run_sml_cli(tmp_path, capsys, latent)
+    # every refresh went through K1: two launches each, none refused
+    k1 = after[1] - counts[1]
+    assert k1 > 0 and k1 % 2 == 0
+
+
+@pytest.mark.parametrize("latent", [80, 128])
+def test_refresh_at_wide_latent_on_card(card, latent):
+    from sml_tpu_torch.train.engine import SMLEngine
+    cfg = SMLConfig(latent_dim=latent,
+                    transfer=TransferConfig(latent_dim=latent))
+    states = []
+    for device in (card, "cpu"):
+        before = TK.transfer_rows_cuda.launches
+        eng = SMLEngine(cfg, 700, 300, device=device)
+        states.append(eng.refresh(eng.snapshot_last(eng.init_state())))
+        assert TK.transfer_rows_cuda.launches - before == (
+            2 if device is card else 0)
+    torch.testing.assert_close(states[0].mf.user_emb.cpu(),
+                               states[1].mf.user_emb, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(states[0].mf.item_emb.cpu(),
+                               states[1].mf.item_emb, rtol=1e-4, atol=1e-4)

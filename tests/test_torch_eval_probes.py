@@ -206,6 +206,33 @@ def test_masked_rank_variant_layouts_match_jax(jprobe, monkeypatch,
     assert EK.masked_rank_variant_cuda.launches == 0
 
 
+@pytest.mark.parametrize("in_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [24, 40])
+def test_masked_rank_variant_padded_width_matches_jax(jprobe, monkeypatch, d,
+                                                      in_dtype):
+    """P1 at widths that are not multiples of 16: the zero columns that the
+    card's wrapper adds (``pad_width``) leave every rank of the JAX variant
+    at the unpadded width unchanged; integer tables, exact."""
+    from jax.experimental import pallas as jpl
+    monkeypatch.setattr(jpl, "pallas_call",
+                        functools.partial(jpl.pallas_call, interpret=True))
+    ue, items_t, sstar, maskp = tprobe.probe_inputs(B, 4096, d, 99,
+                                                    torch.device("cpu"))
+    run = jax.jit(jprobe.make_variant(32, "ij", None, in_dtype))
+    want = np.asarray(run(jnp.asarray(ue.numpy()),
+                          jnp.asarray(items_t.numpy()),
+                          jnp.asarray(sstar.numpy()),
+                          jnp.asarray(maskp.numpy().view(np.uint32))))
+    ue_p, items_p = EK.pad_width(ue, items_t)
+    assert ue_p.shape[1] == items_p.shape[0] == d + -d % EK.VARIANT_K
+    assert not ue_p[:, d:].any() and not items_p[d:].any()
+    if in_dtype == "bf16":
+        ue_p, items_p = ue_p.bfloat16(), items_p.bfloat16()
+    got = EK.masked_rank_plain(ue_p, items_p, sstar, maskp)
+    assert int(got.sum()) > 0
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_build_candidate_mask_matches_jax(jev):
     rng = np.random.default_rng(13)
     n_items, ipad = 700, 1024

@@ -4,7 +4,8 @@ Same numpy inputs and the same Θ (carried across with
 ``theta_from_numpy``) go through ``sml_tpu`` and ``sml_tpu_torch`` on the
 CPU. The JAX Pallas kernel runs in interpret mode, as its own tests run it.
 Tolerance 3e-5 (``tests/test_transfer_kernel.py``): both sides are f32,
-summing over C2*d = 320 and H = 512 terms in different orders.
+summing over C2*d (320 at the Yelp shape, up to 896) and H terms in
+different orders.
 """
 
 import jax
@@ -23,9 +24,10 @@ from sml_tpu_torch.ops import transfer_kernel as TK
 TOL = dict(rtol=3e-5, atol=3e-5)
 
 
-def _theta(d, seed=1):
+def _theta(d, seed=1, c2=5, h=512):
     jt = JT.init_transfer(jax.random.PRNGKey(seed),
-                          JaxTransferConfig(latent_dim=d))
+                          JaxTransferConfig(latent_dim=d, conv2_channels=c2,
+                                            fc_hidden=h))
     return jt, T.theta_from_numpy(jax.tree.map(np.asarray, jt), device="cpu")
 
 
@@ -62,12 +64,16 @@ def test_apply_tables_matches_jax_blocked(rng, d, n):
     assert gu.dtype == torch.float32 and gu.shape == (n, d)
 
 
+# the Yelp tower, and widths / channel counts / hidden sizes that the card's
+# kernel holds against this plain version (beyond 64 rows of d = 64)
+@pytest.mark.parametrize("d,c2,h", [(64, 5, 512), (80, 5, 512), (128, 7, 256),
+                                    (10, 5, 64)])
 @pytest.mark.parametrize("n", [256, 700])
-def test_plain_matches_jax_pallas_interpret(rng, n):
+def test_plain_matches_jax_pallas_interpret(rng, n, d, c2, h):
     from jax.experimental.pallas import tpu as pltpu
 
-    jt, tt = _theta(64, seed=3)
-    last, hat = _rows(rng, n, 64), _rows(rng, n, 64)
+    jt, tt = _theta(d, seed=3, c2=c2, h=h)
+    last, hat = _rows(rng, n, d), _rows(rng, n, d)
     with pltpu.force_tpu_interpret_mode():
         want = jax_fused(jt.user, jnp.asarray(last), jnp.asarray(hat),
                          block_rows=256)
