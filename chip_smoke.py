@@ -79,12 +79,7 @@ Phases, one JSON line each:
             the probe itself
             (``python -m sml_tpu_torch.scripts.eval_kernel_probe``) with
             its launches counted.
-11. P2      ``candidate_scores_kernel`` against its plain version at B=1024,
-            C=1001, I=20,000, d=64, bf16: exact on integer tables, within
-            1e-4 on N(0,1) ones; times, bound, and the nearest library
-            route (a bf16 matmul of all scores, then ``torch.gather``: two
-            calls).
-12. P3      ``dense_mask_rank_kernel`` against its plain version on 16
+11. P3      ``dense_mask_rank_kernel`` against its plain version on 16
             batches of 1024 rows, I_pad=20,480, 1,001 distinct candidates
             per row, the target included: exact on integer tables and on
             an ``EDGE_ROWS``-row batch of edge-case masks, at most
@@ -92,6 +87,23 @@ Phases, one JSON line each:
             kernel, an empty mask and a matmul of the scores as yardstick,
             each eager and by CUDA-graph replay; the build's registers and
             blocks per SM; bound.
+12. P2      ``candidate_scores_kernel`` (the probe's whole scorer: user
+            gather, candidate gather, scores) against its plain version on
+            16 batches of B=1024, C=1001, U=100,000, I=20,000, d=64, bf16,
+            on the probe's int64 strided ids: exact on integer tables,
+            within 1e-4 on N(0,1) ones, bit-equal on the same ids as
+            contiguous int32; exact on a batch with ids outside both
+            tables (NaN where the plain version has NaN) and on every pair
+            of ``P2_ODD_B`` rows and ``P2_ODD_C`` candidates. Eager and
+            graph times of the scorer (one launch of the kernel) as the
+            probe calls it and on contiguous int32 ids
+            (``scripts/scorer_timing.py``), the device kernels one scorer
+            call launches by ``torch.profiler`` (checked: one), a one-row
+            call (every id 0) and from it the L2 gather rate, the gather floor at the best L2 rate of the
+            K2 and P3 phases beside the bound (int64 and int32 ids), the
+            library route (user gather, bf16 ``torch.mm`` of all scores,
+            ``torch.gather``: three calls) eager and by graph, the build's
+            registers and blocks per SM.
 13. eval-probes  ``python -m sml_tpu_torch.scripts.eval_variants`` at its
             defaults (16,384 rows, 100,000 users, 20,000 items, 1,000
             candidates) for ``PROBE_ROUNDS`` rounds: every variant runs,
@@ -130,6 +142,9 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# outside a checkout this import fails before anything is printed
+from sml_tpu_torch.scripts.scorer_timing import cuda_ms, graph_ms
 
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 without tensor cores
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 tensor cores, dense
@@ -177,6 +192,9 @@ PROBE_TRIALS, PROBE_ROUNDS = 3, 3
 # P2 on N(0,1) tables: bf16 products are exact in f32, only the order of
 # the 64 sums differs (scores ~N(0, 64))
 P2_RANDOM_ATOL = 1e-4
+# P2 on odd shapes (no whole wave, item of 32 candidates or 16-byte run of
+# out), every pair of these row counts and slates, integer tables, exact
+P2_ODD_B, P2_ODD_C = (1, 3, 1025), (1, 17, 4096)
 # pretrain and baselines: a synthetic dataset with signal at the Yelp
 # widths; the 999-negative test rows of the last PRE_PERIODS - PRE_TEST
 # periods are the slow part of writing it (numpy, on the host)
@@ -197,41 +215,6 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def graph_ms(torch, fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` replays of one CUDA graph
-    of it: the kernels back to back, without the host's launch gaps (which
-    eager timing includes where a launch costs the host more than the
-    device)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):        # warm-up, off the capture
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    ms = cuda_ms(torch, graph.replay, iters)
-    del graph
-    return ms
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -399,11 +382,11 @@ def phase_k1(torch):
         for flat, w1, w2 in flats:
             torch.matmul(torch.matmul(flat, w1), w2)
 
-    out["ms"] = cuda_ms(torch, kernel, 20)
-    out["graph_ms"] = graph_ms(torch, kernel, 20)
-    out["plain_ms"] = cuda_ms(torch, plain, 5)
-    out["library_ms"] = cuda_ms(torch, library, 20)
-    out["library_graph_ms"] = graph_ms(torch, library, 20)
+    out["ms"] = cuda_ms(kernel, 20)
+    out["graph_ms"] = graph_ms(kernel, 20)
+    out["plain_ms"] = cuda_ms(plain, 5)
+    out["library_ms"] = cuda_ms(library, 20)
+    out["library_graph_ms"] = graph_ms(library, 20)
     out["library"] = "products only: torch.matmul of fc1 then fc2 on flat"
     del flats
     n = N_USERS + N_ITEMS
@@ -435,7 +418,7 @@ def phase_k1(torch):
         wbytes = 3 * n * d * 4 + sum(p.numel() for p in th.parameters()) * 4
         b, by = bound_ms(k1_flops(n, d), wbytes)
         out["wide"][d] = {
-            "ms": cuda_ms(torch, lambda: [tk.transfer_rows_cuda(*s)
+            "ms": cuda_ms(lambda: [tk.transfer_rows_cuda(*s)
                                           for s in wide], 10),
             "bound_ms": b, "bound_by": by,
             "smem_bytes": lib.sml_transfer_smem_bytes(d)}
@@ -559,7 +542,7 @@ def phase_k2(torch):
     batches_b = [(ue.bfloat16(), ss, m) for ue, ss, m in batches]
 
     def per_batch(fn, iters, parts=batches, timer=cuda_ms):
-        return timer(torch, lambda: [fn(*b) for b in parts], iters) / nb
+        return timer(lambda: [fn(*b) for b in parts], iters) / nb
 
     def k2(ue, ss, m):
         return ek.masked_rank_cuda(ue, it_r, ss, m)
@@ -618,7 +601,7 @@ def phase_k2(torch):
     return {"max_abs_err": max_diff, "ms": out["ms"],
             "plain_ms": out["plain_ms"],
             "bound_ms": out["bound_ms"], "bound_by": out["bound_by"],
-            "library_ms": out["library_ms"]}
+            "library_ms": out["library_ms"]}, out["l2_gather_tb_s"]
 
 
 def run_slice(torch, device: str, pretrained, hat_tables, test_rows,
@@ -800,11 +783,11 @@ def phase_k3(torch):
     # each by eager launches (cuda_ms, the host's launch gaps included) and
     # by CUDA-graph replay (the device alone); capture needs a capturable
     # optimizer, whose step count lives on the card
-    out["ms"] = cuda_ms(torch, kernel, 50)
-    out["graph_ms"] = graph_ms(torch, kernel, 100)
-    out["plain_ms"] = cuda_ms(torch, plain, 20)
-    out["library_ms"] = cuda_ms(torch, library(False).step, 50)
-    out["library_graph_ms"] = graph_ms(torch, library(True).step, 100)
+    out["ms"] = cuda_ms(kernel, 50)
+    out["graph_ms"] = graph_ms(kernel, 100)
+    out["plain_ms"] = cuda_ms(plain, 20)
+    out["library_ms"] = cuda_ms(library(False).step, 50)
+    out["library_graph_ms"] = graph_ms(library(True).step, 100)
     out["build"] = build_usage(_build.build_log(), "decay_adam_kernel")
     # read and write p, mu, nu once each; 8 operations per element
     flops, nbytes = 8 * n, 24 * n
@@ -1140,7 +1123,7 @@ def phase_p1(torch):
         torch.cuda.synchronize()
         mismatch[name] = int((got != want).sum())
         flips[name] = int((got_r != want_r[spec["in_dtype"]]).sum())
-        variants_ms[name] = cuda_ms(torch, kernel(spec), 10)
+        variants_ms[name] = cuda_ms(kernel(spec), 10)
     check(not any(mismatch.values()),
           f"P1 ranks differ from the plain version: {mismatch}")
     check(all(v <= K2_RANDOM_FLIPS_PER_16K for v in flips.values()),
@@ -1150,13 +1133,12 @@ def phase_p1(torch):
     out = {"phase": "P1", "rows": PROBE_ROWS, "I_pad": ipad, "d": DIM,
            "rank_mismatch": mismatch, "random_flips": flips,
            "variants_ms": variants_ms, "ms": variants_ms["v0"],
-           "graph_ms": graph_ms(torch, kernel(probe.VARIANTS["v0"]), 20),
+           "graph_ms": graph_ms(kernel(probe.VARIANTS["v0"]), 20),
            "bf16_ms": variants_ms["v1_bf16"],
-           "bf16_graph_ms": graph_ms(torch, kernel(probe.VARIANTS["v1_bf16"]),
+           "bf16_graph_ms": graph_ms(kernel(probe.VARIANTS["v1_bf16"]),
                                      20),
            "plain_ms": cuda_ms(
-               torch, lambda: ek.masked_rank_plain(ue, items_t, sstar, maskp),
-               2),
+               lambda: ek.masked_rank_plain(ue, items_t, sstar, maskp), 2),
            # ~1 s each of v0 and of v1_bf16: the clock the card keeps under
            # them, against the 1.98 GHz boost the f32 and bf16 peaks assume
            "clocks_under_load": {
@@ -1168,8 +1150,8 @@ def phase_p1(torch):
             ("library_", lambda: torch.matmul(ue, items_t)),
             ("bf16_library_",
              lambda: torch.mm(ue_b, it_b, out_dtype=torch.float32))):
-        out[f"{key}ms"] = cuda_ms(torch, fn, 10)
-        out[f"{key}graph_ms"] = graph_ms(torch, fn, 20)
+        out[f"{key}ms"] = cuda_ms(fn, 10)
+        out[f"{key}graph_ms"] = graph_ms(fn, 20)
     log = _build.build_log()
     out["build"] = {
         f"{dt}_{rb}_{order}": build_usage(
@@ -1229,61 +1211,150 @@ def int_or_randn(torch, g, shape, kind):
     return torch.randn(shape, generator=g).bfloat16().cuda()
 
 
-def phase_p2(torch, rows):
-    from sml_tpu_torch.ops import probe_kernels as pk
+def p2_bytes(torch, users, cand) -> int:
+    """Bytes one P2 call must move: the ids read once at their dtype's
+    width, each distinct user and table row once, the scores written
+    once."""
+    rows_read = int(torch.unique(users).numel()) + int(
+        torch.unique(cand).numel())
+    return users.numel() * users.element_size() \
+        + cand.numel() * cand.element_size() + rows_read * DIM * 2 \
+        + cand.numel() * 4
 
-    cand = rows[:, 1:].to(torch.int32).contiguous()          # (16384, 1001)
-    n_cand = cand.shape[1]
+
+def p2_mismatch(torch, pk, ue_t, users, cand, tab) -> int:
+    """Scores of P2's kernel that differ from its plain version's, NaN
+    included (NaN equals NaN here)."""
+    got = pk.candidate_scores_cuda(ue_t, users, cand, tab)
+    want = pk.candidate_scores_plain(ue_t, users, cand, tab)
+    nan = want.isnan()
+    return int((got.isnan() != nan).sum()) + int(
+        (got[~nan] != want[~nan]).sum())
+
+
+def p2_out_of_range_ids(torch, rows, g):
+    """The probe's first batch with ids outside both tables: candidate ids
+    -1, -I, I, I+5, -I-1 and +-2^40 in 4,096 random slots, user ids -1,
+    -U, U, U+7, -U-1 and +-2^40 on every third row."""
+    r = rows[:EVAL_BATCH].clone()
+    users, cand = r[:, 0], r[:, 1:]
+    bad_c = torch.tensor([-1, -N_ITEMS, N_ITEMS, N_ITEMS + 5, -N_ITEMS - 1,
+                          2 ** 40, -2 ** 40], device="cuda")
+    bad_u = torch.tensor([-1, -N_USERS, N_USERS, N_USERS + 7, -N_USERS - 1,
+                          2 ** 40, -2 ** 40], device="cuda")
+    at = torch.randint(0, cand.numel(), (4096,), generator=g).cuda()
+    n_at = cand.shape[1]
+    cand[at // n_at, at % n_at] = bad_c[torch.arange(4096, device="cuda")
+                                        % len(bad_c)]
+    users[::3] = bad_u[torch.arange(len(users[::3]), device="cuda")
+                       % len(bad_u)]
+    return users, cand
+
+
+def phase_p2(torch, rows, l2_rates):
+    from sml_tpu_torch import _build
+    from sml_tpu_torch.ops import probe_kernels as pk
+    from sml_tpu_torch.scripts import scorer_timing
+
     g = torch.Generator().manual_seed(SEED + 92)
-    tables = {kind: (int_or_randn(torch, g, (EVAL_ROWS, DIM), kind),
+    tables = {kind: (int_or_randn(torch, g, (N_USERS, DIM), kind),
                      int_or_randn(torch, g, (N_ITEMS, DIM), kind))
               for kind in ("int", "randn")}
+    # the probe's call: int64 strided views of the rows; and the same ids
+    # as contiguous int32 tensors
+    probe = [(rows[s:s + EVAL_BATCH, 0], rows[s:s + EVAL_BATCH, 1:])
+             for s in range(0, EVAL_ROWS, EVAL_BATCH)]
+    int32 = [(u.int(), c.int().contiguous()) for u, c in probe]
+    nb, n_cand = len(probe), probe[0][1].shape[1]
     err = {"int": 0.0, "randn": 0.0}
-    batches = range(0, EVAL_ROWS, EVAL_BATCH)
-    for kind, (ue, tab) in tables.items():
-        for s in batches:
-            sl = slice(s, s + EVAL_BATCH)
-            got = pk.candidate_scores_cuda(ue[sl], cand[sl], tab)
-            want = pk.candidate_scores_plain(ue[sl], cand[sl], tab)
+    int32_mismatch = 0
+    for kind, (ue_t, tab) in tables.items():
+        for (u, c), (u32, c32) in zip(probe, int32):
+            got = pk.candidate_scores_cuda(ue_t, u, c, tab)
+            want = pk.candidate_scores_plain(ue_t, u, c, tab)
             err[kind] = max(err[kind], (got - want).abs().max().item())
+            int32_mismatch += int(
+                (pk.candidate_scores_cuda(ue_t, u32, c32, tab) != got).sum())
+    # ids outside both tables, and odd shapes, on the integer tables
+    ue_i, tab_i = tables["int"]
+    oor_mismatch = p2_mismatch(torch, pk, ue_i,
+                               *p2_out_of_range_ids(torch, rows, g), tab_i)
+    odd_mismatch = {}
+    for b in P2_ODD_B:
+        for c in P2_ODD_C:
+            users = torch.randint(0, N_USERS, (b,), generator=g).cuda()
+            cand = torch.randint(0, N_ITEMS, (b, c), generator=g).cuda()
+            odd_mismatch[f"{b}x{c}"] = p2_mismatch(torch, pk, ue_i, users,
+                                                   cand, tab_i)
     torch.cuda.synchronize()
     check(err["int"] == 0.0, f"P2 scores differ on integer tables: {err}")
     check(err["randn"] <= P2_RANDOM_ATOL,
           f"P2 max abs err {err['randn']} over {P2_RANDOM_ATOL}")
+    check(int32_mismatch == 0,
+          f"P2 scores on int32 ids differ from int64 strided ones at "
+          f"{int32_mismatch} places")
+    check(oor_mismatch == 0,
+          f"P2 differs from its plain version at {oor_mismatch} places on "
+          f"out-of-range ids")
+    check(not any(odd_mismatch.values()),
+          f"P2 differs from its plain version on odd shapes: {odd_mismatch}")
 
-    ue, tab = tables["randn"]
+    ue_t, tab = tables["randn"]
     tab_t = tab.T.contiguous()
-    parts = [(ue[s:s + EVAL_BATCH], cand[s:s + EVAL_BATCH]) for s in batches]
-    nb = len(parts)
 
-    def kernel():
-        for u, c in parts:
-            pk.candidate_scores_cuda(u, c, tab)
+    def per_batch(fn, parts, iters, timer=cuda_ms):
+        return timer(lambda: [fn(*p) for p in parts], iters) / nb
 
-    def plain():
-        for u, c in parts:
-            pk.candidate_scores_plain(u, c, tab)
+    def plain(u, c):
+        return pk.candidate_scores_plain(ue_t, u, c, tab)
 
-    def library():
-        for u, c in parts:
-            torch.gather(torch.mm(u, tab_t, out_dtype=torch.float32), 1,
-                         c.long())
+    def library(u, c):
+        return torch.gather(torch.mm(ue_t[u], tab_t, out_dtype=torch.float32),
+                            1, c)
 
-    out = {"phase": "P2", "B": EVAL_BATCH, "C": n_cand, "items": N_ITEMS,
-           "d": DIM, "max_abs_err": err, "ms": cuda_ms(torch, kernel, 10) / nb,
-           "plain_ms": cuda_ms(torch, plain, 3) / nb,
-           "library_ms": cuda_ms(torch, library, 10) / nb,
-           "library_calls": 2}
-    # per call, the mean over the batches: cand read and scores written
-    # once, ue once, and each distinct candidate row of the table once
-    rows_read = sum(int(torch.unique(c).numel()) for _, c in parts) / nb
-    nbytes = 2 * EVAL_BATCH * n_cand * 4 + EVAL_BATCH * DIM * 2 \
-        + rows_read * DIM * 2
-    flops = 2 * EVAL_BATCH * n_cand * DIM
-    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes,
-                                                PEAK_BF16_FLOPS)
-    out["flops"], out["bytes"] = flops, nbytes
+    out = {"phase": "P2", "B": EVAL_BATCH, "C": n_cand, "users": N_USERS,
+           "items": N_ITEMS, "d": DIM, "max_abs_err": err,
+           "int32_vs_int64_mismatch": int32_mismatch,
+           "out_of_range_mismatch": oor_mismatch,
+           "odd_shape_mismatch": odd_mismatch}
+    # the library route on the probe's ids, by eager launches (the host's
+    # launch cost included, as the probe pays it) and by CUDA-graph replay
+    # (the device alone)
+    out["library_ms"] = per_batch(library, probe, 10)
+    out["library_graph_ms"] = per_batch(library, probe, 20, graph_ms)
+    out["library_calls"] = 3
+    out["plain_ms"] = per_batch(plain, probe, 3)
+    # the scorer, one launch of the kernel, as the probe calls it (int64
+    # strided ids), on contiguous int32 ids (run G's inputs) and on one
+    # table row: eager and graph ms, and the device kernels of one call by
+    # torch.profiler
+    scorer = scorer_timing.measure((ue_t, tab), rows, N_ITEMS)
+    out["scorer"] = {k: scorer[k] for k in ("probe", "int32", "one_row")}
+    out["ms"], out["graph_ms"] = (scorer["probe"]["ms"],
+                                  scorer["probe"]["graph_ms"])
+    kernels = scorer["probe"]["kernels"]
+    out["device_kernels_per_call"] = sum(n for n, _ in kernels.values())
+    check(out["device_kernels_per_call"] == 1
+          and all("candidate_scores_kernel" in k for k in kernels),
+          f"one P2 scorer call launched {kernels}, expected one "
+          f"candidate_scores_kernel")
+    # the rate at which the candidates' table rows arrive from L2, and the
+    # floor of a gather design at the K2 and P3 phases' best L2 rate
+    out["l2_gather_bytes"] = scorer["l2_gather_bytes"]
+    out["l2_gather_tb_s"] = scorer["l2_gather_tb_s"]
+    out["l2_rates_k2_p3_tb_s"] = l2_rates
+    out["l2_gather_floor_ms"] = out["l2_gather_bytes"] / max(l2_rates) * 1e-9
+    # per call, the mean over the batches, for the probe's int64 ids and
+    # for int32 ones
+    out["flops"] = 2 * EVAL_BATCH * n_cand * DIM
+    for key, parts in (("", probe), ("int32_", int32)):
+        out[f"{key}bytes"] = sum(p2_bytes(torch, u, c) for u, c in parts) / nb
+        out[f"{key}bound_ms"], out[f"{key}bound_by"] = bound_ms(
+            out["flops"], out[f"{key}bytes"], PEAK_BF16_FLOPS)
     out["tpu_design_flops"] = 2 * EVAL_BATCH * N_ITEMS * DIM
+    log = _build.build_log()
+    out["build"] = {ids: build_usage(log, f"candidate_scores_kernelI{mangled}")
+                    for ids, mangled in (("int64", "ll"), ("int32", "ii"))}
     emit(out)
     return {"max_abs_err": err["randn"],
             **{k: out[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1357,7 +1428,7 @@ def phase_p3(torch, rows):
     nb = len(parts)
 
     def per_batch(fn, iters, timer=cuda_ms):
-        return timer(torch, lambda: [fn(*b) for b in parts], iters) / nb
+        return timer(lambda: [fn(*b) for b in parts], iters) / nb
 
     def p3(u, t, m):
         return pk.dense_mask_rank_cuda(tab, u, t, m)
@@ -1398,7 +1469,7 @@ def phase_p3(torch, rows):
     emit(out)
     return {"max_abs_err": max_diff,
             **{k: out[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}}
+                                   "library_ms")}}, out["l2_gather_tb_s"]
 
 
 def phase_eval_probes(torch):
@@ -1580,8 +1651,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
         return 1
-    # outside a checkout this import fails before anything is printed
-    import sml_tpu_torch  # noqa: F401
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -1589,7 +1658,7 @@ def main() -> int:
     smi_line = phase_env(torch)
     phase_build()
     k1 = phase_k1(torch)
-    k2 = phase_k2(torch)
+    k2, k2_l2_rate = phase_k2(torch)
     phase_slice(torch)
     k3 = phase_k3(torch)
     phase_crossover(torch)
@@ -1597,8 +1666,8 @@ def main() -> int:
     launches = phase_train_sweep(torch)
     p1 = phase_p1(torch)
     probe_rows = probe_eval_rows(torch)
-    p2 = phase_p2(torch, probe_rows)
-    p3 = phase_p3(torch, probe_rows)
+    p3, p3_l2_rate = phase_p3(torch, probe_rows)
+    p2 = phase_p2(torch, probe_rows, (k2_l2_rate, p3_l2_rate))
     del probe_rows
     probe_launches = phase_eval_probes(torch)
     root = tempfile.mkdtemp(prefix="sml_pretrain_")

@@ -47,8 +47,10 @@ SIGNATURES = {
     "sml_masked_rank": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
     # ue, items, in_bf16, sstar, maskp, rank, B, d, ipad, stream
     "sml_masked_rank_gather": [_P, _P, _I, _P, _P, _P] + [_I] * 3 + [_P],
-    # ue, cand, table, out, B, C, n_items, stream
-    "sml_candidate_scores": [_P] * 4 + [_I] * 3 + [_P],
+    # ue_t, n_users, users, users_stride, users_is64, cand, cand_stride0,
+    # cand_stride1, cand_is64, table, n_items, out, B, C, stream
+    "sml_candidate_scores": [_P, _I, _P, _L, _I, _P, _L, _L, _I, _P, _I, _P,
+                             _I, _I, _P],
     # ue, tgt, maskm, table, rank, B, ipad, stream
     "sml_dense_mask_rank": [_P] * 5 + [_I] * 2 + [_P],
     # leaves (n_leaves rows of int64 p, mu, nu, n), n_leaves, lr, b1, b2,

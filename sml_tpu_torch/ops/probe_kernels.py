@@ -4,10 +4,12 @@
 999-negative leave-one-out test; two of them are Pallas TPU kernels, ported
 here (their entry point is :mod:`sml_tpu_torch.scripts.eval_variants`):
 
-* P2, :func:`candidate_scores` (``make_pallas_scorer``): the scores of each
-  row's candidate slate, ``out[b, c] = ue[b] . table[cand[b, c]]`` with
-  bf16 inputs and f32 sums. The TPU scored the whole table and picked the
-  candidates; ``csrc/candidate_scores.cu`` gathers the candidates' rows.
+* P2, :func:`candidate_scores` (``make_pallas_scorer``'s scorer): the
+  scores of each row's candidate slate, ``out[b, c] = ue_t[users[b]] .
+  table[cand[b, c]]`` with bf16 inputs and f32 sums, out-of-range ids as
+  the JAX function takes them. The TPU scored the whole table and picked
+  the candidates; ``csrc/candidate_scores.cu`` gathers the user row and the
+  candidates' rows, in one launch per call.
 * P3, :func:`dense_mask_rank` (``make_masked_rank_pallas``): the
   strictly-greater count of masked columns over the target's score, with a
   dense int8 mask that holds every candidate, the target included. The TPU
@@ -22,6 +24,9 @@ takes the plain PyTorch version beside it.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 from sml_tpu_torch import _build
@@ -33,39 +38,85 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
-def candidate_scores_plain(ue: torch.Tensor, cand: torch.Tensor,
+_ID_DTYPES = (torch.int32, torch.int64)
+
+
+def candidate_scores_plain(ue_t: torch.Tensor, users: torch.Tensor,
+                           cand: torch.Tensor,
                            table: torch.Tensor) -> torch.Tensor:
-    """(B, d) users, (B, C) candidate ids, (I, d) table -> (B, C) f32
-    scores, with every product in f32 (exact for bf16 inputs)."""
-    return (ue.float()[:, None, :] * table.float()[cand.long()]).sum(-1)
+    """(U, d) user table, (B,) user ids, (B, C) candidate ids, (I, d) item
+    table -> (B, C) f32 scores of ``bf16(ue_t[users]) . table[cand]``,
+    every product in f32 (exact for bf16 inputs). Ids as the JAX scorer
+    takes them: a user id in [-U, 0) wraps and every user id is then
+    clamped into [0, U-1]; a candidate id in [-I, 0) wraps and any other
+    candidate id outside [0, I) scores NaN."""
+    n_users, n_items = ue_t.shape[0], table.shape[0]
+    if n_users == 0:
+        raise ValueError("ue_t has no rows")
+    u = users.long()
+    u = torch.where(u < 0, u + n_users, u).clamp(0, n_users - 1)
+    c = cand.long()
+    c = torch.where(c < 0, c + n_items, c)
+    valid = (c >= 0) & (c < n_items)
+    ue = ue_t[u].to(torch.bfloat16).float()
+    # row I of the padded table is zeros, read by the ids that score NaN
+    rows = torch.nn.functional.pad(table.float(), (0, 0, 0, 1))[
+        torch.where(valid, c, n_items)]
+    scores = (ue[:, None, :] * rows).sum(-1)
+    return scores.masked_fill(~valid, float("nan"))
 
 
-def candidate_scores_cuda(ue: torch.Tensor, cand: torch.Tensor,
+@functools.cache
+def _candidate_scores_entry():
+    return _build.load_library().sml_candidate_scores
+
+
+def candidate_scores_cuda(ue_t: torch.Tensor, users: torch.Tensor,
+                          cand: torch.Tensor,
                           table: torch.Tensor) -> torch.Tensor:
-    """Launch ``candidate_scores_kernel`` once for the batch; (B, C) f32."""
-    if not all(t.is_cuda for t in (ue, cand, table)):
-        raise ValueError("candidate_scores_cuda takes CUDA tensors")
-    if ue.dtype != torch.bfloat16 or table.dtype != torch.bfloat16:
-        raise ValueError(f"ue and table must be bfloat16, got "
-                         f"{ue.dtype}/{table.dtype}")
-    if ue.dim() != 2 or ue.shape[1] != DIM or table.dim() != 2 \
+    """Launch ``candidate_scores_kernel`` once for the batch, the user
+    gather inside it; (B, C) f32. ``users`` and ``cand`` are int32 or int64
+    and may be strided views; the tables are contiguous bf16 of width
+    :data:`DIM`. Only ``out`` is allocated."""
+    # the probe pays these checks per batch: attributes only
+    dev = table.get_device()
+    if not (ue_t.is_cuda and users.is_cuda and cand.is_cuda and table.is_cuda
+            and ue_t.get_device() == users.get_device() == cand.get_device()
+            == dev):
+        raise ValueError("candidate_scores_cuda takes CUDA tensors on one "
+                         "device")
+    if ue_t.dtype != torch.bfloat16 or table.dtype != torch.bfloat16:
+        raise ValueError(f"ue_t and table must be bfloat16, got "
+                         f"{ue_t.dtype}/{table.dtype}")
+    if ue_t.dim() != 2 or ue_t.shape[1] != DIM or table.dim() != 2 \
             or table.shape[1] != DIM:
-        raise ValueError(f"ue (B, {DIM}) and table (I, {DIM}) expected, got "
-                         f"{tuple(ue.shape)} and {tuple(table.shape)}")
-    if cand.dim() != 2 or cand.shape[0] != ue.shape[0]:
-        raise ValueError(f"cand must be ({ue.shape[0]}, C), got "
-                         f"{tuple(cand.shape)}")
-    ue, table = ue.contiguous(), table.contiguous()
-    cand = cand.to(torch.int32).contiguous()
-    if not (_aligned(ue) and _aligned(table)):
-        raise ValueError("ue and table must start on a 16-byte boundary")
+        raise ValueError(f"the kernel takes width DIM={DIM}: ue_t (U, {DIM}) "
+                         f"and table (I, {DIM}) expected, got "
+                         f"{tuple(ue_t.shape)} and {tuple(table.shape)}")
+    if not (ue_t.is_contiguous() and table.is_contiguous()
+            and _aligned(ue_t) and _aligned(table)):
+        raise ValueError("ue_t and table must be contiguous and start on a "
+                         "16-byte boundary")
+    if ue_t.shape[0] == 0:
+        raise ValueError("ue_t has no rows")
+    if users.dtype not in _ID_DTYPES or cand.dtype not in _ID_DTYPES:
+        raise ValueError(f"ids must be int32 or int64, got {users.dtype}/"
+                         f"{cand.dtype}")
+    if users.dim() != 1 or cand.dim() != 2 \
+            or cand.shape[0] != users.shape[0]:
+        raise ValueError(f"users (B,) and cand (B, C) expected, got "
+                         f"{tuple(users.shape)} and {tuple(cand.shape)}")
     B, C = cand.shape
-    out = torch.empty((B, C), dtype=torch.float32, device=ue.device)
-    lib = _build.load_library()
-    with torch.cuda.device(ue.device):
-        rc = lib.sml_candidate_scores(ue.data_ptr(), cand.data_ptr(),
-                                      table.data_ptr(), out.data_ptr(), B, C,
-                                      table.shape[0], _build.stream_of(ue))
+    out = torch.empty((B, C), dtype=torch.float32, device=table.device)
+    guard = (torch.cuda.device(dev) if dev != torch.cuda.current_device()
+             else contextlib.nullcontext())
+    with guard:
+        rc = _candidate_scores_entry()(
+            ue_t.data_ptr(), ue_t.shape[0], users.data_ptr(),
+            users.stride(0), users.dtype == torch.int64, cand.data_ptr(),
+            cand.stride(0), cand.stride(1), cand.dtype == torch.int64,
+            table.data_ptr(), table.shape[0], out.data_ptr(), B, C,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "candidate_scores_kernel")
     candidate_scores_cuda.launches += 1
     return out
@@ -74,15 +125,15 @@ def candidate_scores_cuda(ue: torch.Tensor, cand: torch.Tensor,
 candidate_scores_cuda.launches = 0
 
 
-def candidate_scores(ue: torch.Tensor, cand: torch.Tensor,
-                     table: torch.Tensor) -> torch.Tensor:
-    """P2: the CUDA kernel for tensors on the card, the plain version for
-    CPU tensors."""
-    if ue.is_cuda:
-        return candidate_scores_cuda(ue, cand, table)
-    if ue.device.type == "cpu":
-        return candidate_scores_plain(ue, cand, table)
-    raise ValueError(f"unsupported device {ue.device}")
+def candidate_scores(ue_t: torch.Tensor, users: torch.Tensor,
+                     cand: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """P2, the probe's whole scorer: the CUDA kernel for tensors on the card,
+    the plain version for CPU tensors."""
+    if table.is_cuda:
+        return candidate_scores_cuda(ue_t, users, cand, table)
+    if table.device.type == "cpu":
+        return candidate_scores_plain(ue_t, users, cand, table)
+    raise ValueError(f"unsupported device {table.device}")
 
 
 def dense_mask_rank_plain(table: torch.Tensor, ue: torch.Tensor,

@@ -18,7 +18,9 @@ variants; here each variant is an instantiation of the same CUDA kernel
 
 Each variant is held exactly to v0's rank counts on integer-valued tables
 (|x| <= 1, so every score is an exact integer in f32 and bf16) before it is
-timed with CUDA events. The JSON document goes to stdout and to ``--out``.
+timed with CUDA events. The JSON document goes to stdout and to ``--out``;
+a variant that raises is recorded as ``{"error": ...}``, and the exit
+status is then 1.
 """
 
 from __future__ import annotations
@@ -149,5 +151,10 @@ def main(argv=None) -> dict:
     return results
 
 
+def exit_status(results: dict) -> int:
+    """The probe's exit status: 1 when any variant recorded an error."""
+    return int(any("error" in v for v in results["variants"].values()))
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(exit_status(main()))

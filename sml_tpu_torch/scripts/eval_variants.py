@@ -22,7 +22,9 @@ v0-v3, v5 and v5b are plain PyTorch (``torch.matmul``, ``gather``), as the
 JAX script left them to XLA. Every variant feeds the same rank and metric
 functions and is checked against v0's hit/NDCG sums. Inputs come from numpy
 seeded 3. On the card each round times every variant once with CUDA
-events, the variants interleaved; the JSON document goes to stdout.
+events, the variants interleaved; the JSON document goes to stdout. A
+variant that raises is recorded as ``{"error": ...}`` and the others still
+run; the exit status is then 1.
 """
 
 from __future__ import annotations
@@ -129,15 +131,16 @@ def prep_matmul_bf16(mfp):
 
 
 def make_cuda_scorer(n_items: int):
-    """P2 as a scorer: ``ctx`` holds the bf16 tables; each batch's scores
-    come from :func:`candidate_scores` (the kernel on the card)."""
+    """P2 as a scorer: ``ctx`` holds the bf16 tables; each batch's scores,
+    the user gather included, come from :func:`candidate_scores` (one
+    kernel launch on the card)."""
 
     def scorer(ctx, users, cand):
         ue_t, ie_t = ctx                                         # bf16
         if ie_t.shape[0] != n_items:
             raise ValueError(f"table has {ie_t.shape[0]} rows, expected "
                              f"{n_items}")
-        return candidate_scores(ue_t[users], cand, ie_t)
+        return candidate_scores(ue_t, users, cand, ie_t)
 
     return scorer
 
@@ -329,5 +332,11 @@ def main(argv=None) -> dict:
     return res
 
 
+def exit_status(res: dict) -> int:
+    """The probe's exit status: 1 when any variant recorded an error."""
+    return int(any(isinstance(v, dict) and "error" in v
+                   for v in res.values()))
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(exit_status(main()))

@@ -14,7 +14,8 @@ integer-valued tables; P1 on N(0,1) tables at most
 rounding of the target's score; the sums run in another order); K3
 bit-equal to its plain version (every operation explicitly rounded), ``p``
 held to rtol 1e-6; P2 exact on integer tables and within 1e-4 on N(0,1)
-ones (bf16 products are exact in f32, only the order of the sums differs);
+ones (bf16 products are exact in f32, only the order of the sums differs),
+on int64 strided and int32 ids, out-of-range ids and odd B and C;
 P3 exact on integer tables. The edge-case rows: no bit set, every item
 set, one 16-byte chunk of the mask, its last chunk (K2, P3); no bit, one
 bit, one full 4096-item mask block, every item (P1). P1 also at widths
@@ -255,25 +256,98 @@ def test_masked_rank_variant_refuses_too_wide_a_tile(card):
     assert E.masked_rank_variant_cuda.launches == before + 1
 
 
-@pytest.mark.parametrize("kind", ["int", "randn"])
-def test_candidate_scores_kernel_matches_plain(card, kind):
-    g = torch.Generator().manual_seed(8)
-    rows, n_cand, n_items = 777, 1001, 5000
+def _p2_tables(g, n_users, n_items, kind):
     if kind == "int":
-        tab = torch.randint(-1, 2, (n_items, 64), generator=g).bfloat16()
-        ue = torch.randint(-1, 2, (rows, 64), generator=g).bfloat16()
-    else:
-        tab = torch.randn(n_items, 64, generator=g).bfloat16()
-        ue = torch.randn(rows, 64, generator=g).bfloat16()
-    cand = torch.randint(0, n_items, (rows, n_cand), generator=g)
+        return (torch.randint(-1, 2, (n_users, 64), generator=g).bfloat16(),
+                torch.randint(-1, 2, (n_items, 64), generator=g).bfloat16())
+    return (torch.randn(n_users, 64, generator=g).bfloat16(),
+            torch.randn(n_items, 64, generator=g).bfloat16())
+
+
+def _p2_on_card(card, ue_t, users, cand, tab):
+    """The kernel's scores on ``users`` and ``cand`` as given (on the card:
+    one launch, by the counter) and the plain version's, both on the
+    CPU."""
     before = PK.candidate_scores_cuda.launches
-    got = PK.candidate_scores(ue.to(card), cand.to(card), tab.to(card))
+    got = PK.candidate_scores(ue_t.to(card), users, cand, tab.to(card))
     assert PK.candidate_scores_cuda.launches == before + 1
-    want = PK.candidate_scores_plain(ue, cand, tab)
-    if kind == "int":
-        assert torch.equal(got.cpu(), want)
+    return got.cpu(), PK.candidate_scores_plain(ue_t, users.cpu(),
+                                                cand.cpu(), tab)
+
+
+@pytest.mark.parametrize("ids", ["int64_strided", "int32"])
+@pytest.mark.parametrize("kind", ["int", "randn"])
+def test_candidate_scores_kernel_matches_plain(card, kind, ids):
+    """The probe's call (int64 ``r[:, 0]``, ``r[:, 1:]`` of one rows
+    array) and contiguous int32 ids."""
+    g = torch.Generator().manual_seed(8)
+    rows, n_cand, n_users, n_items = 777, 1001, 3000, 5000
+    ue_t, tab = _p2_tables(g, n_users, n_items, kind)
+    r = torch.cat([torch.randint(0, n_users, (rows, 1), generator=g),
+                   torch.randint(0, n_items, (rows, n_cand), generator=g)],
+                  1).to(card)
+    users, cand = r[:, 0], r[:, 1:]
+    if ids == "int32":
+        users, cand = users.int(), cand.int().contiguous()
     else:
-        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+        assert cand.stride() == (n_cand + 1, 1) and users.stride() == (
+            n_cand + 1,)
+    got, want = _p2_on_card(card, ue_t, users, cand, tab)
+    if kind == "int":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_candidate_scores_kernel_out_of_range_ids(card):
+    """Ids outside both tables, as the JAX scorer takes them: NaN in the
+    plain version's places (and only there), every other score equal."""
+    g = torch.Generator().manual_seed(10)
+    rows, n_cand, n_users, n_items = 1024, 1001, 3000, 5000
+    ue_t, tab = _p2_tables(g, n_users, n_items, "int")
+    users = torch.randint(0, n_users, (rows,), generator=g)
+    cand = torch.randint(0, n_items, (rows, n_cand), generator=g)
+    bad_c = torch.tensor([-1, -n_items, n_items, n_items + 5, -n_items - 1,
+                          2 ** 40, -2 ** 40])
+    bad_u = torch.tensor([-1, -n_users, n_users, n_users + 7, -n_users - 1,
+                          2 ** 40, -2 ** 40])
+    at = torch.randint(0, rows * n_cand, (4096,), generator=g)
+    cand.view(-1)[at] = bad_c[torch.arange(4096) % len(bad_c)]
+    users[::3] = bad_u[torch.arange(len(users[::3])) % len(bad_u)]
+    got, want = _p2_on_card(card, ue_t, users.to(card), cand.to(card), tab)
+    nan = want.isnan()
+    assert 0 < int(nan.sum()) < 4096
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("C", [1, 17, 4096])
+@pytest.mark.parametrize("B", [1, 3, 1025])
+def test_candidate_scores_kernel_odd_shapes(card, B, C):
+    """Row counts and slates that fill no whole wave, item or 16-byte run
+    of ``out``; integer tables, exact."""
+    g = torch.Generator().manual_seed(B * 10_000 + C)
+    ue_t, tab = _p2_tables(g, 700, 900, "int")
+    users = torch.randint(0, 700, (B,), generator=g)
+    cand = torch.randint(0, 900, (B, C), generator=g)
+    got, want = _p2_on_card(card, ue_t, users.to(card), cand.to(card), tab)
+    assert torch.equal(got, want)
+
+
+def test_candidate_scores_kernel_refuses_what_it_cannot_take(card):
+    g = torch.Generator().manual_seed(12)
+    ue_t, tab = (t.to(card) for t in _p2_tables(g, 50, 60, "int"))
+    users = torch.zeros(4, dtype=torch.int64, device=card)
+    cand = torch.zeros(4, 3, dtype=torch.int64, device=card)
+    before = PK.candidate_scores_cuda.launches
+    with pytest.raises(ValueError, match="DIM=64"):
+        PK.candidate_scores_cuda(ue_t[:, :32].contiguous(), users, cand,
+                                 tab[:, :32].contiguous())
+    with pytest.raises(ValueError, match="bfloat16"):
+        PK.candidate_scores_cuda(ue_t.float(), users, cand, tab.float())
+    with pytest.raises(ValueError, match="int32 or int64"):
+        PK.candidate_scores_cuda(ue_t, users, cand.short(), tab)
+    assert PK.candidate_scores_cuda.launches == before
 
 
 def test_dense_mask_rank_kernel_exact_on_integer_tables(card):

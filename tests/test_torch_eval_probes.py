@@ -6,10 +6,10 @@ script has no such switch, so its test wraps ``pallas_call`` in interpret
 mode for the test's duration only. On the CPU the port's wrappers take
 their plain versions. Tolerances:
 
-* P2 scores: exact on integer-valued tables (|x| <= 1); rtol 1e-6 on
-  random bf16-rounded tables (each bf16 product is exact in f32; only the
-  order of the 64 f32 sums differs), with atol 1e-5 for sums that cancel
-  to near zero.
+* P2 scores: exact on integer-valued tables (|x| <= 1), out-of-range ids
+  included (NaN in the same places); rtol 1e-6 on random bf16-rounded
+  tables (each bf16 product is exact in f32; only the order of the 64 f32
+  sums differs), with atol 1e-5 for sums that cancel to near zero.
 * P3 ranks: exact on integer tables, edge-case masks included; on random
   tables at most 1 row in 64 differs, by 1 (a candidate within f32
   rounding of the target's score).
@@ -66,27 +66,80 @@ def _distinct_cands(rng, rows, n_cand, n_items):
     return np.argsort(rng.random((rows, n_items)), axis=1)[:, :n_cand]
 
 
+def _jax_scores(jev, ue_t, ie_t, users, cand, row_block=32):
+    scorer = jev.make_pallas_scorer(ie_t.shape[0], row_block=row_block,
+                                    interpret=True)
+    return np.asarray(scorer((jnp.asarray(ue_t, jnp.bfloat16),
+                              jnp.asarray(ie_t, jnp.bfloat16)),
+                             jnp.asarray(users, jnp.int32),
+                             jnp.asarray(cand, jnp.int32)))
+
+
+def _torch_scores(ue_t, ie_t, users, cand):
+    ctx = (torch.from_numpy(ue_t).bfloat16(),
+           torch.from_numpy(ie_t).bfloat16())
+    return tev.make_cuda_scorer(ie_t.shape[0])(ctx, users, cand)
+
+
 @pytest.mark.parametrize("kind", ["int", "random"])
 def test_candidate_scores_match_jax(jev, kind):
+    """The probe's call: int64 ``users`` and ``cand`` cut from one rows
+    array as strided views (``r[:, 0]``, ``r[:, 1:]``)."""
     rng = np.random.default_rng(11)
     n_users, n_items, C = 90, 300, 17
     ue_t, ie_t = _tables(rng, n_users, kind), _tables(rng, n_items, kind)
-    users = rng.integers(0, n_users, B)
-    cand = rng.integers(0, n_items, (B, C)).astype(np.int32)
-    scorer = jev.make_pallas_scorer(n_items, row_block=32, interpret=True)
-    want = np.asarray(scorer((jnp.asarray(ue_t, jnp.bfloat16),
-                              jnp.asarray(ie_t, jnp.bfloat16)),
-                             jnp.asarray(users, jnp.int32),
-                             jnp.asarray(cand)))
-    ctx = (torch.from_numpy(ue_t).bfloat16(),
-           torch.from_numpy(ie_t).bfloat16())
-    got = tev.make_cuda_scorer(n_items)(ctx, torch.from_numpy(users),
-                                        torch.from_numpy(cand))
+    rows = np.concatenate([rng.integers(0, n_users, (B, 1)),
+                           rng.integers(0, n_items, (B, C))], axis=1)
+    want = _jax_scores(jev, ue_t, ie_t, rows[:, 0], rows[:, 1:])
+    r = torch.from_numpy(rows)
+    assert r.dtype == torch.int64
+    users, cand = r[:, 0], r[:, 1:]
+    assert not users.is_contiguous() and not cand.is_contiguous()
+    got = _torch_scores(ue_t, ie_t, users, cand)
     assert got.dtype == torch.float32 and got.shape == (B, C)
     if kind == "int":
         np.testing.assert_array_equal(got.numpy(), want)
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+    assert PK.candidate_scores_cuda.launches == 0
+
+
+# an id outside a table of n rows, by name
+OUT_OF_RANGE = {"-1": lambda n: -1, "-n": lambda n: -n, "n": lambda n: n,
+                "n+5": lambda n: n + 5, "n+7": lambda n: n + 7,
+                "-n-1": lambda n: -n - 1}
+
+
+@pytest.mark.parametrize("where,bad", [
+    ("cand", "-1"), ("cand", "-n"), ("cand", "n"), ("cand", "n+5"),
+    ("cand", "-n-1"), ("users", "-1"), ("users", "-n"), ("users", "n"),
+    ("users", "n+7"), ("users", "-n-1")])
+def test_candidate_scores_out_of_range_ids_match_jax(jev, where, bad):
+    """Ids outside the tables as the JAX scorer takes them: a candidate id
+    in [-I, 0) wraps, any other outside [0, I) scores NaN; a user id in
+    [-U, 0) wraps, and every user id is then clamped into [0, U-1].
+    Integer tables, exact; NaN in the same places."""
+    rng = np.random.default_rng(15)
+    n_users, n_items, C = 40, 120, 9
+    ue_t, ie_t = _tables(rng, n_users, "int"), _tables(rng, n_items, "int")
+    users = rng.integers(0, n_users, B)
+    cand = rng.integers(0, n_items, (B, C))
+    n = n_items if where == "cand" else n_users
+    value = OUT_OF_RANGE[bad](n)
+    hit = rng.random(B) < 0.5                 # half the rows take the id
+    if where == "cand":
+        cand[hit, rng.integers(0, C)] = value
+    else:
+        users[hit] = value
+    want = _jax_scores(jev, ue_t, ie_t, users, cand)
+    got = _torch_scores(ue_t, ie_t, torch.from_numpy(users),
+                        torch.from_numpy(cand)).numpy()
+    np.testing.assert_array_equal(got, want)
+    nan_rows = np.isnan(want).any(axis=1)
+    if where == "cand" and not -n <= value < n:
+        assert (nan_rows == hit).all()
+    else:
+        assert not nan_rows.any()
     assert PK.candidate_scores_cuda.launches == 0
 
 
@@ -272,6 +325,7 @@ def test_eval_variants_main_on_cpu(capsys):
         "hit_sum@20"]
     assert res["v6_masked_pallas"]["hit_sum@20"] == res[
         "v5b_masked_xla_bf16"]["hit_sum@20"]
+    assert tev.exit_status(res) == 0
 
 
 def test_eval_kernel_probe_main_on_cpu(tmp_path):
@@ -281,3 +335,38 @@ def test_eval_kernel_probe_main_on_cpu(tmp_path):
     assert json.loads(out.read_text()) == json.loads(json.dumps(res))
     assert set(res["variants"]) == set(tprobe.VARIANTS)
     assert all(v.get("exact_vs_v0") for v in res["variants"].values())
+    assert tprobe.exit_status(res) == 0
+
+
+def _fail(*args, **kwargs):
+    raise RuntimeError("kernel failed to launch")
+
+
+def test_eval_variants_exit_status_on_a_failed_variant(monkeypatch, capsys):
+    """A variant that raises is recorded in the printed JSON, the other
+    variants still run, and the exit status is 1."""
+    monkeypatch.setattr(tev, "candidate_scores", _fail)
+    res = tev.main(["--device", "cpu", "--rows", "1024", "--users", "500",
+                    "--items", "300", "--cands", "50", "--rounds", "1"])
+    printed = json.loads(capsys.readouterr().out)
+    assert "kernel failed to launch" in printed["v4_pallas"]["error"]
+    assert "error" not in printed["v6_masked_pallas"]
+    assert tev.exit_status(res) == tev.exit_status(printed) == 1
+
+
+def test_eval_kernel_probe_exit_status_on_a_failed_variant(monkeypatch,
+                                                           capsys):
+    real = tprobe.masked_rank_variant
+
+    def ji_fails(*args, order, **kwargs):
+        if order == "ji":
+            _fail()
+        return real(*args, order=order, **kwargs)
+
+    monkeypatch.setattr(tprobe, "masked_rank_variant", ji_fails)
+    res = tprobe.main(["--device", "cpu", "--rows", "256", "--items", "4096",
+                       "--trials", "1"])
+    printed = json.loads(capsys.readouterr().out)
+    assert "kernel failed to launch" in printed["variants"]["v2p"]["error"]
+    assert printed["variants"]["v0"]["exact_vs_v0"]
+    assert tprobe.exit_status(res) == tprobe.exit_status(printed) == 1

@@ -178,7 +178,8 @@ def test_pretrain_baseline_and_probes_raise_without_gpu(synthetic_dataset):
         pytest.skip("this host has a GPU: the default device is usable")
     from sml_tpu_torch import cli
     from sml_tpu_torch.config import BaselineConfig, PretrainConfig
-    from sml_tpu_torch.scripts import eval_kernel_probe, eval_variants
+    from sml_tpu_torch.scripts import (eval_kernel_probe, eval_variants,
+                                       scorer_timing)
     from sml_tpu_torch.train.baselines import BaselineDriver
     from sml_tpu_torch.train.pretrain import pretrain_mf
 
@@ -191,6 +192,8 @@ def test_pretrain_baseline_and_probes_raise_without_gpu(synthetic_dataset):
         eval_variants.main(["--rows", "1024", "--items", "300"])
     with pytest.raises(RuntimeError, match="cuda"):
         eval_kernel_probe.main(["--rows", "256", "--items", "4096"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        scorer_timing.main(["--rows", "1024", "--items", "300"])
     data = ["--data-root", dspec.root, "--data-name", dspec.name,
             "--num-periods", "8", "--online-train-start", "3",
             "--online-test-start", "5", "--latent", "4"]
@@ -205,7 +208,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     ue = torch.zeros(4, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         probe_kernels.candidate_scores_cuda(
-            ue, torch.zeros(4, 3, dtype=torch.int32), ue)
+            ue, torch.zeros(4, dtype=torch.int32),
+            torch.zeros(4, 3, dtype=torch.int32), ue)
     with pytest.raises(ValueError, match="CUDA"):
         probe_kernels.dense_mask_rank_cuda(
             torch.zeros(16, 64, dtype=torch.bfloat16), ue,
