@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's paths once on one NVIDIA GPU: serving, the training
-sweep, the eval-design probes, the pretrainer and the baselines.
+sweep, the eval-design probes, the pretrainer, the baselines, every
+transfer kind, and ingest into an attributed, profiled ``sml`` run.
 
 Run from the repository root, on a host with one CUDA card:
 
@@ -121,7 +122,37 @@ Phases, one JSON line each:
             attributed ``baseline_test`` records each (the dataset ships
             new-entity ids), metrics in [0, 1], full retrain above random
             by ``BASE_RECALL_Z`` standard errors.
-16. the card's name and power limit as nvidia-smi prints them, the
+16. transfer-kinds  each of the seven transfer kinds at the Yelp widths
+            (H = 1024 for conv_com_root, 512 otherwise, as the ``sml``
+            CLI sets it): one full-table refresh of 100,000 + 20,000 rows
+            and one replay-mode outer (Θ) step at B=256 on the card and on
+            the CPU; refresh within ``KINDS_TOL``, Θ after the step within
+            ``KINDS_TOL``, the loss within ``LOSS_RTOL``; K1 launches 2 per
+            refresh for conv_com and 0 for the others; the refresh's wall
+            ms on the card.
+17. ingest-sweep  a seeded raw CSV log (header, non-dense 64-bit ids,
+            100,000 users and 20,000 items, rows out of time order,
+            ``INGEST_PERIOD_EVENTS`` per period of a 4-period time split)
+            through ``python -m sml_tpu_torch ingest`` (timed; the test
+            file's contract checked: 999 distinct negatives per row, none
+            in the user's history), then the ``sml`` CLI on its output
+            (one warm-up and one test period, conv_com_root,
+            ``--attributed-eval``, masked scoring; the table Adam by the
+            CLI's own row-count rule, which keeps 120,000 rows on dense
+            gradients), twice: untraced, then with ``--profile-dir``. Each
+            run's K2, K3 and K1 launches equal those derived from the data
+            and the CLI's config (K3 and K1 none here: the train sweep
+            drives them), each ``test`` record is followed by its
+            ``test_attribution`` record, the ``_of_test`` buckets sum to
+            recall@20 within 1e-5; one trace holds the engine calls'
+            spans. From the trace: the device's busy ms in the traced
+            period (union of kernel intervals) over that period's traced
+            and untraced wall, the five kernels with the most time and the
+            wall ms of each span; then ``make_eval_set`` of the test file
+            and an attributed evaluation of it, each called directly under
+            the profiler, with the engine's own spans inside
+            ``make_eval_set`` (hash, padding and upload, mask).
+18. the card's name and power limit as nvidia-smi prints them, the
    ``kernels`` line (launches from each kernel's own path: the train
    sweep for K1-K3, the probes for P1-P3), and last
    ``{"ok": true, "device": {...}}``.
@@ -206,6 +237,22 @@ BASE_EPOCHS, BASE_POOL = 1, 100_000
 # margin, the full retrain (one epoch from the pretrained tables) at all
 RANDOM_RECALL20 = 20 / (1 + NEG)
 PRE_RECALL_Z, BASE_RECALL_Z = 5.0, 3.0
+# transfer-kinds: every kind's refresh and one outer step at B=256 on the
+# card against the CPU (the conv_com refresh is K1 against its plain
+# version, the others plain operations on both)
+TRANSFER_KINDS = ("conv_com", "conv2ch", "conv_com_root", "mlp_delta",
+                  "linear", "gru", "gated")
+KINDS_TOL, KINDS_OUTER_ROWS = 1e-4, 256
+# ingest-sweep: a raw log whose 4-period time split holds these events
+# per period (the last period is the test file: 16,384 x 1,001 int64,
+# 131 MB); the sml CLI's flags besides the dataset's
+INGEST_PERIOD_EVENTS = (100_000, 100_000, 100_000, 16_384)
+INGEST_PERIOD_SECONDS = 1_000_000
+INGEST_MULTI_NUM = 1
+INGEST_SML_ARGS = ["--multi-num", str(INGEST_MULTI_NUM), "--mf-sample",
+                   "alone", "--transfer-type", "conv_com_root",
+                   "--eval-scoring", "masked", "--saddle-retries", "0",
+                   "--attributed-eval"]
 
 
 def emit(obj) -> None:
@@ -957,17 +1004,24 @@ def expected_sweep_launches(spec, cfg, feeder_rows, eval_batches) -> dict:
     """K3, K1 and K2 launches the sweep must make, from the data:
     ``feeder_rows(kind, period)`` gives a period file's row count,
     ``eval_batches(rows)`` the batches of its padded eval set."""
+    from sml_tpu_torch.config import resolve_fast_table_adam
+    fast = resolve_fast_table_adam(cfg.fast_table_adam, N_USERS + N_ITEMS,
+                                   cfg.mf_batch_size)
     k3 = k1 = k2 = 0
     d_time = 0
     while spec.online_train_start + d_time + 1 < spec.num_periods:
         t = spec.online_train_start + d_time
         steps = -(-feeder_rows("test" if cfg.mf_sample == "all" else "train",
                                t) // cfg.mf_batch_size)
-        # one K3 launch per fast step, for all four MF leaves
-        k3 += steps * cfg.mf_epochs * cfg.multi_num
+        # one K3 launch per fast step, for all four MF leaves (none on
+        # the dense-gradient path)
+        if fast:
+            k3 += steps * cfg.mf_epochs * cfg.multi_num
         # a refresh after each phase's inner block and outer epoch, and
-        # one at the period's end; two K1 launches per refresh
-        k1 += 2 * (cfg.multi_num * (1 + cfg.tr_epochs) + 1)
+        # one at the period's end; two K1 launches per refresh (conv_com
+        # alone reaches K1)
+        if cfg.transfer.kind == "conv_com":
+            k1 += 2 * (cfg.multi_num * (1 + cfg.tr_epochs) + 1)
         if t + 1 >= spec.online_test_start:
             # branch C tests test/(t+1), one K2 launch per padded batch
             k2 += eval_batches(feeder_rows("test", t + 1))
@@ -1645,6 +1699,376 @@ def phase_baselines(torch, spec, pretrained):
           f"full retrain recall@20 not above random: {full}")
 
 
+def kinds_cfg(kind: str):
+    """The replay-mode engine config of one transfer kind, with H as the
+    ``sml`` CLI sets it (1024 for conv_com_root, 512 otherwise; mlp_delta
+    and gated have their own fixed width)."""
+    from sml_tpu_torch.config import TransferConfig, yelp_sml
+    return yelp_sml().replace(
+        replay_mode=True, tr_batch_size=KINDS_OUTER_ROWS,
+        transfer=TransferConfig(
+            latent_dim=DIM, kind=kind,
+            fc_hidden=1024 if kind == "conv_com_root" else HIDDEN))
+
+
+def kinds_state(torch, eng, hat, last):
+    """A fresh state whose snapshots are ``hat`` and ``last`` (CPU MF
+    tables), copied to the engine's device."""
+    state = eng.init_state(pretrained_mf=hat)
+    dev = eng.device
+    return state._replace(last_user=last.user_emb.to(dev, copy=True),
+                          last_item=last.item_emb.to(dev, copy=True))
+
+
+def phase_transfer_kinds(torch, dev: str = "cuda"):
+    """Each transfer kind at the Yelp widths: one full-table refresh and
+    one replay-mode outer (Θ) step on ``dev`` and on the CPU."""
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.ops import transfer_kernel as tk
+    from sml_tpu_torch.train.engine import SMLEngine
+
+    t_phase = time.perf_counter()
+    hat = random_tables(torch, SEED + 91)
+    last = random_tables(torch, SEED + 92)
+    rows = seeded_rows(KINDS_OUTER_ROWS, SEED + 93)
+    out = {}
+    for kind in TRANSFER_KINDS:
+        cfg = kinds_cfg(kind)
+        runs = {}
+        for where in (dev, "cpu"):
+            eng = SMLEngine(cfg, N_USERS, N_ITEMS, device=where)
+            state = kinds_state(torch, eng, hat, last)
+            eng.refresh(state)                       # warm-up
+            if where == "cuda":
+                torch.cuda.synchronize()
+            tk.transfer_rows_cuda.launches = 0
+            t0 = time.perf_counter()
+            state = eng.refresh(state)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            refresh_ms = (time.perf_counter() - t0) * 1e3
+            k1 = tk.transfer_rows_cuda.launches
+            state, loss = eng.outer_epoch(state, *eng.prep_outer(rows))
+            runs[where] = dict(
+                state=state, loss=float(loss[0]), refresh_ms=refresh_ms,
+                k1=k1, theta={k: v.detach().cpu()
+                              for k, v in theta_leaves(state.theta).items()})
+        g, c = runs[dev], runs["cpu"]
+        want_k1 = 2 if (kind == "conv_com" and dev == "cuda") else 0
+        check(g["k1"] == want_k1, f"{kind}: K1 launched {g['k1']} times in "
+                                  f"one refresh, expected {want_k1}")
+        check(c["k1"] == 0, f"{kind}: K1 launched on the CPU")
+        err = max((getattr(g["state"].mf, f).cpu()
+                   - getattr(c["state"].mf, f)).abs().max().item()
+                  for f in ("user_emb", "item_emb"))
+        check(err <= KINDS_TOL, f"{kind}: refresh differs from the CPU by "
+                                f"{err} > {KINDS_TOL}")
+        theta_err = max((g["theta"][k] - c["theta"][k]).abs().max().item()
+                        for k in g["theta"])
+        check(theta_err <= KINDS_TOL, f"{kind}: Θ after one outer step "
+                                      f"differs by {theta_err}")
+        rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+        check(math.isfinite(g["loss"]) and rel <= LOSS_RTOL,
+              f"{kind}: outer loss {g['loss']} vs CPU {c['loss']}")
+        out[kind] = {"hidden": cfg.transfer.fc_hidden,
+                     "refresh_ms": g["refresh_ms"],
+                     "cpu_refresh_ms": c["refresh_ms"],
+                     "refresh_max_abs_err": err, "k1_launches": g["k1"],
+                     "outer_loss": g["loss"], "outer_loss_rel_err": rel,
+                     "theta_max_abs_err": theta_err}
+    emit({"phase": "transfer-kinds", "users": N_USERS, "items": N_ITEMS,
+          "d": DIM, "outer_rows": KINDS_OUTER_ROWS, "kinds": out,
+          "phase_s": time.perf_counter() - t_phase})
+    return out
+
+
+def write_ingest_csv(path: str, seed: int) -> int:
+    """A raw event log with a header: 64-bit non-dense user and item ids
+    (N_USERS users, N_ITEMS items, each at least once), integer
+    timestamps laid out so that a 4-period time split holds
+    INGEST_PERIOD_EVENTS events per period, rows out of time order.
+    Returns the event count."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = sum(INGEST_PERIOD_EVENTS)
+
+    def raw_ids(count):
+        ids = np.unique(rng.integers(2 ** 40, 2 ** 62, count + 1000))
+        return rng.permutation(ids)[:count]
+
+    def cover(count):
+        idx = np.concatenate([np.arange(count),
+                              rng.integers(0, count, n - count)])
+        return rng.permutation(idx)
+
+    base, w = 1_500_000_000, INGEST_PERIOD_SECONDS
+    ts = np.concatenate([base + p * w + rng.integers(0, w, c)
+                         for p, c in enumerate(INGEST_PERIOD_EVENTS)])
+    ts[0], ts[-1] = base, base + len(INGEST_PERIOD_EVENTS) * w
+    users = raw_ids(N_USERS)[cover(N_USERS)]
+    items = raw_ids(N_ITEMS)[cover(N_ITEMS)]
+    order = rng.permutation(n)
+    with open(path, "w") as fh:
+        fh.write("user_id,item_id,timestamp\n")
+        np.savetxt(fh, np.stack([users, items, ts[order]], axis=1),
+                   fmt="%d", delimiter=",")
+    return n
+
+
+def check_ingested(path: str, n_events: int) -> dict:
+    """The ingested dataset's periods, and the eval-row contract of its
+    test file: 999 distinct negatives per row from the catalog, none in
+    the user's history."""
+    import numpy as np
+    from sml_tpu_torch.data.formats import load_info, load_test, load_train
+    info = load_info(path)
+    check((info.n_interactions, info.n_users, info.n_items)
+          == (n_events, N_USERS, N_ITEMS), f"ingested info {info}")
+    train = [load_train(path, p) for p in range(len(INGEST_PERIOD_EVENTS))]
+    check(tuple(len(t) for t in train) == INGEST_PERIOD_EVENTS,
+          f"period sizes {[len(t) for t in train]}")
+    test = load_test(path, len(train) - 1)
+    check(test.shape == (INGEST_PERIOD_EVENTS[-1], 2 + NEG),
+          f"test file shape {test.shape}")
+    check(np.array_equal(test[:, :2], train[-1]),
+          "test rows are not the last period's events")
+    negs = np.sort(test[:, 2:], axis=1)
+    check(bool((np.diff(negs, axis=1) != 0).all()),
+          "a test row repeats a negative")
+    check(bool(((negs >= 0) & (negs < N_ITEMS)).all()),
+          "a negative lies outside the catalog")
+    hist = np.concatenate(train)
+    seen = np.unique(hist[:, 0] * N_ITEMS + hist[:, 1])
+    check(not np.isin(test[:, :1] * N_ITEMS + negs, seen).any(),
+          "a negative is in its user's history")
+    return {"periods": [len(t) for t in train],
+            "test_file_bytes": os.path.getsize(
+                os.path.join(path, "test", f"{len(train) - 1}.npy"))}
+
+
+def read_trace(path: str) -> dict:
+    """From a Chrome trace of ``torch.profiler``: the union of the device
+    kernels' intervals, the five kernels with the most total time, and
+    the calls and wall ms of each annotated span."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel")
+    busy_us, end = 0.0, -math.inf
+    for s, e in kernels:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    by_name, spans = {}, {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            t = by_name.setdefault(e["name"], [0, 0.0])
+            t[0] += 1
+            t[1] += e["dur"] / 1e3
+        elif e.get("cat") == "user_annotation":
+            t = spans.setdefault(e["name"], [0, 0.0])
+            t[0] += 1
+            t[1] += e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return {"kernel_events": len(kernels), "busy_ms": busy_us / 1e3,
+            "top_kernels": [{"name": k[:120], "count": c, "ms": ms}
+                            for k, (c, ms) in top],
+            "spans": {k: {"calls": c, "ms": ms} for k, (c, ms) in
+                      sorted(spans.items())}}
+
+
+def split_eval(torch, path: str, period: int, dev: str = "cuda") -> dict:
+    """``make_eval_set`` of the ingested test file and an attributed
+    evaluation of it, called directly under ``torch.profiler`` after a
+    warm-up (on a fresh engine, so the eval set is built, not fetched from
+    the upload cache): their wall ms, the trace's spans (the engine's
+    hash, padding and upload, and mask) and the device busy ms of the
+    evaluation."""
+    import numpy as np
+    from sml_tpu_torch.config import yelp_sml
+    from sml_tpu_torch.data.formats import load_test
+    from sml_tpu_torch.train.driver import _load_new_entity_ids
+    from sml_tpu_torch.train.engine import SMLEngine
+    from sml_tpu_torch.utils.profiling import maybe_trace
+
+    rows = load_test(path, period)
+    cfg = yelp_sml().replace(eval_scoring="masked")
+    mf = random_tables(torch, SEED + 94)
+    mf = type(mf)(*(t.to(dev) for t in mf))
+    eng = SMLEngine(cfg, N_USERS, N_ITEMS, device=dev)
+    masks = eng.new_entity_masks(*_load_new_entity_ids(path))
+    eng.evaluate_attributed(mf, eng.make_eval_set(rows, build_mask=True),
+                            *masks)                  # warm-up
+    eng = SMLEngine(cfg, N_USERS, N_ITEMS, device=dev)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+    def traced(fn):
+        """``fn()``, its wall ms and its trace, read."""
+        prof = tempfile.mkdtemp(prefix="sml_eval_trace_")
+        try:
+            with maybe_trace(prof, dev) as trace:
+                sync()
+                t0 = time.perf_counter()
+                out = fn()
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+            return out, ms, read_trace(trace)
+        finally:
+            shutil.rmtree(prof, ignore_errors=True)
+
+    padded, set_ms, set_tr = traced(
+        lambda: eng.make_eval_set(rows, build_mask=True))
+    rec, eval_ms, eval_tr = traced(
+        lambda: eng.evaluate_attributed(mf, padded, *masks))
+    check(all(np.isfinite(v) for v in rec.values()),
+          f"attributed record not finite: {rec}")
+    parts = {k: set_tr["spans"].get(k) for k in
+             ("eval_set_hash", "eval_set_pad_upload", "eval_set_mask")}
+    check(all(v is not None and v["calls"] == 1 for v in parts.values()),
+          f"make_eval_set's spans missing from its trace: {set_tr['spans']}")
+    return {"make_eval_set_ms": set_ms, "make_eval_set_parts": parts,
+            "evaluate_attributed_ms": eval_ms,
+            "evaluate_device_busy_ms": eval_tr["busy_ms"],
+            "evaluate_kernel_events": eval_tr["kernel_events"]}
+
+
+def check_attribution_records(recs) -> None:
+    """Each ``test`` record of an attributed ``sml`` run is followed by
+    its ``test_attribution`` record, whose ``_of_test`` buckets sum to the
+    test's recall@20 within 1e-5."""
+    tests = [r for r in recs if r["kind"] == "test"]
+    attrs = [r for r in recs if r["kind"] == "test_attribution"]
+    order = [(r["kind"], r.get("period")) for r in recs
+             if r["kind"] in ("test", "test_attribution")]
+    check(len(tests) == len(attrs) >= 1
+          and [t["period"] for t in tests] == [a["period"] for a in attrs]
+          and all(("test_attribution", p) in order[i + 1:]
+                  for i, (k, p) in enumerate(order) if k == "test"),
+          f"test / test_attribution records out of order: {order}")
+    buckets = ("old_user_old_item", "old_user_new_item",
+               "new_user_old_item", "new_user_new_item")
+    for t, a in zip(tests, attrs):
+        of_test = sum(a[f"{b}_of_test"] for b in buckets)
+        check(abs(of_test - t["recall@20"]) <= 1e-5,
+              f"_of_test buckets sum to {of_test}, recall@20 "
+              f"{t['recall@20']}")
+
+
+def phase_ingest_sweep(torch, dev: str = "cuda"):
+    """``python -m sml_tpu_torch ingest`` on a seeded raw log at the Yelp
+    widths, then the ``sml`` CLI on its output with attribution, once
+    untraced and once with the profiler: its K2, K3 and K1 launches
+    against the counts derived from the data and its config, its records,
+    and its trace."""
+    from sml_tpu_torch import cli
+    from sml_tpu_torch.config import DataSpec
+    from sml_tpu_torch.data.formats import row_count
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sml_ingest_")
+    try:
+        csv = os.path.join(root, "log.csv")
+        t0 = time.perf_counter()
+        n_events = write_ingest_csv(csv, SEED + 95)
+        csv_s = time.perf_counter() - t0
+        out = os.path.join(root, "ingested")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sml_tpu_torch", "ingest", "--csv", csv,
+             "--out", out, "--periods", str(len(INGEST_PERIOD_EVENTS)),
+             "--first-test", str(len(INGEST_PERIOD_EVENTS) - 1),
+             "--neg-num", str(NEG), "--split", "time"],
+            capture_output=True, text=True, timeout=600)
+        ingest_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"ingest failed:\n{proc.stderr}")
+        info = json.loads(proc.stdout.strip().splitlines()[-1])
+        contract = check_ingested(out, n_events)
+
+        spec = DataSpec(root=root, name="ingested",
+                        num_periods=len(INGEST_PERIOD_EVENTS),
+                        online_train_start=1,
+                        online_test_start=len(INGEST_PERIOD_EVENTS) - 1)
+        base = ["--device", dev, "sml", "--data-root", root,
+                "--data-name", spec.name,
+                "--num-periods", str(spec.num_periods),
+                "--online-train-start", str(spec.online_train_start),
+                "--online-test-start", str(spec.online_test_start),
+                *INGEST_SML_ARGS]
+        cfg = cli.sml_config(cli.build_parser().parse_args(base))
+        want = expected_sweep_launches(
+            spec, cfg, lambda kind, p: row_count(spec.path, kind, p),
+            lambda n: -(-n // cfg.eval_batch_size))
+        check(want["masked_rank_gather_kernel"] > 0,
+              f"the ingested sweep tests nothing: {want}")
+
+        def run_sml(name, *extra):
+            """The sml CLI on the ingested dataset: its wall s, launches
+            and records, checked."""
+            jl = os.path.join(root, f"{name}.jsonl")
+            zero_counts(ak, tk, ek)
+            t0 = time.perf_counter()
+            rc = quiet_main(cli.main, [*base, "--metrics-jsonl", jl, *extra])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = kernel_counts(ak, tk, ek)
+            check(rc == 0, f"sml ({name}) exited {rc}")
+            if dev == "cuda":
+                check(launches == want, f"sml ({name}) launches {launches}, "
+                      f"derived from the data {want}")
+            with open(jl) as fh:
+                recs = [json.loads(line) for line in fh]
+            check_attribution_records(recs)
+            return wall_s, launches, recs
+
+        # the same run untraced, then with period 0 traced: the traced
+        # period's wall holds the profiler's own cost, the untraced one
+        # does not
+        sml_s, launches, recs = run_sml("untraced")
+        prof = os.path.join(root, "profile")
+        traced_s, _, traced_recs = run_sml("traced", "--profile-dir", prof)
+        traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+        check(len(traces) == 1, f"expected one trace, found {traces}")
+        trace_bytes = os.path.getsize(os.path.join(prof, traces[0]))
+        t0 = time.perf_counter()
+        tr = read_trace(os.path.join(prof, traces[0]))
+        read_trace_s = time.perf_counter() - t0
+
+        def period0_ms(rs):
+            return 1e3 * next(r["seconds"] for r in rs
+                              if r["kind"] == "period" and r["d_time"] == 0)
+        wall_ms, untraced_ms = period0_ms(traced_recs), period0_ms(recs)
+        check(tr["kernel_events"] > 0 or dev != "cuda",
+              "the trace holds no device kernel")
+        check({"refresh", "inner_epoch", "outer_epoch"} <= set(tr["spans"]),
+              f"annotated spans missing from the trace: {tr['spans']}")
+        split = split_eval(torch, out, spec.online_test_start, dev)
+        emit({"phase": "ingest-sweep", "events": n_events, "info": info,
+              **contract, "csv_s": csv_s, "ingest_s": ingest_s,
+              "sml_args": INGEST_SML_ARGS, "sml_s": sml_s, "traced_sml_s": traced_s,
+              "launches": launches, "derived_launches": want,
+              "period_s": [r["seconds"] for r in recs
+                           if r["kind"] == "period"],
+              "traced_period_s": [r["seconds"] for r in traced_recs
+                                  if r["kind"] == "period"],
+              "tests": [{k: t[k] for k in ("period", "n_test", "recall@20")}
+                        for t in recs if t["kind"] == "test"],
+              "attribution": [a for a in recs
+                              if a["kind"] == "test_attribution"],
+              "trace": {"bytes": trace_bytes, "read_s": read_trace_s,
+                        "period_wall_ms": wall_ms,
+                        "untraced_period_wall_ms": untraced_ms,
+                        "device_busy_share": tr["busy_ms"] / wall_ms,
+                        "device_busy_share_of_untraced":
+                            tr["busy_ms"] / untraced_ms, **tr},
+              **split, "phase_s": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1678,6 +2102,8 @@ def main() -> int:
         phase_baselines(torch, spec, pretrained)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    phase_transfer_kinds(torch)
+    phase_ingest_sweep(torch)
 
     kernels = [
         {"name": "transfer_rows_kernel", "route": "cuda",

@@ -1,18 +1,19 @@
 """Command-line entry point (counterpart of ``sml_tpu/cli.py``).
 
     python -m sml_tpu_torch synth --out D/synth --users 400 --items 200 ...
+    python -m sml_tpu_torch ingest --csv log.csv --out D/mydata --periods 12 --first-test 4
     python -m sml_tpu_torch pretrain --data-root D --data-name synth --out pre.npz ...
     python -m sml_tpu_torch sml --data-root D --data-name synth --pre-model pre.npz ...
     python -m sml_tpu_torch baseline --data-root D --method spmf --pool-size 300 ...
     python -m sml_tpu_torch rank --model final.npz --users 17,42 -k 20
     python -m sml_tpu_torch --device cpu sml --data-root D ...
 
-``sml``, ``pretrain``, ``baseline``, ``synth`` and ``rank`` take the same
-flags and print the same JSON as ``python -m sml_tpu``, and the ``.npz``
-tables of either package load in the other; ``--device {cuda,cpu}`` (before
-the subcommand) takes the place of ``--platform`` and defaults to ``cuda``.
-The multi-host options and ``ingest`` come with later slices (ROADMAP.md
-§1).
+``sml``, ``pretrain``, ``baseline``, ``synth``, ``ingest`` and ``rank``
+take the same flags and print the same JSON as ``python -m sml_tpu``, and
+the ``.npz`` tables of either package load in the other; ``--device
+{cuda,cpu}`` (before the subcommand) takes the place of ``--platform`` and
+defaults to ``cuda``. The multi-host options come with a later slice
+(ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -60,22 +61,14 @@ def _load_mf(path: str, device):
                           for f in MFParams._fields))
 
 
-def cmd_sml(args) -> int:
-    """The SML sweep, with period-boundary checkpoints and resume."""
-    from sml_tpu_torch.device import resolve_device
-    from sml_tpu_torch.train.driver import RunReport, SMLDriver
-    from sml_tpu_torch.utils.checkpoint import (latest_step, read_manifest,
-                                                save_checkpoint,
-                                                state_from_checkpoint)
-    from sml_tpu_torch.utils.logging import MetricsLogger
-
-    device = resolve_device(args.device)
-    spec = _dataspec(args)
-    preset = C.adressa_sml() if spec.name == "news" else C.yelp_sml()
+def sml_config(args) -> C.SMLConfig:
+    """The ``SMLConfig`` that ``sml`` runs for its parsed flags."""
+    news = _dataspec(args).name == "news"
+    preset = C.adressa_sml() if news else C.yelp_sml()
 
     def pick(value, default):
         return value if value is not None else default
-    cfg = preset.replace(
+    return preset.replace(
         multi_num=pick(args.multi_num, preset.multi_num),
         mf_epochs=pick(args.mf_epochs, preset.mf_epochs),
         tr_epochs=pick(args.tr_epochs, preset.tr_epochs),
@@ -98,6 +91,20 @@ def cmd_sml(args) -> int:
         saddle_retries=args.saddle_retries,
         snapshot_dtype=args.snapshot_dtype,
         profile_dir=args.profile_dir)
+
+
+def cmd_sml(args) -> int:
+    """The SML sweep, with period-boundary checkpoints and resume."""
+    from sml_tpu_torch.device import resolve_device
+    from sml_tpu_torch.train.driver import RunReport, SMLDriver
+    from sml_tpu_torch.utils.checkpoint import (latest_step, read_manifest,
+                                                save_checkpoint,
+                                                state_from_checkpoint)
+    from sml_tpu_torch.utils.logging import MetricsLogger
+
+    device = resolve_device(args.device)
+    spec = _dataspec(args)
+    cfg = sml_config(args)
 
     logger = MetricsLogger(args.metrics_jsonl, echo=True)
     driver = SMLDriver(cfg, spec, logger=logger, device=device)
@@ -215,6 +222,20 @@ def cmd_synth(args) -> int:
     return 0
 
 
+def cmd_ingest(args) -> int:
+    from sml_tpu_torch.data.ingest import IngestSpec, ingest_csv
+
+    spec = IngestSpec(n_periods=args.periods,
+                      first_test_period=args.first_test,
+                      neg_num=args.neg_num, split=args.split, seed=args.seed)
+    info = ingest_csv(args.csv, args.out, spec,
+                      user_col=args.user_col, item_col=args.item_col,
+                      time_col=args.time_col, delimiter=args.delimiter,
+                      skip_header=args.skip_header)
+    print(json.dumps(dataclasses.asdict(info)))
+    return 0
+
+
 def cmd_rank(args) -> int:
     """Full-catalog top-K serving from trained tables."""
     import numpy as np
@@ -257,7 +278,7 @@ def cmd_rank(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("sml_tpu_torch")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help=DEVICE_HELP)
@@ -285,15 +306,17 @@ def main(argv=None) -> int:
     ps.add_argument("--transfer-type", default="conv_com",
                     choices=["conv_com", "conv2ch", "conv_com_root",
                              "mlp_delta", "linear", "gru", "gated"],
-                    help="only conv_com is ported; the others raise")
+                    help="the kind of transfer tower Θ "
+                         "(models/transfer.py)")
     ps.add_argument("--seed", type=int, default=2000)
     ps.add_argument("--load-w-hat", action="store_true",
                     help="restore MF <- W_hat after each outer step "
                          "(reference --Load_W_hat)")
     ps.add_argument("--pass-num", type=int, default=1)
     ps.add_argument("--attributed-eval", action="store_true",
-                    help="per-test-period hit attribution (not ported yet: "
-                         "raises)")
+                    help="per-test-period hit attribution by entity "
+                         "freshness (reads test_new_user.npy / "
+                         "test_new_item.npy of the dataset)")
     ps.add_argument("--emb-init-scale", type=float, default=1.0)
     ps.add_argument("--per-period-shapes", action="store_true",
                     help="pad each period to its own bucket instead of one "
@@ -317,8 +340,8 @@ def main(argv=None) -> int:
                     choices=["float32", "bfloat16"],
                     help="dtype of the last/hat table snapshots")
     ps.add_argument("--profile-dir", default=None,
-                    help="a profiler trace of one period (not ported yet: "
-                         "raises)")
+                    help="write a torch.profiler trace (Chrome JSON) of "
+                         "period 0 here")
     ps.set_defaults(fn=cmd_sml)
 
     pp = sub.add_parser("pretrain", help="pretrain the base MF model")
@@ -360,6 +383,22 @@ def main(argv=None) -> int:
     pg.add_argument("--seed", type=int, default=0)
     pg.set_defaults(fn=cmd_synth)
 
+    pi = sub.add_parser("ingest", help="raw (user,item,timestamp) CSV log "
+                                       "-> period-file dataset")
+    pi.add_argument("--csv", required=True)
+    pi.add_argument("--out", required=True)
+    pi.add_argument("--periods", type=int, required=True)
+    pi.add_argument("--first-test", type=int, required=True)
+    pi.add_argument("--neg-num", type=int, default=999)
+    pi.add_argument("--split", default="count", choices=["count", "time"])
+    pi.add_argument("--user-col", type=int, default=0)
+    pi.add_argument("--item-col", type=int, default=1)
+    pi.add_argument("--time-col", type=int, default=2)
+    pi.add_argument("--delimiter", default=",")
+    pi.add_argument("--skip-header", type=int, default=1)
+    pi.add_argument("--seed", type=int, default=0)
+    pi.set_defaults(fn=cmd_ingest)
+
     pr = sub.add_parser("rank", help="exact full-catalog top-K "
                                      "recommendations from trained tables")
     pr.add_argument("--model", required=True,
@@ -386,8 +425,11 @@ def main(argv=None) -> int:
                          "counterpart; an exact answer meets their "
                          "0.95/0.99 recall targets")
     pr.set_defaults(fn=cmd_rank)
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -68,7 +68,7 @@ class TransferConfig:
     conv2_channels: int = 5
     fc_hidden: int = 512
     # 'conv_com' | 'conv2ch' | 'conv_com_root' | 'mlp_delta' | 'linear'
-    # | 'gru' | 'gated'; only 'conv_com' is ported so far
+    # | 'gru' | 'gated' (models/transfer.py)
     kind: str = "conv_com"
 
 

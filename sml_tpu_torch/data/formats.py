@@ -89,30 +89,10 @@ def attach_negatives(interactions: np.ndarray, history: np.ndarray,
                      seed: int = 0) -> np.ndarray:
     """Attach ``neg_num`` distinct negatives to each ``[user, item]`` row:
     drawn from the seen-item ``catalog``, excluding the user's whole
-    ``history`` (all known (u, i) pairs), distinct within a row. Numpy
-    only: the JAX package's native C++ path is not part of the port, so
-    the draws differ from that path while the contract is the same."""
-    rng = np.random.default_rng(seed)
-    user_hist: Dict[int, set] = {}
-    for u, i in history:
-        user_hist.setdefault(int(u), set()).add(int(i))
-    out = np.empty((interactions.shape[0], 2 + neg_num), dtype=np.int64)
-    n_cat = catalog.shape[0]
-    for r, (u, i) in enumerate(interactions):
-        hist = user_hist.get(int(u), set())
-        # oversample then filter, growing the oversample on users whose
-        # history collides often
-        mult = 2
-        while True:
-            cand = catalog[rng.integers(0, n_cat, size=neg_num * mult + 64)]
-            cand = np.unique(cand)
-            if hist:
-                cand = cand[~np.isin(cand, list(hist))]
-            if cand.shape[0] >= neg_num:
-                break
-            mult *= 2
-        rng.shuffle(cand)
-        out[r, 0] = u
-        out[r, 1] = i
-        out[r, 2:] = cand[:neg_num]
-    return out
+    ``history`` (all known (u, i) pairs), distinct within a row. The rows
+    come from the native sampler (:mod:`sml_tpu_torch.data.native`), as in
+    the JAX package, so both packages give the same rows for the same
+    inputs and seed."""
+    from sml_tpu_torch.data.native import build_eval_rows_native
+    return build_eval_rows_native(interactions, history, catalog, neg_num,
+                                  seed=seed)

@@ -6,9 +6,9 @@ shape: a latent ground-truth factor model scores (user, item) pairs, user
 tastes drift over periods, new users and items appear over time, item
 popularity follows a power law, and eval rows carry ``neg_num`` negatives
 from the seen catalog minus the user's history. Deterministic given the
-seed. Interactions are drawn exactly as the JAX package draws them; the
-negatives come from the port's numpy ``attach_negatives``, so a dataset
-written by either package differs only in the negative ids.
+seed. Interactions are drawn exactly as the JAX package draws them and the
+negatives come from the same native sampler, so both packages write the
+same files for the same spec.
 """
 
 from __future__ import annotations

@@ -68,9 +68,7 @@ def transfer_rows_cuda(tower: ConvTower, last: torch.Tensor,
             or tuple(tower.fc2_w.shape) != (h, d):
         raise ValueError("tower shapes do not match a conv_com tower at "
                          f"d={d}")
-    weights = [getattr(tower, f).detach()
-               for f in ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "fc1_w",
-                         "fc1_b", "fc2_w", "fc2_b")]
+    weights = [getattr(tower, f).detach() for f in ConvTower.FIELDS]
     if any(w.device != last.device or w.dtype != torch.float32
            for w in weights):
         raise ValueError(f"the tower's parameters must be float32 on "

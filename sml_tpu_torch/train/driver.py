@@ -12,14 +12,18 @@ Per period t:
 4. a final refresh;
 
 then the end-of-run weighted aggregation of the test periods. Records go
-to the jsonl log in the JAX package's kinds and order.
+to the jsonl log in the JAX package's kinds and order. With
+``cfg.attributed_eval`` and the dataset's new-entity id files, each test is
+the attributed evaluation (its base sums make the ``test`` record) and adds
+a ``test_attribution`` record; with ``cfg.profile_dir`` period
+``cfg.profile_period`` is traced by ``torch.profiler``, with one span per
+engine call (``refresh``, ``make_eval_set``, ``evaluate``,
+``inner_epoch``, ``outer_epoch``).
 
 Only the unfused path is ported: the JAX package's fused phase and period
 programs exist to cut JAX dispatches and compiles, and its own tests hold
 them equal to the unfused path, so ``cfg.fuse_phases`` and
 ``cfg.fuse_period`` are accepted and have no effect here.
-``cfg.attributed_eval`` and ``cfg.profile_dir`` raise
-``NotImplementedError`` (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from sml_tpu_torch.data.feeder import PeriodFeeder, StageData
 from sml_tpu_torch.ops.metrics import weighted_period_average
 from sml_tpu_torch.train.engine import SMLEngine, SMLState, copy_state
 from sml_tpu_torch.utils.logging import MetricsLogger
+from sml_tpu_torch.utils.profiling import annotate, maybe_trace
 
 
 @dataclass
@@ -93,14 +98,6 @@ class SMLDriver:
     def __init__(self, cfg: SMLConfig, spec: DataSpec,
                  engine: Optional[SMLEngine] = None,
                  logger: Optional[MetricsLogger] = None, device="cuda"):
-        if cfg.attributed_eval:
-            raise NotImplementedError(
-                "attributed_eval is not ported yet (ROADMAP.md §1, "
-                "'Attribution, multipass, streaming, ingest')")
-        if cfg.profile_dir:
-            raise NotImplementedError(
-                "profile_dir is not ported yet (ROADMAP.md §1, 'Bench and "
-                "profiling')")
         self.cfg = cfg
         self.feeder = PeriodFeeder(
             spec, mf_sample=cfg.mf_sample, tr_sample_type=cfg.tr_sample_type,
@@ -136,6 +133,15 @@ class SMLDriver:
         self._pending_evals: List[tuple] = []
         self._pending_evals_done: Optional[torch.cuda.Event] = None
         self._pending_tests: List[tuple] = []
+        # hit attribution by entity freshness: 0/1 masks over the ids,
+        # built once from the dataset's new-entity id files
+        self._is_new_user = self._is_new_item = None
+        self._pending_attr: List[tuple] = []
+        if cfg.attributed_eval:
+            ids = _load_new_entity_ids(spec.path)
+            if ids is not None:
+                self._is_new_user, self._is_new_item = \
+                    self.engine.new_entity_masks(*ids)
         self._stop_stage = (cfg.multipass_stop_stage
                             if cfg.multipass_stop_stage is not None
                             else spec.online_test_start
@@ -148,7 +154,8 @@ class SMLDriver:
         result, built once per period."""
         padded, index = prep
         for e in range(epochs):
-            state, losses = self.engine.inner_epoch(state, padded, index)
+            with annotate("inner_epoch"):
+                state, losses = self.engine.inner_epoch(state, padded, index)
             if self._track_losses:
                 self._last_inner_loss = _mean_loss(
                     losses, padded.n_real, self.cfg.mf_batch_size)
@@ -161,22 +168,32 @@ class SMLDriver:
         epoch."""
         padded, index = prep
         for e in range(self.cfg.tr_epochs):
-            state, losses = self.engine.outer_epoch(state, padded, index)
+            with annotate("outer_epoch"):
+                state, losses = self.engine.outer_epoch(state, padded, index)
             if self._track_losses:
                 self._last_outer_loss = _mean_loss(
                     losses, padded.n_real, self.cfg.tr_batch_size)
             if self.cfg.refresh_after_outer_epoch:
-                state = self.engine.refresh(state)
+                state = self._refresh(state)
                 if self.cfg.eval_during_outer and val is not None:
                     self._defer_eval("outer_eval", e, state, val)
         if self.cfg.load_w_hat:
             state = self.engine.load_hat_into_mf(state)
         return state
 
+    def _refresh(self, state: SMLState) -> SMLState:
+        with annotate("refresh"):
+            return self.engine.refresh(state)
+
+    def _make_eval_set(self, rows: np.ndarray):
+        with annotate("make_eval_set"):
+            return self.engine.make_eval_set(rows, build_mask=True)
+
     def _defer_eval(self, kind: str, epoch: int, state: SMLState,
                     val) -> None:
-        self._pending_evals.append(
-            (kind, epoch, self.engine.evaluate_deferred(state.mf, val)))
+        with annotate("evaluate"):
+            sums = self.engine.evaluate_deferred(state.mf, val)
+        self._pending_evals.append((kind, epoch, sums))
         if self.engine.device.type == "cuda":
             ev = torch.cuda.Event()
             ev.record()
@@ -187,7 +204,7 @@ class SMLDriver:
         epochs."""
         state = self._inner_block(state, prep_t, self.cfg.mf_epochs, val)
         state = self.engine.snapshot_hat(state)
-        state = self.engine.refresh(state)
+        state = self._refresh(state)
         return self._outer_block(state, prep_tt, val)
 
     def _saddle_rule(self):
@@ -266,6 +283,12 @@ class SMLDriver:
                     k, []).append(mm["ndcg"])
             self.logger.log(kind="test", period=period, n_test=n,
                             **_flatten(m))
+        if self._pending_attr:
+            pend, self._pending_attr = self._pending_attr, []
+            attrs = self.engine.resolve_attributed([d for _, d in pend])
+            for (period, _), rec in zip(pend, attrs):
+                self.logger.log(kind="test_attribution", period=period,
+                                **rec)
 
     def finalize(self) -> None:
         """Drain every deferred eval and test into the report and the log.
@@ -282,25 +305,42 @@ class SMLDriver:
               else contextlib.nullcontext()):
             if sd.now_test is not None:
                 self._eval_cache[(d_time, "test")] = \
-                    self.engine.make_eval_set(sd.now_test, build_mask=True)
+                    self._make_eval_set(sd.now_test)
             if (sd.val is not None and sd.val is not sd.now_test
                     and (self.cfg.eval_during_inner
                          or self.cfg.eval_during_outer)):
                 self._eval_cache[(d_time, "val")] = \
-                    self.engine.make_eval_set(sd.val, build_mask=True)
+                    self._make_eval_set(sd.val)
 
     def _record_test(self, state: SMLState, now_test: np.ndarray,
                      period: int) -> None:
         padded = self._eval_cache.pop((period, "test"), None)
         if padded is None:
-            padded = self.engine.make_eval_set(now_test, build_mask=True)
-        self._pending_tests.append((
-            period, int(now_test.shape[0]),
-            self.engine.evaluate_deferred(state.mf, padded)))
+            padded = self._make_eval_set(now_test)
+        n_real = int(now_test.shape[0])
+        if self._is_new_user is not None:
+            # the attributed evaluation's base sums are the test's: no
+            # second scoring pass
+            with annotate("evaluate"):
+                attr, n = self.engine.evaluate_attributed_deferred(
+                    state.mf, padded, self._is_new_user, self._is_new_item)
+            self._pending_tests.append((period, n_real, (attr["base"], n)))
+            self._pending_attr.append((period, (attr, n)))
+        else:
+            with annotate("evaluate"):
+                sums = self.engine.evaluate_deferred(state.mf, padded)
+            self._pending_tests.append((period, n_real, sums))
 
     # ----------------------------------------------------------------- periods
     def run_period(self, state: SMLState, d_time: int):
-        """One period; returns ``(state, still_running)``."""
+        """One period; returns ``(state, still_running)``. Period
+        ``cfg.profile_period`` is traced into ``cfg.profile_dir``."""
+        trace_dir = (self.cfg.profile_dir
+                     if d_time == self.cfg.profile_period else None)
+        with maybe_trace(trace_dir, self.engine.device):
+            return self._run_period(state, d_time)
+
+    def _run_period(self, state: SMLState, d_time: int):
         t0 = time.time()
         self._track_losses = self.cfg.log_norms or (
             d_time == 0 and self.cfg.saddle_retries > 0)
@@ -312,8 +352,7 @@ class SMLDriver:
         if val is not None and (self.cfg.eval_during_inner
                                 or self.cfg.eval_during_outer):
             cached = self._eval_cache.pop((d_time, "val"), None)
-            val = cached if cached is not None else \
-                self.engine.make_eval_set(val, build_mask=True)
+            val = cached if cached is not None else self._make_eval_set(val)
         sd = sd._replace(val=val)
 
         prep_t = self.engine.prep_inner(sd.set_t)
@@ -346,14 +385,14 @@ class SMLDriver:
                     gen=self.engine.fold_generator(state0.gen, attempt))
                 state = self.engine.reinit_theta(restart, salt=attempt,
                                                  warmstart=escalate)
-            state = self.engine.refresh(state)
+            state = self._refresh(state)
         elif sd.set_tt is None:
             # branch B: tr_stop during the test span
             state = self._inner_block(state, prep_t,
                                       self.cfg.mf_epochs_when_tr_stopped,
                                       sd.val)
             state = self.engine.snapshot_hat(state)
-            state = self.engine.refresh(state)
+            state = self._refresh(state)
             self._record_test(state, sd.now_test, d_time)
         else:
             # branch C: test and keep training Θ. The test scores the
@@ -362,14 +401,14 @@ class SMLDriver:
             state = self._inner_block(state, prep_t, self.cfg.mf_epochs,
                                       sd.val)
             state = self.engine.snapshot_hat(state)
-            state = self.engine.refresh(state)
+            state = self._refresh(state)
             self._record_test(state, sd.now_test, d_time)
             state = self._outer_block(state, prep_tt, sd.val)
             self._log_phase(state, d_time, 0)
             for phase in range(1, self.cfg.multi_num):
                 state = self._one_phase(state, prep_t, prep_tt, sd.val)
                 self._log_phase(state, d_time, phase)
-            state = self.engine.refresh(state)
+            state = self._refresh(state)
 
         self._flush_evals(force=False)
         dt = time.time() - t0
@@ -431,3 +470,14 @@ def _mean_loss(losses, n_real: int, batch_size: int) -> float:
 def _flatten(metrics: Dict[int, Dict[str, float]]) -> Dict[str, float]:
     return {f"{name}@{k}": v for k, m in metrics.items()
             for name, v in m.items()}
+
+
+def _load_new_entity_ids(path: str):
+    """``test_new_user.npy`` / ``test_new_item.npy`` of the dataset, or
+    None when either is absent (no attribution is made then)."""
+    try:
+        nu = np.load(f"{path}/test_new_user.npy").astype(np.int64)
+        ni = np.load(f"{path}/test_new_item.npy").astype(np.int64)
+    except FileNotFoundError:
+        return None
+    return nu, ni

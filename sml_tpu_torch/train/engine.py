@@ -3,11 +3,12 @@
 
 Holds the state record and everything the driver runs on it: the
 ``last``/``hat`` snapshots, the full-table refresh ``W_t = Θ(W_{t-1},
-Ŵ_t)`` (kernel K1 on the card), the inner (MF) and outer (Θ) training
+Ŵ_t)`` (kernel K1 on the card for ``conv_com``), the inner (MF) and outer (Θ) training
 epochs (kernel K3 on the card with ``fast_table_adam``), the Θ identity
 warm-start and the saddle guard's re-roll, the host-side data preparation
 (padding, period sampling indices) and the leave-one-out evaluation with
-packed candidate masks (kernel K2 on the card).
+packed candidate masks (kernel K2 on the card), plain or with hit
+attribution by entity freshness.
 
 The JAX package's fused phase and period programs exist to cut JAX
 dispatches and compiles; the port runs eagerly and has only the
@@ -26,7 +27,8 @@ import torch
 
 from sml_tpu_torch.config import SMLConfig, resolve_fast_table_adam
 from sml_tpu_torch.device import resolve_device
-from sml_tpu_torch.eval.evaluator import make_eval_fn
+from sml_tpu_torch.eval.evaluator import (make_attributed_eval_fn,
+                                          make_eval_fn)
 from sml_tpu_torch.models.mf import MFParams, init_mf, with_tables
 from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
                                            apply_tables, init_transfer,
@@ -38,6 +40,7 @@ from sml_tpu_torch.ops.sampling import (PeriodIndex, build_period_index,
 from sml_tpu_torch.train.optim import (AdamState, adam_init, adam_update,
                                        copy_opt_state)
 from sml_tpu_torch.train.steps import make_inner_epoch, make_outer_epoch
+from sml_tpu_torch.utils.profiling import annotate
 
 _SNAPSHOT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -107,6 +110,8 @@ class SMLEngine:
         self._outer = make_outer_epoch(cfg)
         self._eval = make_eval_fn(cfg.topk, cfg.eval_batch_size,
                                   scoring=cfg.eval_scoring)
+        self._eval_attr = make_attributed_eval_fn(
+            cfg.topk, cfg.eval_batch_size, scoring=cfg.eval_scoring)
         # packed candidate masks for the masked scoring modes, or for eval
         # sets the protocol re-evaluates (in-training evals)
         self._want_masks = (
@@ -310,8 +315,8 @@ class SMLEngine:
             state.hat_item.to(dt, copy=True)))
 
     def refresh(self, state: SMLState) -> SMLState:
-        """``updata``: MF tables <- Θ(last, hat); on the card one K1 launch
-        per side."""
+        """``updata``: MF tables <- Θ(last, hat); for ``conv_com`` on the
+        card one K1 launch per side."""
         new_u, new_i = apply_tables(
             state.theta, self.cfg.transfer,
             state.last_user, state.hat_user,
@@ -372,19 +377,25 @@ class SMLEngine:
         """Pad and upload an eval set once; reuse it across ``evaluate``
         calls. ``build_mask`` also attaches the packed negative mask
         (honoured only when the engine's policy wants masks); a cached
-        entry without one is upgraded in place."""
+        entry without one is upgraded in place. Inside a trace, the
+        content hash, the padding and upload and the mask are spans of
+        their own (``eval_set_hash``, ``eval_set_pad_upload``,
+        ``eval_set_mask``)."""
         build_mask = build_mask and self._want_masks
-        key = _content_key(test_rows) if self.cfg.upload_dedup else None
-        if key is not None:
+        key = None
+        if self.cfg.upload_dedup:
+            with annotate("eval_set_hash"):
+                key = _content_key(test_rows)
             hit = self._upload_cache.get(key)
             if hit is not None:
                 if build_mask and hit.cand_mask is None:
                     hit = hit._replace(cand_mask=self._build_cand_mask(hit))
                     self._cache_upload(key, hit)
                 return hit
-        padded = pad_rows(test_rows, self.cfg.eval_batch_size,
-                          pad_to=self.shape_targets.get("eval", 0),
-                          device=self.device)
+        with annotate("eval_set_pad_upload"):
+            padded = pad_rows(test_rows, self.cfg.eval_batch_size,
+                              pad_to=self.shape_targets.get("eval", 0),
+                              device=self.device)
         if build_mask:
             padded = padded._replace(cand_mask=self._build_cand_mask(padded))
         if key is not None:
@@ -394,8 +405,9 @@ class SMLEngine:
     def _build_cand_mask(self, padded: PaddedRows) -> torch.Tensor:
         """Packed mask over the negatives ``rows[:, 2:]`` (col 0 is the
         user, col 1 the target)."""
-        return eval_kernel.build_packed_mask(padded.rows[:, 2:],
-                                             self.n_items)
+        with annotate("eval_set_mask"):
+            return eval_kernel.build_packed_mask(padded.rows[:, 2:],
+                                                 self.n_items)
 
     def _cache_upload(self, key, padded: PaddedRows) -> None:
         with self._upload_lock:
@@ -422,3 +434,60 @@ class SMLEngine:
         """recall@K / NDCG@K over eval-format rows (numpy or a
         ``make_eval_set`` result); all Ks in one pass."""
         return self.resolve_evals([self.evaluate_deferred(mf, test_rows)])[0]
+
+    def evaluate_attributed_deferred(self, mf: MFParams, test_rows,
+                                     is_new_user: torch.Tensor,
+                                     is_new_item: torch.Tensor):
+        """The hit-attribution evaluation (the reference's
+        ``test_model_pre``) without reading the result back: ``(out, n)``
+        with ``out`` the device dict of
+        :func:`eval.evaluator.make_attributed_eval_fn` (its ``base`` holds
+        the plain hit/NDCG sums). ``is_new_user`` (U,) and ``is_new_item``
+        (I,) are 0/1 f32 tensors on the engine's device."""
+        padded = (test_rows if isinstance(test_rows, PaddedRows)
+                  else self.make_eval_set(test_rows))
+        return (self._eval_attr(mf, padded.rows, padded.mask, is_new_user,
+                                is_new_item, padded.cand_mask),
+                max(padded.n_real, 1))
+
+    def resolve_attributed(self, deferred):
+        """``evaluate_attributed_deferred`` results -> one record each: the
+        hit shares of new users and new items per K, and the four
+        old/new-user x old/new-item buckets at the largest K as shares of
+        all hits and of the test count."""
+        results = []
+        for out, n in deferred:
+            buckets = [float(x) for x in out["buckets_at_max_k"]]
+            all_hits = max(sum(buckets), 1.0)
+            rec = {}
+            for k in self.cfg.topk:
+                rec[f"hit_share_new_user@{k}"] = \
+                    float(out["hit_new_user"][k]) / n
+                rec[f"hit_share_new_item@{k}"] = \
+                    float(out["hit_new_item"][k]) / n
+            for name, v in zip(("old_user_old_item", "old_user_new_item",
+                                "new_user_old_item", "new_user_new_item"),
+                               buckets):
+                rec[f"{name}_of_hits"] = v / all_hits
+                rec[f"{name}_of_test"] = v / n
+            results.append(rec)
+        return results
+
+    def evaluate_attributed(self, mf: MFParams, test_rows,
+                            is_new_user: torch.Tensor,
+                            is_new_item: torch.Tensor) -> Dict[str, float]:
+        """One attributed evaluation, read back: the record of
+        :meth:`resolve_attributed`."""
+        return self.resolve_attributed([self.evaluate_attributed_deferred(
+            mf, test_rows, is_new_user, is_new_item)])[0]
+
+    def new_entity_masks(self, new_users: np.ndarray,
+                         new_items: np.ndarray):
+        """0/1 f32 masks over the user and item ids (on the engine's
+        device) from the dataset's new-entity id files."""
+        def mask(n, ids):
+            m = torch.zeros(n, dtype=torch.float32, device=self.device)
+            m[torch.from_numpy(np.asarray(ids, np.int64)).to(
+                self.device)] = 1.0
+            return m
+        return mask(self.n_users, new_users), mask(self.n_items, new_items)

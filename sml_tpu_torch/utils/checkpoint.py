@@ -3,7 +3,8 @@
 
 One ``ckpt_<step>.npz`` per checkpoint plus ``manifest.json`` naming the
 latest, both written atomically (tmp + rename). Leaves are keyed by path:
-``mf/user_emb``, ``theta/user/fc1_w``, ``last_user``, ``hat_item``,
+``mf/user_emb``, ``theta/user/fc1_w`` (the tower's own field names for
+every transfer kind), ``last_user``, ``hat_item``,
 ``mf_opt/1/count``, ``mf_opt/1/mu/user_emb``, ``tr_opt/1/nu/item/fc2_b``,
 ``key``; bfloat16 leaves are stored as their uint16 bits, with the true
 dtype names under ``__dtypes__``. So a checkpoint that ``sml_tpu`` wrote
@@ -32,8 +33,7 @@ import torch
 
 from sml_tpu_torch.device import resolve_device
 from sml_tpu_torch.models.mf import MFParams
-from sml_tpu_torch.models.transfer import (TOWER_FIELDS, theta_from_numpy,
-                                           theta_leaves)
+from sml_tpu_torch.models.transfer import theta_from_numpy, theta_leaves
 from sml_tpu_torch.train.engine import SMLState
 from sml_tpu_torch.train.optim import AdamState
 
@@ -172,8 +172,10 @@ def state_from_checkpoint(directory: str, device="cuda",
                 {n: leaf(f"{opt}/1/nu/{n}").contiguous() for n in names})
 
         mf = MFParams(*(leaf(f"mf/{f}") for f in MFParams._fields))
+        # Θ's tower fields (so its kind) are the keys under theta/<side>/
         theta = theta_from_numpy(
-            {side: {f: leaf(f"theta/{side}/{f}") for f in TOWER_FIELDS}
+            {side: {k.split("/")[2]: leaf(k) for k in data.files
+                    if k.startswith(f"theta/{side}/")}
              for side in ("user", "item")}, device=dev)
         return SMLState(
             mf=mf, theta=theta, **{f: leaf(f) for f in SNAPSHOTS},

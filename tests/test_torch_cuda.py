@@ -588,3 +588,105 @@ def test_refresh_at_wide_latent_on_card(card, latent):
                                states[1].mf.user_emb, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(states[0].mf.item_emb.cpu(),
                                states[1].mf.item_emb, rtol=1e-4, atol=1e-4)
+
+
+KINDS = ("conv_com", "conv2ch", "conv_com_root", "mlp_delta", "linear",
+         "gru", "gated")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_transfer_kind_refresh_and_outer_step_on_card(card, kind):
+    """Each kind's refresh and one replay-mode outer step on the card
+    against the CPU; only conv_com reaches K1."""
+    from sml_tpu_torch.train.engine import SMLEngine
+    d = 32
+    cfg = SMLConfig(latent_dim=d, replay_mode=True, tr_batch_size=64,
+                    transfer=TransferConfig(latent_dim=d, fc_hidden=128,
+                                            kind=kind))
+    g = torch.Generator().manual_seed(6)
+    last_u, last_i = torch.randn(600, d, generator=g), \
+        torch.randn(400, d, generator=g)
+    rows = torch.stack([torch.randint(0, 600, (64,), generator=g),
+                        torch.randint(0, 400, (64,), generator=g),
+                        torch.randint(0, 400, (64,), generator=g)],
+                       1).numpy()
+    runs = []
+    for device in (card, "cpu"):
+        eng = SMLEngine(cfg, 600, 400, device=device)
+        state = eng.init_state()
+        state = state._replace(last_user=last_u.to(device),
+                               last_item=last_i.to(device))
+        before = TK.transfer_rows_cuda.launches
+        state = eng.refresh(state)
+        k1 = TK.transfer_rows_cuda.launches - before
+        state, loss = eng.outer_epoch(state, *eng.prep_outer(rows))
+        runs.append((state, float(loss[0]), k1))
+    (gs, gl, gk1), (cs, cl, ck1) = runs
+    assert gk1 == (2 if kind == "conv_com" else 0) and ck1 == 0
+    torch.testing.assert_close(gs.mf.user_emb.cpu(), cs.mf.user_emb,
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gs.mf.item_emb.cpu(), cs.mf.item_emb,
+                               rtol=1e-4, atol=1e-4)
+    assert gl == pytest.approx(cl, rel=1e-5)
+    from sml_tpu_torch.models.transfer import theta_leaves
+    tg, tc = theta_leaves(gs.theta), theta_leaves(cs.theta)
+    for name in tg:
+        torch.testing.assert_close(tg[name].detach().cpu(),
+                                   tc[name].detach(), rtol=1e-4, atol=1e-4)
+
+
+def test_attributed_evaluation_on_card_equals_cpu(card):
+    """Integer tables: every score is exact, so the card's attributed
+    record (K2 ranks) equals the CPU's."""
+    from sml_tpu_torch.models.mf import MFParams
+    from sml_tpu_torch.train.engine import SMLEngine
+    n_users, n_items, d = 500, 3000, 16
+    g = torch.Generator().manual_seed(8)
+    ue = torch.randint(-3, 4, (n_users, d), generator=g).float()
+    ie = torch.randint(-3, 4, (n_items, d), generator=g).float()
+    users = torch.randint(0, n_users, (300, 1), generator=g)
+    cand = torch.argsort(torch.rand(300, n_items, generator=g), dim=1)[:, :51]
+    rows = torch.cat([users, cand], dim=1).numpy()
+    new_u = np.arange(0, n_users, 7)
+    new_i = np.arange(0, n_items, 5)
+    cfg = SMLConfig(latent_dim=d, eval_scoring="masked", eval_batch_size=64)
+    recs = []
+    for device in (card, "cpu"):
+        eng = SMLEngine(cfg, n_users, n_items, device=device)
+        mf = MFParams(ue.to(device), ie.to(device),
+                      torch.zeros(n_users, 1, device=device),
+                      torch.zeros(n_items, 1, device=device))
+        before = E.masked_rank_cuda.launches
+        recs.append(eng.evaluate_attributed(
+            mf, eng.make_eval_set(rows, build_mask=True),
+            *eng.new_entity_masks(new_u, new_i)))
+        if device is card:
+            # 300 rows padded to 320: five batches of 64
+            assert E.masked_rank_cuda.launches - before == 5
+    assert recs[0] == recs[1]
+
+
+def test_profiled_period_on_card_traces_kernels(card, tmp_path, capsys):
+    from sml_tpu_torch import cli
+    d = str(tmp_path)
+    assert cli.main(["synth", "--out", f"{d}/synth", "--users", "300",
+                     "--items", "150", "--periods", "6", "--interactions",
+                     "600", "--first-test", "3", "--neg-num", "49"]) == 0
+    prof = tmp_path / "prof"
+    assert cli.main(["sml", "--data-root", d, "--data-name", "synth",
+                     "--num-periods", "6", "--online-train-start", "2",
+                     "--online-test-start", "4", "--multi-num", "1",
+                     "--latent", "16", "--mf-sample", "alone",
+                     "--saddle-retries", "0", "--attributed-eval",
+                     "--profile-dir", str(prof)]) == 0
+    capsys.readouterr()
+    traces = list(prof.iterdir())
+    assert len(traces) == 1
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels
+    # the refresh's K1 launches are among the traced kernels
+    assert any("transfer_rows" in e["name"] for e in kernels)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"refresh", "inner_epoch", "outer_epoch"} <= spans

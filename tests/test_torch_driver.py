@@ -203,10 +203,26 @@ def test_sml_cli_runs_and_resumes(synthetic_dataset, tmp_path, capsys):
 
 
 def test_unported_options_raise(synthetic_dataset, tmp_path):
+    """The two options that raised until they were ported now run:
+    attribution masks come from the dataset's new-entity id files (none
+    without them), and ``profile_dir`` builds a driver that traces."""
+    import dataclasses
+    import shutil
     dspec, _, _ = synthetic_dataset
     _, tcfg = _cfgs(latent_dim=D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SMLDriver(tcfg.replace(attributed_eval=True), dspec, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SMLDriver(tcfg.replace(profile_dir=str(tmp_path)), dspec,
-                  device="cpu")
+    drv = SMLDriver(tcfg.replace(attributed_eval=True), dspec, device="cpu")
+    new_u = np.load(os.path.join(dspec.path, "test_new_user.npy"))
+    assert int(drv._is_new_user.sum()) == len(np.unique(new_u)) > 0
+    drv.close()
+    bare = tmp_path / "bare"
+    shutil.copytree(dspec.path, bare / dspec.name)
+    os.remove(bare / dspec.name / "test_new_user.npy")
+    drv = SMLDriver(tcfg.replace(attributed_eval=True),
+                    dataclasses.replace(dspec, root=str(bare)),
+                    device="cpu")
+    assert drv._is_new_user is None and drv._is_new_item is None
+    drv.close()
+    drv = SMLDriver(tcfg.replace(profile_dir=str(tmp_path / "p")), dspec,
+                    device="cpu")
+    assert drv.cfg.profile_dir == str(tmp_path / "p")
+    drv.close()

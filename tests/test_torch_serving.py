@@ -169,8 +169,8 @@ def test_engine_eval_set_cache_is_content_keyed():
 
 def test_training_entry_points_raise_until_ported(synthetic_dataset,
                                                   tmp_path):
-    """Training is ported (slice 2); what is not yet ported still raises,
-    naming its ROADMAP item: the six other transfer kinds, attributed
+    """Training is ported, and what raised until it was ported now runs:
+    the six other transfer kinds (an unknown kind raises), attributed
     evaluation and the profiler."""
     from sml_tpu_torch.train.driver import SMLDriver
 
@@ -186,14 +186,21 @@ def test_training_entry_points_raise_until_ported(synthetic_dataset,
     state, losses = teng.outer_epoch(teng.snapshot_hat(state),
                                      *teng.prep_outer(rows))
     assert torch.isfinite(losses).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SMLEngine(tcfg.replace(transfer=TransferConfig(kind="gru")), 10, 10,
+    gru = SMLEngine(tcfg.replace(transfer=TransferConfig(
+        latent_dim=D, kind="gru")), 10, 10, device="cpu").init_state()
+    assert set(gru.tr_opt.mu) == {f"{s}/{f}" for s in ("user", "item")
+                                  for f in ("w_ih", "w_hh", "b_ih", "b_hh")}
+    with pytest.raises(ValueError, match="unknown transfer kind"):
+        SMLEngine(tcfg.replace(transfer=TransferConfig(kind="lstm")), 10, 10,
                   device="cpu").init_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SMLDriver(tcfg.replace(attributed_eval=True), dspec, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SMLDriver(tcfg.replace(profile_dir=str(tmp_path)), dspec,
-                  device="cpu")
+    attr = SMLDriver(tcfg.replace(attributed_eval=True), dspec,
+                     device="cpu")
+    assert attr._is_new_user is not None
+    attr.close()
+    prof = SMLDriver(tcfg.replace(profile_dir=str(tmp_path)), dspec,
+                     device="cpu")
+    assert prof.cfg.profile_dir == str(tmp_path)
+    prof.close()
 
 
 def test_init_state_is_seeded_and_keeps_pretrained():

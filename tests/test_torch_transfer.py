@@ -122,14 +122,14 @@ def test_zero_last_rows_give_finite_output(rng):
 def test_theta_keeps_jax_layout():
     jt, tt = _theta(16)
     for side in ("user", "item"):
-        for f in T.TOWER_FIELDS:
+        for f in T.ConvTower.FIELDS:
             j = np.asarray(getattr(getattr(jt, side), f))
             t = getattr(getattr(tt, side), f).detach().numpy()
             assert t.shape == j.shape, (side, f)
             np.testing.assert_array_equal(t, j)
     # mappings carry across the same way
     tree = {s: {f: np.asarray(getattr(getattr(jt, s), f))
-                for f in T.TOWER_FIELDS} for s in ("user", "item")}
+                for f in T.ConvTower.FIELDS} for s in ("user", "item")}
     tt2 = T.theta_from_numpy(tree, device="cpu")
     for a, b in zip(tt.parameters(), tt2.parameters()):
         assert torch.equal(a, b)
@@ -155,10 +155,16 @@ def test_init_transfer_uses_torch_default_bounds():
 @pytest.mark.parametrize("kind", ["conv2ch", "conv_com_root", "mlp_delta",
                                   "linear", "gru", "gated"])
 def test_unported_kinds_raise(kind):
-    cfg = TransferConfig(latent_dim=8, kind=kind)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_transfer(torch.Generator().manual_seed(0), cfg, device="cpu")
-    _, tt = _theta(8)
-    x = torch.zeros(4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.apply_tables(tt, cfg, x, x, x, x)
+    """The six kinds that raised before they were ported now initialise
+    and refresh on the CPU; an unknown kind still raises."""
+    cfg = TransferConfig(latent_dim=8, fc_hidden=16, kind=kind)
+    th = T.init_transfer(torch.Generator().manual_seed(0), cfg, device="cpu")
+    x = torch.randn(4, 8, generator=torch.Generator().manual_seed(1))
+    u, i = T.apply_tables(th, cfg, x, x, x[:3], x[:3])
+    assert u.shape == (4, 8) and i.shape == (3, 8)
+    assert torch.isfinite(u).all() and torch.isfinite(i).all()
+    bad = TransferConfig(latent_dim=8, kind=kind + "_x")
+    with pytest.raises(ValueError, match="unknown transfer kind"):
+        T.init_transfer(torch.Generator().manual_seed(0), bad, device="cpu")
+    with pytest.raises(ValueError, match="unknown transfer kind"):
+        T.apply_tables(th, bad, x, x, x, x)
