@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's paths once on one NVIDIA GPU: serving, the training
 sweep, the eval-design probes, the pretrainer, the baselines, every
-transfer kind, and ingest into an attributed, profiled ``sml`` run.
+transfer kind, ingest into an attributed, profiled ``sml`` run, and the
+parallel layer (two ranks sharing the card, and the multi-process CLI).
 
 Run from the repository root, on a host with one CUDA card:
 
@@ -152,10 +153,36 @@ Phases, one JSON line each:
             and an attributed evaluation of it, each called directly under
             the profiler, with the engine's own spans inside
             ``make_eval_set`` (hash, padding and upload, mask).
-18. the card's name and power limit as nvidia-smi prints them, the
+18. parallel  three worlds spawned with a timeout each
+            (``parallel.dryrun.run_world``): R=1; two ranks sharing the
+            card over gloo on a (1, 2) mesh (tables row-sharded, the
+            refresh on 50,000 + 10,000-row blocks); two on (2, 1) (data
+            parallel). Each runs the train-lockstep phase's replay phase
+            (8 inner steps at B=1024 with ``fast_table_adam``, 16 outer
+            steps at B=256), then the 16,384-row masked test (999 distinct
+            negatives) and top-20 serving of 4 x 1024 users. Each two-rank
+            world is held to R=1: tables and Θ within ``TRAIN_ATOL``,
+            losses within ``LOSS_RTOL``, hit counts within
+            ``SLICE_HIT_TOL``, served id sets equal except where R=1's
+            scores tie (``PAR_TIE``), served scores within
+            ``PAR_SCORE_ATOL`` of dense serving on the world's own tables;
+            launches per rank equal those derived (K1 4: 2 per refresh;
+            K3 8: 1 per fast step; K2 16 / 8: one per eval batch of the
+            rank's block of the test); each world's wall time and each
+            axis's transport printed. Each rank of a two-rank world first
+            runs all-reduce, all-gather and broadcast on CUDA tensors over
+            gloo and checks their values (the port hands gloo its CUDA
+            tensors as they are; gloo stages them through pinned host
+            memory inside itself). Then ``python -m sml_tpu_torch
+            --coordinator ... sml`` and ``rank --shard`` as two processes
+            on the card against one process, started together
+            (``PAR_CLI_DATA``; ``scripts/multicard_check.py``'s
+            ``cli_against_one_process``: tables, each test's hits, the
+            served rows).
+19. the card's name and power limit as nvidia-smi prints them, the
    ``kernels`` line (launches from each kernel's own path: the train
-   sweep for K1-K3, the probes for P1-P3), and last
-   ``{"ok": true, "device": {...}}``.
+   sweep and the parallel phase's ranks for K1-K3, the probes for P1-P3),
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits 1 before doing anything. Bounds
@@ -253,6 +280,20 @@ INGEST_SML_ARGS = ["--multi-num", str(INGEST_MULTI_NUM), "--mf-sample",
                    "alone", "--transfer-type", "conv_com_root",
                    "--eval-scoring", "masked", "--saddle-retries", "0",
                    "--attributed-eval"]
+# parallel: three worlds of the replay phase, a test and serving at the
+# Yelp shape; name, ranks, (data, model) mesh (None: one rank alone). Two
+# ranks share the one card over gloo.
+PAR_WORLDS = (("R1", 1, None), ("R2_model", 2, (1, 2)),
+              ("R2_data", 2, (2, 1)))
+PAR_TIMEOUT_S = 300
+# served scores against dense serving on the same tables; a served id may
+# differ from R=1's only where R=1's scores tie within PAR_TIE
+PAR_SCORE_ATOL, PAR_TIE = 1e-5, 1e-4
+# the multi-process CLI runs' synthetic dataset (the sml flags, the users
+# that rank --shard serves and the limits are multicard_check's)
+PAR_CLI_DATA = dict(n_users=2000, n_items=1000, n_periods=6,
+                    interactions_per_period=4000, first_test_period=2,
+                    neg_num=99, seed=SEED)
 
 
 def emit(obj) -> None:
@@ -2069,6 +2110,169 @@ def phase_ingest_sweep(torch, dev: str = "cuda"):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def write_parallel_data(torch, path: str) -> None:
+    """The parallel phase's inputs, one ``.npz`` that every rank reads:
+    the train-lockstep phase's replay rows and pretrained tables, a
+    16,384-row test with 999 distinct negatives, 4 x 1024 served users."""
+    import numpy as np
+    pre = random_tables(torch, SEED + 61)
+    g = torch.Generator().manual_seed(SEED + 71)
+    np.savez(path, inner_rows=seeded_rows(INNER_ROWS, SEED + 62),
+             outer_rows=seeded_rows(OUTER_ROWS, SEED + 63),
+             test_rows=distinct_eval_rows(torch, EVAL_ROWS, N_USERS,
+                                          N_ITEMS, SEED + 72),
+             serve_users=torch.randint(0, N_USERS,
+                                       (SERVE_BATCHES * EVAL_BATCH,),
+                                       generator=g).numpy(),
+             **{f: t.numpy() for f, t in zip(pre._fields, pre)})
+
+
+def served_agreement(torch, ref: dict, got: dict) -> dict:
+    """A world's served top-K against R=1's: rows whose id sets differ
+    where R=1's scores do not tie (every differing id scored within
+    ``PAR_TIE`` of R=1's k-th score under R=1's tables), and the served
+    scores against a dense top-K over the world's own whole tables."""
+    from sml_tpu_torch.eval.full_ranking import dense_full_topk
+    users = torch.from_numpy(ref["serve_users"]).cuda()
+    ref_u = torch.from_numpy(ref["user_emb"]).cuda()[users]
+    ref_i = torch.from_numpy(ref["item_emb"]).cuda()
+    s_ref, i_ref = (torch.from_numpy(x) for x in ref["served"]["exact"])
+    s_got, i_got = (torch.from_numpy(x) for x in got["served"]["exact"])
+    untied, differ = 0, 0
+    for b in range(i_ref.shape[0]):
+        a, c = set(i_ref[b].tolist()), set(i_got[b].tolist())
+        if a == c:
+            continue
+        differ += 1
+        ids = torch.tensor(sorted(a ^ c), device="cuda")
+        scores = (ref_u[b:b + 1] @ ref_i[ids].T).cpu()
+        if (scores - s_ref[b, -1]).abs().max().item() > PAR_TIE:
+            untied += 1
+    dense_s, _ = dense_full_topk(
+        torch.from_numpy(got["user_emb"]).cuda()[users],
+        torch.from_numpy(got["item_emb"]).cuda(), s_got.shape[1])
+    score_err = (dense_s.cpu().sort(1).values
+                 - s_got.sort(1).values).abs().max().item()
+    return {"rows_differ": differ, "rows_differ_untied": untied,
+            "score_err_vs_dense": score_err}
+
+
+def phase_parallel_cli(root: str) -> dict:
+    """The multi-process CLI on the card: ``sml`` and ``rank --shard`` as
+    two processes sharing it, against one process
+    (``scripts.multicard_check.cli_against_one_process``)."""
+    from sml_tpu_torch.scripts.multicard_check import cli_against_one_process
+    os.makedirs(root)
+    report, failed = cli_against_one_process(root, 2, "cuda", PAR_CLI_DATA,
+                                             PAR_TIMEOUT_S)
+    check(not failed, f"the two-process CLI differs from one process in "
+          f"{failed}: {report}")
+    return report
+
+
+def phase_parallel(torch) -> dict:
+    """Three worlds of one replay phase, a test and serving at the Yelp
+    shape (R=1; two ranks sharing the card on a (1, 2) mesh, row-sharded;
+    two on (2, 1), data parallel), each held to R=1 with its launches per
+    rank counted; then the multi-process CLI."""
+    import dataclasses
+
+    from sml_tpu_torch.config import yelp_sml
+    from sml_tpu_torch.parallel.dryrun import StepSpec, run_world
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sml_parallel_")
+    try:
+        data = os.path.join(root, "data.npz")
+        write_parallel_data(torch, data)
+        cfg = yelp_sml().replace(replay_mode=True, fast_table_adam=True,
+                                 eval_scoring="masked")
+        base = StepSpec(cfg, N_USERS, N_ITEMS, data, serve_k=SERVE_K)
+        worlds, out = {}, {"phase": "parallel", "users": N_USERS,
+                           "items": N_ITEMS, "eval_rows": EVAL_ROWS,
+                           "worlds": {}}
+        for name, n, mesh in PAR_WORLDS:
+            t0 = time.perf_counter()
+            worlds[name] = run_world(
+                "sml_tpu_torch.parallel.dryrun:full_step", n, "cuda",
+                (dataclasses.replace(base, mesh=mesh),), PAR_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t0
+            d = 1 if mesh is None else mesh[0]
+            want = {"transfer_rows_kernel": 4,
+                    "decay_adam_kernel": -(-INNER_ROWS // cfg.mf_batch_size),
+                    "masked_rank_gather_kernel": EVAL_ROWS // EVAL_BATCH // d}
+            for r, res in enumerate(worlds[name]):
+                check(res["launches"] == want,
+                      f"{name} rank {r} launched {res['launches']}, "
+                      f"expected {want}")
+            out["worlds"][name] = {
+                "ranks": n, "mesh": mesh, "spawn_wall_s": spawn_s,
+                "step_wall_s": [r["wall_s"] for r in worlds[name]],
+                "transport": worlds[name][0]["transport"],
+                "launches_per_rank": want}
+        ref = worlds["R1"][0]
+        for name, _, mesh in PAR_WORLDS[1:]:
+            got = worlds[name][0]
+            errs = {"user": float(abs(got["user_emb"] - ref["user_emb"])
+                                  .max()),
+                    "item": float(abs(got["item_emb"] - ref["item_emb"])
+                                  .max()),
+                    "theta": max(float(abs(got["theta"][k] - v).max())
+                                 for k, v in ref["theta"].items())}
+            loss_err = max(
+                float((abs(got[k] - ref[k]) / abs(ref[k]).clip(1e-30)).max())
+                for k in ("inner_losses", "outer_losses"))
+            hits = {k: abs(got["eval"][k][0] - ref["eval"][k][0])
+                    for k in ref["eval"]}
+            serve = served_agreement(torch, ref, got)
+            check(max(errs.values()) <= TRAIN_ATOL,
+                  f"{name}: tables/Θ differ from R=1 by {errs}")
+            check(loss_err <= LOSS_RTOL,
+                  f"{name}: losses differ from R=1 by rtol {loss_err}")
+            check(max(hits.values()) <= SLICE_HIT_TOL,
+                  f"{name}: hit counts differ from R=1: {hits}")
+            check(serve["rows_differ_untied"] == 0,
+                  f"{name}: served ids differ where R=1 does not tie: "
+                  f"{serve}")
+            check(serve["score_err_vs_dense"] <= PAR_SCORE_ATOL,
+                  f"{name}: served scores differ from dense serving: "
+                  f"{serve}")
+            out["worlds"][name].update(
+                max_abs_err_vs_r1=errs, loss_max_rel_err_vs_r1=loss_err,
+                hit_diff_vs_r1={str(k): v for k, v in hits.items()},
+                **serve)
+        out["worlds"]["R1"]["eval_hits"] = {
+            str(k): v[0] for k, v in ref["eval"].items()}
+        # the transport: every collective the port calls, on CUDA tensors
+        # of two ranks sharing the card (each two-rank world checks them
+        # before its step), handed to the group's backend as they are (the
+        # port copies nothing to the host; ProcessGroupGloo stages CUDA
+        # tensors through pinned host buffers inside itself)
+        from sml_tpu_torch.parallel.collective import GLOO_CUDA_COLLECTIVES
+        checked = [r["collectives"] for name, _, _ in PAR_WORLDS[1:]
+                   for r in worlds[name]]
+        for res in checked:
+            check(res["on_device"] and res["device"].startswith("cuda")
+                  and max(res["errors"].values()) == 0.0
+                  and set(res["errors"]) == GLOO_CUDA_COLLECTIVES,
+                  f"collectives on CUDA tensors: {res}")
+        out["transport_rule"] = {
+            "backend": checked[0]["transport"], "ranks_checked": len(checked),
+            "collectives_checked_on_cuda_tensors": sorted(
+                checked[0]["errors"]),
+            "gloo_cuda": "staged through pinned host memory inside "
+                         "ProcessGroupGloo; the port stages nothing itself"}
+        t0 = time.perf_counter()
+        out["cli"] = phase_parallel_cli(os.path.join(root, "cli"))
+        out["cli"]["wall_s"] = time.perf_counter() - t0
+        out["phase_s"] = time.perf_counter() - t_phase
+        emit(out)
+        # launches on the card in this phase, every rank of every world
+        return {k: sum(r["launches"][k] for w in worlds.values() for r in w)
+                for k in ref["launches"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2104,6 +2308,9 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     phase_transfer_kinds(torch)
     phase_ingest_sweep(torch)
+    par_launches = phase_parallel(torch)
+    for k, v in par_launches.items():
+        launches[k] += v
 
     kernels = [
         {"name": "transfer_rows_kernel", "route": "cuda",

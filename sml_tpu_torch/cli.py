@@ -12,8 +12,18 @@
 take the same flags and print the same JSON as ``python -m sml_tpu``, and
 the ``.npz`` tables of either package load in the other; ``--device
 {cuda,cpu}`` (before the subcommand) takes the place of ``--platform`` and
-defaults to ``cuda``. The multi-host options come with a later slice
-(ROADMAP.md §1).
+defaults to ``cuda``.
+
+Multi-process: start one process per rank with the same command and
+``--coordinator host:port --num-processes R --process-id r`` (before the
+subcommand). Each rank runs on ``cuda:{local_rank % device_count}`` (or the
+CPU with ``--device cpu``); ranks that share a card, or the CPU, talk over
+gloo, ranks with a card each over NCCL. ``sml`` then row-shards the state
+over the ranks of a host (``parallel/multihost.py``), logs and writes
+checkpoints and ``--save-model`` from process 0 only (whole tables, as one
+process writes them), and refuses to start when the processes disagree on
+the checkpoint to resume from. ``rank --shard`` row-shards the item table
+over all ranks and prints from process 0; with one process it is a no-op.
 """
 
 from __future__ import annotations
@@ -51,14 +61,18 @@ def _add_data_args(p):
     p.add_argument("--checkpoint-dir", default=None)
 
 
-def _load_mf(path: str, device):
+def _load_mf(path: str, device, item_rows: slice = slice(None)):
+    """The ``.npz`` tables on ``device``; ``item_rows`` keeps a row block
+    of the item table (cut on the host)."""
     import numpy as np
     import torch
 
     from sml_tpu_torch.models.mf import MFParams
     with np.load(path) as blob:
-        return MFParams(*(torch.from_numpy(np.asarray(blob[f])).to(device)
-                          for f in MFParams._fields))
+        return MFParams(*(
+            torch.from_numpy(np.ascontiguousarray(
+                blob[f][item_rows] if f == "item_emb" else blob[f]))
+            .to(device) for f in MFParams._fields))
 
 
 def sml_config(args) -> C.SMLConfig:
@@ -96,6 +110,7 @@ def sml_config(args) -> C.SMLConfig:
 def cmd_sml(args) -> int:
     """The SML sweep, with period-boundary checkpoints and resume."""
     from sml_tpu_torch.device import resolve_device
+    from sml_tpu_torch.parallel.multihost import process_count, process_index
     from sml_tpu_torch.train.driver import RunReport, SMLDriver
     from sml_tpu_torch.utils.checkpoint import (latest_step, read_manifest,
                                                 save_checkpoint,
@@ -106,12 +121,36 @@ def cmd_sml(args) -> int:
     spec = _dataspec(args)
     cfg = sml_config(args)
 
-    logger = MetricsLogger(args.metrics_jsonl, echo=True)
+    n_proc, main_proc = process_count(), process_index() == 0
+    logger = MetricsLogger(args.metrics_jsonl if main_proc else None,
+                           echo=main_proc)
     driver = SMLDriver(cfg, spec, logger=logger, device=device)
     try:
         engine = driver.engine
+        placement = None
+        if n_proc > 1:
+            from sml_tpu_torch.parallel.multihost import (MultihostPlacement,
+                                                          make_global_mesh)
+            mesh = make_global_mesh()
+            placement = MultihostPlacement(mesh, engine.n_users,
+                                           engine.n_items)
+            engine.placement = placement
+            if main_proc:
+                print(f"multi-process: {n_proc} processes, mesh "
+                      f"{mesh.shape} over {mesh.transport}", file=sys.stderr)
         resume_step = (latest_step(args.checkpoint_dir)
                        if args.checkpoint_dir else None)
+        if args.checkpoint_dir and n_proc > 1:
+            # every process must resume from the same step, or their
+            # collectives stop matching: check instead of hanging
+            import torch.distributed as dist
+            steps = [None] * n_proc
+            dist.all_gather_object(steps, resume_step)
+            if len(set(steps)) != 1:
+                raise RuntimeError(
+                    "checkpoint resume disagrees across processes (latest "
+                    f"steps per process: {steps}); --checkpoint-dir must be "
+                    "shared storage visible to every host")
         start_pass, start_period = 0, 0
         if resume_step is not None:
             state = state_from_checkpoint(args.checkpoint_dir, device=device)
@@ -120,33 +159,43 @@ def cmd_sml(args) -> int:
             start_period = int(extra.get("period", resume_step)) + 1
             if "report" in extra:
                 driver.report = RunReport.from_dict(extra["report"])
-            print(f"resumed at pass {start_pass} period {start_period}",
-                  file=sys.stderr)
+            if main_proc:
+                print(f"resumed at pass {start_pass} period {start_period}",
+                      file=sys.stderr)
         else:
             pretrained = (_load_mf(args.pre_model, device)
                           if args.pre_model else None)
             state = engine.init_state(pretrained_mf=pretrained)
+        if placement is not None:
+            state = placement.state(state)
 
         def on_period_end(st, pass_id, d_time, drv):
             if not args.checkpoint_dir:
                 return
-            # drain the deferred tests first, so the checkpointed report
-            # covers every completed test period
+            # whole tables on every process (a collective), written by
+            # process 0; the deferred tests are drained first, so the
+            # checkpointed report covers every completed test period
+            hs = engine.whole_state(st)
             drv.finalize()
-            save_checkpoint(args.checkpoint_dir,
-                            pass_id * spec.num_periods + d_time, st,
-                            extra={"pass_id": pass_id, "period": d_time,
-                                   "report": drv.report.to_dict()})
+            if main_proc:
+                save_checkpoint(args.checkpoint_dir,
+                                pass_id * spec.num_periods + d_time, hs,
+                                extra={"pass_id": pass_id, "period": d_time,
+                                       "report": drv.report.to_dict()})
 
         driver.run(state, start_pass=start_pass, start_period=start_period,
                    on_period_end=on_period_end)
+        if args.save_model:
+            hs = engine.whole_state(driver.final_state)
+            if main_proc:
+                _save_mf(args.save_model, hs.mf)
+                print(f"saved final tables to {args.save_model}",
+                      file=sys.stderr)
     finally:
         driver.close()
         logger.close()
-    if args.save_model:
-        _save_mf(args.save_model, driver.final_state.mf)
-        print(f"saved final tables to {args.save_model}", file=sys.stderr)
-    print(json.dumps(driver.report.summary(), indent=2))
+    if main_proc:
+        print(json.dumps(driver.report.summary(), indent=2))
     return 0
 
 
@@ -243,9 +292,24 @@ def cmd_rank(args) -> int:
 
     from sml_tpu_torch.device import resolve_device
     from sml_tpu_torch.eval.full_ranking import recommend
+    from sml_tpu_torch.parallel.multihost import process_count, process_index
 
     device = resolve_device(args.device)
-    mf = _load_mf(args.model, device)
+    n_proc = process_count()
+    mesh, item_rows = None, slice(None)
+    if args.shard and n_proc > 1:
+        # the item table's row block of this rank, over every rank
+        from sml_tpu_torch.parallel.sharding import make_mesh
+        mesh = make_mesh(1, n_proc)
+        with np.load(args.model) as blob:
+            n_items = blob["item_emb"].shape[0]
+        if n_items % n_proc:
+            raise ValueError(f"--shard: {n_items} items do not divide over "
+                             f"{n_proc} ranks")
+        per = n_items // n_proc
+        item_rows = slice(mesh.index("model") * per,
+                          (mesh.index("model") + 1) * per)
+    mf = _load_mf(args.model, device, item_rows)
 
     if args.users:
         users = np.asarray([int(u) for u in args.users.split(",")], np.int64)
@@ -260,16 +324,16 @@ def cmd_rank(args) -> int:
               f"{bad[:10].tolist()}", file=sys.stderr)
         return 2
 
-    # --shard spreads the item table over devices; on one device it is a
-    # no-op, as in the JAX package (the sharded merge is not ported yet)
     dtype = torch.bfloat16 if args.bf16 else None
     for start in range(0, users.shape[0], args.batch_size):
         chunk = users[start:start + args.batch_size]
         scores, items = recommend(mf, torch.from_numpy(chunk), args.k,
-                                  compute_dtype=dtype,
+                                  mesh=mesh, compute_dtype=dtype,
                                   topk_method=args.topk_method)
         scores = scores.cpu().numpy()
         items = items.cpu().numpy()
+        if process_index() != 0:
+            continue
         for r in range(chunk.shape[0]):
             print(json.dumps({"user": int(chunk[r]),
                               "items": items[r].tolist(),
@@ -282,6 +346,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("sml_tpu_torch")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help=DEVICE_HELP)
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: host:port of rank 0's store")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process: total process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process: this process's rank")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ps = sub.add_parser("sml", help="run the SML sequential-retraining sweep")
@@ -410,8 +480,8 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("-k", type=int, default=20)
     pr.add_argument("--batch-size", type=int, default=1024)
     pr.add_argument("--shard", action="store_true",
-                    help="row-shard the item table over all devices (a "
-                         "no-op on one device)")
+                    help="row-shard the item table over all ranks of a "
+                         "multi-process world (a no-op with one process)")
     pr.add_argument("--bf16", action="store_true",
                     help="round the scoring inputs to bfloat16 (scores "
                          "still accumulate in f32; near-tie ranks may swap)")
@@ -430,7 +500,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    if not args.coordinator:
+        return args.fn(args)
+    import torch.distributed as dist
+
+    from sml_tpu_torch.parallel.multihost import init_distributed
+    args.device = str(init_distributed(args.coordinator, args.num_processes,
+                                       args.process_id, device=args.device))
+    try:
+        rc = args.fn(args)
+        # no process leaves while a peer may still be connecting to it
+        dist.barrier()
+        return rc
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

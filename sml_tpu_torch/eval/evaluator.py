@@ -52,12 +52,15 @@ def _resolve_mode(scoring: str, n_items: int, n_cand: int,
 
 
 def _make_ranker(scoring: str):
-    """``(prep, rank)``: ``prep(mf) -> ctx`` once per eval (casts and the
-    padded item table), ``rank(ctx, rows, cand_mask) -> (B,) int32`` per
-    batch."""
+    """``(prep, rank)``: ``prep(mf, user_rows=None) -> ctx`` once per eval
+    (casts and the padded item table), ``rank(ctx, rows, cand_mask, sl) ->
+    (B,) int32`` per batch (``sl``: the batch's rows of the eval set)."""
 
-    def prep(mfp: MFParams):
-        ue_t, ie_t = mfp.user_emb, mfp.item_emb
+    def prep(mfp: MFParams, user_rows=None):
+        # user_rows: the eval rows' user rows, one per row (a row-sharded
+        # user table is read once per evaluation, not per batch)
+        ue_t = mfp.user_emb if user_rows is None else user_rows
+        ie_t = mfp.item_emb
         if scoring.endswith("bf16"):
             ue_t = ue_t.to(torch.bfloat16)
             ie_t = ie_t.to(torch.bfloat16)
@@ -66,54 +69,54 @@ def _make_ranker(scoring: str):
             # (I_pad, d), row-major: the pad rows are never in a mask
             ipad = eval_kernel.pad_items(ie_t.shape[0])
             it_pad = F.pad(ie_t, (0, 0, 0, ipad - ie_t.shape[0]))
-        return ue_t, ie_t, it_pad
+        return ue_t, ie_t, it_pad, user_rows is not None
 
-    def rank(ctx, r: torch.Tensor, cand_mask) -> torch.Tensor:
-        ue_t, ie_t, it_pad = ctx
+    def rank(ctx, r: torch.Tensor, cand_mask, sl: slice) -> torch.Tensor:
+        ue_t, ie_t, it_pad, by_row = ctx
         users, cand = r[:, 0].long(), r[:, 1:].long()
+        ue = ue_t[sl] if by_row else ue_t[users]                # (B, d)
         mode = _resolve_mode(scoring, ie_t.shape[0], cand.shape[1],
                              cand_mask is not None)
         if mode.startswith("masked"):
-            ue = ue_t[users]                                   # (B, d)
             # target score as an f32 row dot; the mask covers negatives
             # only, so the target never compares with itself
             sstar = (ue.float() * ie_t[r[:, 1].long()].float()).sum(
                 dim=1, keepdim=True)
             return eval_kernel.masked_rank(ue, it_pad, sstar, cand_mask)
         if mode.startswith("matmul"):
-            all_s = ue_t[users].float() @ ie_t.float().T       # (B, I)
+            all_s = ue.float() @ ie_t.float().T                # (B, I)
             return rank_of_target(torch.gather(all_s, 1, cand))
-        ue = ue_t[users].float()                               # (B, d)
         ce = ie_t[cand].float()                                # (B, C, d)
-        return rank_of_target(torch.einsum("bd,bcd->bc", ue, ce))
+        return rank_of_target(torch.einsum("bd,bcd->bc", ue.float(), ce))
 
     return prep, rank
 
 
 def make_eval_fn(topks: Sequence[int], batch_size: int,
                  scoring: str = "gather"):
-    """Build ``evaluate(mf, rows, mask, cand_mask=None) -> {K: (hit_sum,
-    ndcg_sum)}`` (0-d f32 tensors on the tables' device).
+    """Build ``evaluate(mf, rows, mask, cand_mask=None, user_rows=None) ->
+    {K: (hit_sum, ndcg_sum)}`` (0-d f32 tensors on the tables' device).
 
     ``rows``: (n_pad, 2 + C) int32 with n_pad a multiple of ``batch_size``;
     ``mask``: (n_pad,) validity; ``cand_mask``: optional (n_pad, words)
-    packed negative mask enabling the masked modes."""
+    packed negative mask enabling the masked modes; ``user_rows``: optional
+    (n_pad, d) user rows of ``rows`` read in place of ``mf.user_emb``."""
     topks = tuple(topks)
     prep, rank_fn = _make_ranker(scoring)
 
     def evaluate(mfp: MFParams, rows: torch.Tensor, mask: torch.Tensor,
-                 cand_mask: torch.Tensor = None
+                 cand_mask: torch.Tensor = None, user_rows=None
                  ) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
         with torch.no_grad():
-            ctx = prep(mfp)
+            ctx = prep(mfp, user_rows)
             zero = torch.zeros((), dtype=torch.float32,
                                device=mfp.user_emb.device)
             acc = {k: (zero, zero) for k in topks}
             for s in range(0, rows.shape[0] - batch_size + 1, batch_size):
                 sl = slice(s, s + batch_size)
                 cm = None if cand_mask is None else cand_mask[sl]
-                res = hits_and_ndcg_at(rank_fn(ctx, rows[sl], cm), mask[sl],
-                                       topks)
+                res = hits_and_ndcg_at(rank_fn(ctx, rows[sl], cm, sl),
+                                       mask[sl], topks)
                 acc = {k: (acc[k][0] + res[k][0], acc[k][1] + res[k][1])
                        for k in topks}
             return acc
@@ -128,8 +131,9 @@ def make_attributed_eval_fn(topks: Sequence[int], batch_size: int,
     K, the hits that fall on new users and on new items per K, and the four
     old/new-user x old/new-item buckets at the largest K.
 
-    ``evaluate(mf, rows, mask, is_new_user, is_new_item, cand_mask=None)``
-    with ``is_new_user`` (U,) and ``is_new_item`` (I,) 0/1 float tensors;
+    ``evaluate(mf, rows, mask, is_new_user, is_new_item, cand_mask=None,
+    user_rows=None)`` with ``is_new_user`` (U,) and ``is_new_item`` (I,)
+    0/1 float tensors;
     returns ``{"base": {K: (hit_sum, ndcg_sum)}, "hit_new_user": {K: sum},
     "hit_new_item": {K: sum}, "buckets_at_max_k": (4,)}`` (f32 tensors on
     the tables' device)."""
@@ -139,9 +143,9 @@ def make_attributed_eval_fn(topks: Sequence[int], batch_size: int,
 
     def evaluate(mfp: MFParams, rows: torch.Tensor, mask: torch.Tensor,
                  is_new_user: torch.Tensor, is_new_item: torch.Tensor,
-                 cand_mask: torch.Tensor = None):
+                 cand_mask: torch.Tensor = None, user_rows=None):
         with torch.no_grad():
-            ctx = prep(mfp)
+            ctx = prep(mfp, user_rows)
             dev = mfp.user_emb.device
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             base = {k: (zero, zero) for k in topks}
@@ -152,7 +156,7 @@ def make_attributed_eval_fn(topks: Sequence[int], batch_size: int,
                 sl = slice(s, s + batch_size)
                 r, m = rows[sl], mask[sl]
                 cm = None if cand_mask is None else cand_mask[sl]
-                rank = rank_fn(ctx, r, cm)
+                rank = rank_fn(ctx, r, cm, sl)
                 res = hits_and_ndcg_at(rank, m, topks)
                 base = {k: (base[k][0] + res[k][0], base[k][1] + res[k][1])
                         for k in topks}

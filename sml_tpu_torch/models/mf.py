@@ -21,20 +21,56 @@ class MFParams(NamedTuple):
     item_bias: torch.Tensor  # (I, 1)
 
 
+# rows per piece of a table drawn for one row block (a multiple of 16)
+_DRAW_ROWS = 65536
+
+
+def _normal_block(generator: torch.Generator, n: int, d: int, block,
+                  dtype) -> torch.Tensor:
+    """Rows ``[block.offset, block.offset + block.local)`` of
+    ``torch.randn((n, d), generator=generator)``, drawn in pieces of
+    ``_DRAW_ROWS`` rows so no more than one piece of the whole table is
+    ever held. Every piece but the last holds a multiple of 16 values and
+    the last at least 16 (or the whole table): torch's CPU normal sampler
+    turns uniforms into normals 16 at a time and redraws the last 16 of a
+    tensor whose size is not a multiple of 16, so the pieces consume and
+    transform the stream exactly as one draw does."""
+    out = []
+    start = 0
+    while start < n:
+        stop = min(n, start + _DRAW_ROWS)
+        if 0 < (n - stop) * d < 16:
+            stop = n
+        piece = torch.randn((stop - start, d), generator=generator,
+                            dtype=dtype)
+        lo = max(start, block.offset)
+        hi = min(stop, block.offset + block.local)
+        if lo < hi:
+            out.append(piece[lo - start:hi - start].clone())
+        start = stop
+    return torch.cat(out)
+
+
 def init_mf(generator: torch.Generator, n_users: int, n_items: int,
             dim: int, device="cuda", dtype=torch.float32,
-            emb_scale: float = 1.0) -> MFParams:
+            emb_scale: float = 1.0, blocks=None) -> MFParams:
     """N(0,1)·``emb_scale`` tables drawn from ``generator`` (a CPU
-    generator, so the same seed gives the same tables on every device)."""
+    generator, so the same seed gives the same tables on every device).
+    ``blocks`` (``{"user": RowBlock or None, "item": ...}``, row-sharded
+    state) keeps only a side's row block, drawn without the whole table:
+    the same values as the block of the whole draw."""
     device = resolve_device(device)
 
-    def normal(shape):
-        return (torch.randn(shape, generator=generator, dtype=dtype)
-                * emb_scale).to(device)
-    return MFParams(user_emb=normal((n_users, dim)),
-                    item_emb=normal((n_items, dim)),
-                    user_bias=normal((n_users, 1)),
-                    item_bias=normal((n_items, 1)))
+    def normal(n, d, side):
+        block = None if blocks is None else blocks[side]
+        t = (torch.randn((n, d), generator=generator, dtype=dtype)
+             if block is None
+             else _normal_block(generator, n, d, block, dtype))
+        return (t * emb_scale).to(device)
+    return MFParams(user_emb=normal(n_users, dim, "user"),
+                    item_emb=normal(n_items, dim, "item"),
+                    user_bias=normal(n_users, 1, "user"),
+                    item_bias=normal(n_items, 1, "item"))
 
 
 def score_pairs(params: MFParams, users: torch.Tensor,

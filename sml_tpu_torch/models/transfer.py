@@ -362,3 +362,11 @@ def apply_tables(theta: TransferParams, cfg: TransferConfig,
                                block_rows),
                 _apply_blocked(theta, cfg, "item", last_item, hat_item,
                                block_rows))
+
+
+# The JAX package's ``apply_tables_sharded``: the refresh is row-parallel,
+# so on row-sharded tables each rank runs :func:`apply_tables` on its own
+# row blocks (the snapshots it holds), with no collective. For
+# ``conv_com`` on the card that is two K1 launches per rank; a side that
+# stays replicated is refreshed whole on every rank.
+apply_tables_sharded = apply_tables

@@ -23,9 +23,13 @@ _EPS = 1e-15
 
 
 def bce_pair_loss(pos_score: torch.Tensor, neg_score: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean BCE over a (positive, negative) score-pair batch."""
-    denom = torch.clamp(mask.sum(), min=1.0)
+                  mask: torch.Tensor,
+                  denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean BCE over a (positive, negative) score-pair batch.
+    ``denom`` replaces the batch's own valid-row count (a data rank's block
+    of a batch divides by the whole batch's count)."""
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
     pos = -torch.sum(mask * torch.log(torch.sigmoid(pos_score) + _EPS)) / denom
     neg = -torch.sum(mask * torch.log(torch.sigmoid(-neg_score) + _EPS)) / denom
     return pos + neg

@@ -1,0 +1,183 @@
+"""Collectives over a mesh axis and the explicit lookup over row shards
+(counterpart of ``sml_tpu/parallel/collective.py``).
+
+The transport. :func:`all_reduce`, :func:`all_gather` and :func:`broadcast`
+run over one process group (a mesh axis, ``Mesh.group(axis)``) and are a
+pass-through on a group of one rank. The group's backend is fixed when the
+world starts (:func:`sml_tpu_torch.parallel.multihost.init_distributed`):
+NCCL when every rank has a card of its own, gloo when ranks share a card or
+run on the CPU. Gloo takes CUDA tensors for every collective used here
+(all-reduce, all-gather, broadcast: checked with two ranks on one H100
+under torch 2.11, see ``GLOO_CUDA_COLLECTIVES``), so the port hands them
+over as they are and copies nothing to the host itself; ProcessGroupGloo
+stages CUDA tensors through pinned host buffers and reduces them on the
+CPU inside itself, so a gloo collective of CUDA tensors still crosses host
+memory. A collective that fails or outlives the group's timeout raises.
+
+The lookup. Every rank holds a contiguous row block of a table (block
+``r`` of the group's ``M`` ranks: rows ``[r·n/M, (r+1)·n/M)``). A batch of
+global ids, the same on every rank of the group, is resolved by each rank
+gathering the ids it owns, zeroing the rest and summing the ``(B, d)`` rows
+over the group: one all-reduce of the activation rows instead of moving
+table rows. The gradient is the exact transpose, a local scatter-add of the
+incoming gradient into the owned rows **with no collective**: the incoming
+gradient is already the whole loss's on every rank of the group (they all
+compute the same loss), so a second reduction would count it once per
+shard.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# The collectives the port calls, each checked on CUDA tensors over gloo
+# on the card (two ranks on cuda:0, torch 2.11; dryrun.check_transport).
+GLOO_CUDA_COLLECTIVES = frozenset({"all_reduce", "all_gather", "broadcast"})
+
+# this process's place in its world, as init_distributed finds it: the
+# ranks on its host, its index among them, and the mesh groups' backend
+WORLD = {"local_rank": 0, "local_world": 1, "backend": "gloo"}
+
+
+def backend_for(device: torch.device, local_world: int) -> str:
+    """The rule: NCCL when every rank of a host has a card of its own,
+    gloo when ranks share a card or run on the CPU."""
+    if device.type == "cuda" and local_world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def transport(group) -> str:
+    """What moves a CUDA tensor over ``group``: ``"nccl"``, ``"gloo"``
+    (CUDA tensors handed to gloo as they are, which stages them through
+    host memory) or ``"local"`` (one rank)."""
+    if group_size(group) == 1:
+        return "local"
+    return dist.get_backend(group)
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group`` (in place; returns ``t``)."""
+    if group_size(group) == 1:
+        return t
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """The group ranks' ``t`` concatenated along dim 0, in rank order (every
+    rank's ``t`` has the same shape)."""
+    if group_size(group) == 1:
+        return t
+    t = t.contiguous()
+    out = [torch.empty_like(t) for _ in range(group_size(group))]
+    dist.all_gather(out, t, group=group)
+    return torch.cat(out)
+
+
+def broadcast(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """``t`` of the group's rank ``src`` on every rank (in place)."""
+    if group_size(group) == 1:
+        return t
+    dist.broadcast(t, group=group, group_src=src)
+    return t
+
+
+def _owned_rows(table_shard, idx, group, dtype):
+    """``(rows, safe, in_range)``: the rows of ``idx`` this rank holds, 0
+    for the others, before the sum over ``group``."""
+    rows_per = table_shard.shape[0]
+    local = idx.long() - group_rank(group) * rows_per
+    in_range = (local >= 0) & (local < rows_per)
+    safe = torch.clamp(local, 0, rows_per - 1)
+    rows = torch.where(in_range[:, None], table_shard[safe].to(dtype),
+                       torch.zeros((), dtype=dtype, device=table_shard.device))
+    return rows, safe, in_range
+
+
+class _CollectiveGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table_shard, idx, group, dtype):
+        rows, safe, in_range = _owned_rows(table_shard, idx, group, dtype)
+        ctx.save_for_backward(safe, in_range)
+        ctx.shape = table_shard.shape
+        ctx.table_dtype = table_shard.dtype
+        return all_reduce(rows, group)
+
+    @staticmethod
+    def backward(ctx, grad_rows):
+        safe, in_range = ctx.saved_tensors
+        # mask -> local scatter-add: the transpose of the lookup, with no
+        # reduction over the group (each rank keeps its own rows' gradient)
+        grad = torch.zeros(ctx.shape, dtype=grad_rows.dtype,
+                           device=grad_rows.device)
+        grad.index_add_(0, safe, torch.where(in_range[:, None], grad_rows,
+                                             torch.zeros_like(grad_rows)))
+        return grad.to(ctx.table_dtype), None, None, None
+
+
+def collective_gather(table_shard: torch.Tensor, idx: torch.Tensor, group,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Rows ``idx`` (global ids, the same on every rank of ``group``) of a
+    table whose rank ``r`` of ``group`` holds the contiguous block ``r``
+    (``table_shard``, ``(n/M, d)``). Returns ``(B, d)`` rows in ``dtype``
+    (default the table's; the rows are cast before the sum, so a bf16
+    snapshot comes back exactly as its f32 upcast), the same on every rank.
+    Differentiable in ``table_shard``: the gradient is the local scatter-add
+    of the owned rows, with no collective."""
+    dtype = table_shard.dtype if dtype is None else dtype
+    return _CollectiveGather.apply(table_shard, idx, group, dtype)
+
+
+def collective_gather_many(lookups, group,
+                           dtype: torch.dtype) -> list:
+    """:func:`collective_gather` of several ``(table_shard, idx)`` lookups
+    (no gradient) with one all-reduce for all of them: the owned rows of
+    every lookup are summed over ``group`` as one ``(sum B, d)`` tensor."""
+    with torch.no_grad():
+        parts = [_owned_rows(t, idx, group, dtype)[0] for t, idx in lookups]
+        summed = all_reduce(torch.cat(parts), group)
+    return list(summed.split([p.shape[0] for p in parts]))
+
+
+def make_sharded_mf_train_step(mesh, lr: float = 0.01, l2: float = 1e-5):
+    """A BCE MF SGD step with explicit collective lookups: ``step(user_shard,
+    item_shard, u, i, j) -> (user_shard, item_shard, loss)`` with both
+    tables row-sharded over ``mesh``'s ``model`` axis and the id batches
+    the same on every rank. The tables and their updates stay on their
+    ranks; only the ``(B, d)`` activation rows cross between ranks. The
+    shards are updated in place."""
+    group = mesh.group("model")
+
+    def step(user_shard, item_shard, u, i, j):
+        ut = user_shard.detach().requires_grad_()
+        it = item_shard.detach().requires_grad_()
+        with torch.enable_grad():
+            xu = collective_gather(ut, u, group)
+            xi = collective_gather(it, i, group)
+            xj = collective_gather(it, j, group)
+            pos = torch.sum(xu * xi, -1)
+            neg = torch.sum(xu * xj, -1)
+            bce = (-torch.mean(torch.log(torch.sigmoid(pos) + 1e-15))
+                   - torch.mean(torch.log(torch.sigmoid(-neg) + 1e-15)))
+            reg = l2 * 0.5 * (torch.sum(xu * xu) + torch.sum(xi * xi)
+                              + torch.sum(xj * xj))
+            loss = bce + reg
+            gu, gi = torch.autograd.grad(loss, [ut, it])
+        with torch.no_grad():
+            user_shard.sub_(lr * gu)
+            item_shard.sub_(lr * gi)
+        return user_shard, item_shard, loss.detach()
+
+    return step

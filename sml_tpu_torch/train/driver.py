@@ -12,7 +12,12 @@ Per period t:
 4. a final refresh;
 
 then the end-of-run weighted aggregation of the test periods. Records go
-to the jsonl log in the JAX package's kinds and order. With
+to the jsonl log in the JAX package's kinds and order. Under a
+multi-process placement every rank runs the driver, its collectives in the
+same order; the epochs' losses and the evaluations' sums are already the
+whole world's, so :meth:`finalize` runs on every rank and every rank
+reaches the same saddle-guard decisions. The caller gives the ranks other
+than the main one a logger that writes nothing (as ``sml`` does). With
 ``cfg.attributed_eval`` and the dataset's new-entity id files, each test is
 the attributed evaluation (its base sums make the ``test`` record) and adds
 a ``test_attribution`` record; with ``cfg.profile_dir`` period
@@ -460,7 +465,9 @@ class SMLDriver:
 
 def _mean_loss(losses, n_real: int, batch_size: int) -> float:
     """Mean per-batch loss over the REAL batches of an epoch (the skipped
-    tail reports 0 and is excluded)."""
+    tail reports 0 and is excluded). Under a mesh each batch's loss is the
+    whole batch's (summed over 'data' by the epoch), so every rank reads
+    the global mean."""
     nb = max(-(-n_real // batch_size), 1)
     if isinstance(losses, torch.Tensor):
         losses = losses.detach().cpu().numpy()

@@ -13,6 +13,14 @@ attribution by entity freshness.
 The JAX package's fused phase and period programs exist to cut JAX
 dispatches and compiles; the port runs eagerly and has only the
 epoch-at-a-time path. Tables, Θ and moments are updated in place.
+
+Under a mesh (:meth:`SMLEngine.set_mesh`, the ``placement`` property or
+:meth:`SMLEngine.init_state_sharded`) each rank holds its row blocks of the
+row-aligned leaves (``parallel/sharding.py``): the epochs keep each
+batch's block over 'data' and read rows through the collective lookup, the
+refresh runs on the blocks (two K1 launches per rank), and an evaluation
+all-gathers the item table once, reads its rows' user rows once, ranks
+this rank's block of the test rows (K2) and sums over 'data'.
 """
 
 from __future__ import annotations
@@ -31,10 +39,12 @@ from sml_tpu_torch.eval.evaluator import (make_attributed_eval_fn,
                                           make_eval_fn)
 from sml_tpu_torch.models.mf import MFParams, init_mf, with_tables
 from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
-                                           apply_tables, init_transfer,
-                                           theta_leaves)
+                                           apply_tables,
+                                           init_transfer, theta_leaves)
 from sml_tpu_torch.ops import eval_kernel
-from sml_tpu_torch.ops.batching import PaddedRows, pad_rows
+from sml_tpu_torch.ops.batching import PaddedRows, bucket_rows, pad_rows
+from sml_tpu_torch.parallel.sharding import (TableLayout, shard_rows,
+                                             state_shardings)
 from sml_tpu_torch.ops.sampling import (PeriodIndex, build_period_index,
                                         sampler_stats)
 from sml_tpu_torch.train.optim import (AdamState, adam_init, adam_update,
@@ -132,6 +142,12 @@ class SMLEngine:
         self.shape_targets: Dict[str, int] = {}
         # the latest sampler-quality probe and warm-start loss (log_norms)
         self.sampler_stats: Dict[str, float] = {}
+        # row-sharded state (set_mesh): the mesh, the epochs' layout and
+        # the per-leaf plan; the multi-process placement, when one is set
+        self.mesh = None
+        self.layout: Optional[TableLayout] = None
+        self.plan = None
+        self._placement = None
 
     # ------------------------------------------------------------------ state
     def _snap_dtype(self) -> torch.dtype:
@@ -163,6 +179,13 @@ class SMLEngine:
             mf = init_mf(gen, self.n_users, self.n_items,
                          self.cfg.latent_dim, device=self.device,
                          emb_scale=self.cfg.emb_init_scale)
+        return self._fresh_state(mf, skip_theta_warmstart)
+
+    def _fresh_state(self, mf: MFParams,
+                     skip_theta_warmstart: bool) -> SMLState:
+        """The state around fresh tables ``mf``: Θ from its seed (warm-
+        started unless skipped), zero ``last``, ``hat`` at the tables, zero
+        moments and the run's generator."""
         theta = init_transfer(
             torch.Generator().manual_seed(self._theta_seed()),
             self.cfg.transfer, device=self.device)
@@ -182,6 +205,68 @@ class SMLEngine:
             tr_opt=adam_init(theta_leaves(theta)),
             gen=self._generator(self.cfg.seed, "run"))
 
+    @property
+    def placement(self):
+        return self._placement
+
+    @placement.setter
+    def placement(self, p) -> None:
+        """A ``parallel.multihost.MultihostPlacement``: its mesh becomes the
+        engine's (:meth:`set_mesh`)."""
+        self._placement = p
+        self.set_mesh(None if p is None else p.mesh)
+
+    def set_mesh(self, mesh) -> None:
+        """Tell the engine its state is row-sharded over ``mesh``: the
+        epochs, the evaluation and the diagnostics take the mesh's layout
+        (the refresh needs nothing: it runs on the row blocks the state
+        holds)."""
+        self.mesh = mesh
+        self.layout = (None if mesh is None
+                       else TableLayout(mesh, self.n_users, self.n_items))
+        self.plan = (None if mesh is None
+                     else state_shardings(None, mesh, self.n_users,
+                                          self.n_items))
+        self._inner = make_inner_epoch(self.cfg, self.layout)
+        self._outer = make_outer_epoch(self.cfg, self.layout)
+
+    def init_state_sharded(self, mesh, pretrained_mf: Optional[MFParams]
+                           = None, skip_theta_warmstart: bool = False
+                           ) -> SMLState:
+        """:meth:`init_state` with every row-aligned leaf born as this
+        rank's row block of ``mesh`` (and the engine set to the mesh): the
+        tables are drawn block by block (``models.mf.init_mf``), pretrained
+        tables are cut on the host before they move, so no rank ever holds
+        a whole table. Leaf for leaf equal to ``init_state`` followed by
+        ``sharding.shard_state``."""
+        self.set_mesh(mesh)
+        blocks = self.layout.blocks
+        if pretrained_mf is not None:
+            mf = MFParams(*(
+                shard_rows(torch.as_tensor(t), self.plan[f"mf/{f}"])
+                .to(self.device, copy=True)
+                for f, t in zip(MFParams._fields, pretrained_mf)))
+        else:
+            gen = torch.Generator().manual_seed(self.cfg.seed)
+            mf = init_mf(gen, self.n_users, self.n_items,
+                         self.cfg.latent_dim, device=self.device,
+                         emb_scale=self.cfg.emb_init_scale, blocks=blocks)
+        return self._fresh_state(mf, skip_theta_warmstart)
+
+    def _table_rows(self, table: torch.Tensor, idx: torch.Tensor,
+                    side: str) -> torch.Tensor:
+        """Rows ``idx`` (global ids) of a ``side`` table, whole or a row
+        block under the mesh."""
+        if self.layout is None:
+            return table[idx]
+        return self.layout.rows_many([(table, idx, side)],
+                                     dtype=table.dtype)[0]
+
+    def _rows_of(self, table: torch.Tensor, side: str) -> int:
+        """The global row count of a ``side`` table (whole or a block)."""
+        block = None if self.layout is None else self.layout.blocks[side]
+        return table.shape[0] if block is None else block.rows
+
     def _theta_warmstart(self, theta: TransferParams, mf: MFParams,
                          gen: torch.Generator,
                          steps: Optional[int] = None) -> TransferParams:
@@ -195,12 +280,15 @@ class SMLEngine:
         leaves = theta_leaves(theta)
         opt = adam_init(leaves)
         loss = None
+        n_u = self._rows_of(mf.user_emb, "user")
+        n_i = self._rows_of(mf.item_emb, "item")
         for _ in range(n_steps):
-            iu = torch.randint(0, mf.user_emb.shape[0], (n_rows,),
-                               generator=gen, device=self.device)
-            ii = torch.randint(0, mf.item_emb.shape[0], (n_rows,),
-                               generator=gen, device=self.device)
-            xu, xi = mf.user_emb[iu], mf.item_emb[ii]
+            iu = torch.randint(0, n_u, (n_rows,), generator=gen,
+                               device=self.device)
+            ii = torch.randint(0, n_i, (n_rows,), generator=gen,
+                               device=self.device)
+            xu = self._table_rows(mf.user_emb, iu, "user")
+            xi = self._table_rows(mf.item_emb, ii, "item")
             with torch.enable_grad():
                 pu = apply_rows(theta, cfg.transfer, "user", xu, xu)
                 pi = apply_rows(theta, cfg.transfer, "item", xi, xi)
@@ -245,9 +333,13 @@ class SMLEngine:
         """Pad and upload the inner pool (and build its sampling index in
         'alone' mode). In 'all' mode with unified pad bounds the pool is
         the same eval-format matrix the eval path uploads, so it is served
-        from the upload cache."""
+        from the upload cache. Under a mesh every rank holds the whole
+        epoch (it makes the whole batch's draws); each step keeps its
+        rank's block (``train/steps.py``)."""
         bound = self.shape_targets.get("set_t", 0)
-        if (self.cfg.mf_sample == "all" and bound
+        # under a mesh the eval sets hold one data block while every rank
+        # trains on the whole epoch, so the upload is not shared there
+        if (self.cfg.mf_sample == "all" and bound and self.layout is None
                 and self.cfg.upload_dedup
                 and bound == self.shape_targets.get("eval")
                 and self.cfg.mf_batch_size == self.cfg.eval_batch_size):
@@ -316,7 +408,9 @@ class SMLEngine:
 
     def refresh(self, state: SMLState) -> SMLState:
         """``updata``: MF tables <- Θ(last, hat); for ``conv_com`` on the
-        card one K1 launch per side."""
+        card one K1 launch per side. Under a mesh the snapshots are the
+        rank's row blocks, so this is the sharded refresh
+        (``apply_tables_sharded``), with no collective."""
         new_u, new_i = apply_tables(
             state.theta, self.cfg.transfer,
             state.last_user, state.hat_user,
@@ -345,22 +439,39 @@ class SMLEngine:
         return state._replace(theta=theta, tr_opt=opt), losses
 
     def diagnostics(self, state: SMLState) -> Dict[str, float]:
-        """Mean per-row squared norm of the tables and snapshots, and the
-        global L2 norm of Θ."""
+        """Mean per-row squared norm of the tables and snapshots (over the
+        whole tables under a mesh), and the global L2 norm of Θ."""
         with torch.no_grad():
-            def rownorm(t):
+            def rownorm(t, side):
                 t = t.float()
-                return torch.mean(torch.sum(t * t, dim=-1))
+                if self.layout is None:
+                    return torch.mean(torch.sum(t * t, dim=-1))
+                return (self.layout.sum_rows(torch.sum(t * t), side)
+                        / self._rows_of(t, side))
             theta_sq = sum(torch.sum(p * p)
                            for p in theta_leaves(state.theta).values())
-            vals = (rownorm(state.mf.user_emb), rownorm(state.mf.item_emb),
-                    rownorm(state.hat_user), rownorm(state.hat_item),
-                    rownorm(state.last_user), rownorm(state.last_item),
+            vals = (rownorm(state.mf.user_emb, "user"),
+                    rownorm(state.mf.item_emb, "item"),
+                    rownorm(state.hat_user, "user"),
+                    rownorm(state.hat_item, "item"),
+                    rownorm(state.last_user, "user"),
+                    rownorm(state.last_item, "item"),
                     torch.sqrt(theta_sq))
             return {n: float(v) for n, v in zip(DIAG_NAMES, vals)}
 
+    def whole_state(self, state: SMLState) -> SMLState:
+        """The global state with CPU table leaves: under a mesh the row
+        blocks are all-gathered over 'model' (every rank calls this)."""
+        if self.layout is None:
+            return state
+        from sml_tpu_torch.parallel.multihost import whole_state
+        return whole_state(state, self.mesh, self.n_users, self.n_items)
+
     def fetch_host(self, tree):
-        """Tensors of a nested tuple / list / dict -> numpy on the host."""
+        """Tensors of a nested tuple / list / dict -> numpy on the host; an
+        ``SMLState`` under a mesh is made whole first (a collective)."""
+        if isinstance(tree, SMLState):
+            tree = self.whole_state(tree)
         if isinstance(tree, torch.Tensor):
             return tree.detach().cpu().numpy()
         if isinstance(tree, dict):
@@ -382,6 +493,8 @@ class SMLEngine:
         their own (``eval_set_hash``, ``eval_set_pad_upload``,
         ``eval_set_mask``)."""
         build_mask = build_mask and self._want_masks
+        if self.layout is not None:
+            return self._make_eval_block(test_rows, build_mask)
         key = None
         if self.cfg.upload_dedup:
             with annotate("eval_set_hash"):
@@ -402,6 +515,80 @@ class SMLEngine:
             self._cache_upload(key, padded)
         return padded
 
+    def _make_eval_block(self, test_rows: np.ndarray,
+                         build_mask: bool) -> PaddedRows:
+        """:meth:`make_eval_set` under a mesh: this rank's block over
+        'data' of the padded set, padded so that every block is a whole
+        number of eval batches; ``n_real`` stays the global count. The
+        cache is keyed on the block's rows (and the set's shape)."""
+        n, b = test_rows.shape[0], self.cfg.eval_batch_size
+        n_pad = max(bucket_rows(n, b),
+                    bucket_rows(self.shape_targets.get("eval", 0), b))
+        per = b * self.mesh.shape["data"]
+        sl = self.layout.data_slice(-(-n_pad // per) * per)
+        part = np.ascontiguousarray(test_rows[sl.start:min(sl.stop, n)])
+        key = None
+        if self.cfg.upload_dedup:
+            with annotate("eval_set_hash"):
+                key = ("block", test_rows.shape, sl.start, sl.stop,
+                       _content_key(part))
+            hit = self._upload_cache.get(key)
+            if hit is not None:
+                if build_mask and hit.cand_mask is None:
+                    hit = hit._replace(cand_mask=self._build_cand_mask(hit))
+                    self._cache_upload(key, hit)
+                return hit
+        with annotate("eval_set_pad_upload"):
+            rows = np.zeros((sl.stop - sl.start, test_rows.shape[1]),
+                            np.int32)
+            rows[:part.shape[0]] = part
+            mask = np.zeros(rows.shape[0], np.float32)
+            mask[:part.shape[0]] = 1.0
+            padded = PaddedRows(torch.from_numpy(rows).to(self.device),
+                                torch.from_numpy(mask).to(self.device), n)
+        if build_mask:
+            padded = padded._replace(cand_mask=self._build_cand_mask(padded))
+        if key is not None:
+            self._cache_upload(key, padded)
+        return padded
+
+    def _eval_inputs(self, mf: MFParams, padded: PaddedRows):
+        """``(mf, user_rows)`` for the evaluators: single-rank, the tables
+        as they are; under a mesh the item table all-gathered over 'model'
+        and the rows' user rows read once through the collective lookup."""
+        if self.layout is None:
+            return mf, None
+        users = self._table_rows(mf.user_emb, padded.rows[:, 0], "user")
+        return (mf._replace(item_emb=self.layout.whole(mf.item_emb, "item")),
+                users)
+
+    def _sum_data(self, tree):
+        """A nested dict / tuple of f32 sums, summed over 'data' in one
+        all-reduce (single-rank: as it is)."""
+        if self.layout is None:
+            return tree
+        flat = []
+
+        def collect(t):
+            if isinstance(t, dict):
+                return {k: collect(v) for k, v in t.items()}
+            if isinstance(t, tuple):
+                return tuple(collect(v) for v in t)
+            flat.append(t)
+            return len(flat) - 1
+        shape = collect(tree)
+        summed = self.layout.sum_data(torch.cat([t.reshape(-1)
+                                                 for t in flat]))
+        parts = summed.split([t.numel() for t in flat])
+
+        def rebuild(t):
+            if isinstance(t, dict):
+                return {k: rebuild(v) for k, v in t.items()}
+            if isinstance(t, tuple):
+                return tuple(rebuild(v) for v in t)
+            return parts[t].view_as(flat[t])
+        return rebuild(shape)
+
     def _build_cand_mask(self, padded: PaddedRows) -> torch.Tensor:
         """Packed mask over the negatives ``rows[:, 2:]`` (col 0 is the
         user, col 1 the target)."""
@@ -418,11 +605,14 @@ class SMLEngine:
 
     def evaluate_deferred(self, mf: MFParams, test_rows):
         """Run an eval without reading the result back: ``(sums, n)`` with
-        ``sums`` = {K: (hit, ndcg)} 0-d tensors on the device."""
+        ``sums`` = {K: (hit, ndcg)} 0-d tensors on the device (under a mesh
+        already summed over 'data')."""
         padded = (test_rows if isinstance(test_rows, PaddedRows)
                   else self.make_eval_set(test_rows))
-        return (self._eval(mf, padded.rows, padded.mask, padded.cand_mask),
-                max(padded.n_real, 1))
+        mf, users = self._eval_inputs(mf, padded)
+        sums = self._eval(mf, padded.rows, padded.mask, padded.cand_mask,
+                          user_rows=users)
+        return self._sum_data(sums), max(padded.n_real, 1)
 
     def resolve_evals(self, deferred):
         """``evaluate_deferred`` results -> list of {K: {recall, ndcg}}."""
@@ -446,9 +636,11 @@ class SMLEngine:
         (I,) are 0/1 f32 tensors on the engine's device."""
         padded = (test_rows if isinstance(test_rows, PaddedRows)
                   else self.make_eval_set(test_rows))
-        return (self._eval_attr(mf, padded.rows, padded.mask, is_new_user,
-                                is_new_item, padded.cand_mask),
-                max(padded.n_real, 1))
+        mf, users = self._eval_inputs(mf, padded)
+        out = self._eval_attr(mf, padded.rows, padded.mask, is_new_user,
+                              is_new_item, padded.cand_mask,
+                              user_rows=users)
+        return self._sum_data(out), max(padded.n_real, 1)
 
     def resolve_attributed(self, deferred):
         """``evaluate_attributed_deferred`` results -> one record each: the
@@ -481,10 +673,27 @@ class SMLEngine:
         return self.resolve_attributed([self.evaluate_attributed_deferred(
             mf, test_rows, is_new_user, is_new_item)])[0]
 
+    def serve_topk(self, mf: MFParams, users: torch.Tensor, k: int,
+                   compute_dtype=None, topk_method: str = "exact"):
+        """Full-catalog top-K for ``users`` from the state's tables:
+        ``eval.full_ranking``'s dense path, or under a mesh whose item
+        table is row-sharded its sharded merge (user rows through the
+        collective lookup). Returns (scores, ids), the same on every
+        rank."""
+        from sml_tpu_torch.eval.full_ranking import (dense_full_topk,
+                                                     make_sharded_full_topk)
+        rows = self._table_rows(mf.user_emb, users.long(), "user")
+        if self.layout is not None and self.layout.sharded("item"):
+            return make_sharded_full_topk(self.mesh, k, compute_dtype,
+                                          topk_method)(rows, mf.item_emb)
+        return dense_full_topk(rows, mf.item_emb, k, compute_dtype,
+                               topk_method)
+
     def new_entity_masks(self, new_users: np.ndarray,
                          new_items: np.ndarray):
         """0/1 f32 masks over the user and item ids (on the engine's
-        device) from the dataset's new-entity id files."""
+        device) from the dataset's new-entity id files; every rank holds
+        them whole under a mesh (they are small, as in the JAX package)."""
         def mask(n, ids):
             m = torch.zeros(n, dtype=torch.float32, device=self.device)
             m[torch.from_numpy(np.asarray(ids, np.int64)).to(

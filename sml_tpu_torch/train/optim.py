@@ -26,7 +26,7 @@ touched rows.
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -122,7 +122,8 @@ def _collapse_duplicates(idx: torch.Tensor, rows: torch.Tensor
 def sparse_dense_adam_update(params, state: AdamState,
                              sparse: Dict[str, TableGrad], *, lr: float,
                              b1: float = ADAM_B1, b2: float = ADAM_B2,
-                             eps: float = ADAM_EPS) -> AdamState:
+                             eps: float = ADAM_EPS,
+                             blocks: Optional[Dict] = None) -> AdamState:
     """One weight-decay-0 :func:`adam_update` step with exact dense
     semantics for row-sparse gradients, in place.
 
@@ -140,7 +141,13 @@ def sparse_dense_adam_update(params, state: AdamState,
 
     ``params`` is a NamedTuple of tables (row axis first); ``sparse`` maps
     field names to row gradients; other fields (the never-scored bias
-    tables) get the pure decay."""
+    tables) get the pure decay.
+
+    ``blocks`` (row-sharded tables, ``parallel/sharding.py``) maps a field
+    to the ``RowBlock`` its local table holds: ``sparse`` then carries the
+    whole batch's global ids (every data rank's), duplicates are summed
+    over all of them, and only the owned ids are fixed up, at their local
+    rows."""
     count = state.count + 1
     bc1, bc2 = bias_corrections(count, b1, b2)
     leaves = {name: (getattr(params, name), state.mu[name], state.nu[name])
@@ -149,8 +156,14 @@ def sparse_dense_adam_update(params, state: AdamState,
         fixes = []
         for name, (idx, g_rows) in sparse.items():
             p, mu, nu = leaves[name]
-            fixes.append((leaves[name], idx, _collapse_duplicates(idx, g_rows),
-                          p[idx], mu[idx], nu[idx]))
+            g_sum = _collapse_duplicates(idx, g_rows)
+            block = None if blocks is None else blocks.get(name)
+            if block is not None:
+                local = idx - block.offset
+                own = (local >= 0) & (local < block.local)
+                idx, g_sum = local[own], g_sum[own]
+            fixes.append((leaves[name], idx, g_sum, p[idx], mu[idx],
+                          nu[idx]))
         fused_decay_adam_multi(leaves.values(), bc1, bc2, lr=lr, b1=b1,
                                b2=b2, eps=eps)
         for (p, mu, nu), idx, g_sum, p_rows, mu_rows, nu_rows in fixes:

@@ -25,6 +25,25 @@ Gradient flow, as in the JAX package:
 Parameters and moments are updated in place. Random draws (negative
 columns, shuffles, sampled negatives) come from one ``torch.Generator`` on
 the device, in a fixed order; replay mode draws nothing.
+
+Under a mesh (``layout``, a :class:`~sml_tpu_torch.parallel.sharding.
+TableLayout`) the inner and outer epochs write out what GSPMD inserts in
+the JAX package:
+
+* data axis: every rank makes the whole global batch's draws from its copy
+  of the shared generator (shuffle, 'all'-mode column, sampled negatives)
+  and keeps its block ``[d·B/D, (d+1)·B/D)``, so R ranks draw what one
+  rank draws. The masked mean losses divide by the whole batch's mask
+  count; Θ's and the dense tables' gradients and the loss are summed over
+  'data' only (the model ranks compute the same loss, so a sum over
+  'model' would count it M times);
+* model axis: table and snapshot rows come through the collective lookup,
+  whose gradient is a local scatter-add;
+* row-sparse table Adam: the per-row gradients are all-gathered over
+  'data' in the single-rank order before the duplicate sums, then each
+  rank decays its own rows (K3) and fixes up the ids it owns.
+
+Without ``layout`` the code path is the single-rank one.
 """
 
 from __future__ import annotations
@@ -66,10 +85,11 @@ def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
 
 def transferred_pair_loss(theta: TransferParams, tcfg: TransferConfig,
                           lu, li, lj, xu, xi, xj, mask: torch.Tensor,
-                          use_bce: bool) -> torch.Tensor:
+                          use_bce: bool, denom=None) -> torch.Tensor:
     """Score a (u, i, j) batch through Θ and reduce to the SML loss; the
     positive and negative item rows go through the item tower as one
-    (2B, ·) batch."""
+    (2B, ·) batch. ``denom``: the BCE mean's divisor, where it is not this
+    batch's own mask count."""
     b = xu.shape[0]
     nu = apply_rows(theta, tcfg, "user", lu, xu)
     nij = apply_rows(theta, tcfg, "item", torch.cat([li, lj], dim=0),
@@ -77,7 +97,7 @@ def transferred_pair_loss(theta: TransferParams, tcfg: TransferConfig,
     pos = torch.sum(nu * nij[:b], dim=-1)
     neg = torch.sum(nu * nij[b:], dim=-1)
     if use_bce:
-        return bce_pair_loss(pos, neg, mask)
+        return bce_pair_loss(pos, neg, mask, denom)
     return bpr_loss(pos, neg, mask)
 
 
@@ -109,18 +129,65 @@ def _triple(r: torch.Tensor, mode: str, index: Optional[PeriodIndex],
     return u, i, j
 
 
-def make_inner_epoch(cfg: SMLConfig):
+def _block(layout, u, i, j, m):
+    """This data rank's block of a batch's ids and mask, and the whole
+    batch's valid-row count."""
+    denom = torch.clamp(m.sum(), min=1.0)
+    sl = layout.data_slice(m.shape[0])
+    return u[sl], i[sl], j[sl], m[sl], denom
+
+
+def make_inner_epoch(cfg: SMLConfig, layout=None):
     """Inner (MF) epoch through the frozen Θ: ``epoch(mf, opt, theta,
     last_u, last_i, rows, mask, n_real, generator, index=None) -> (mf,
-    opt, losses)``, with ``mf`` updated in place."""
+    opt, losses)``, with ``mf`` updated in place. With ``layout`` the
+    tables are this rank's row blocks and the losses are the whole
+    batch's."""
     tcfg = cfg.transfer
     batch = cfg.mf_batch_size
     mode = "replay" if cfg.replay_mode else cfg.mf_sample
 
-    def row_loss(xu, xi, xj, theta, lu, li, lj, m):
+    def row_loss(xu, xi, xj, theta, lu, li, lj, m, denom=None):
         loss = transferred_pair_loss(theta, tcfg, lu, li, lj, xu, xi, xj, m,
-                                     cfg.use_bce)
+                                     cfg.use_bce, denom)
         return loss + cfg.mf_l2 * l2_embedding_penalty(m, xu, xi, xj)
+
+    def sharded_step(mf, opt, theta, last_u, last_i, u, i, j, m):
+        bu, bi, bj, bm, denom = _block(layout, u, i, j, m)
+        if cfg.fast_table_adam:
+            lu, li, lj, *xs = layout.rows_many(
+                [(last_u, bu, "user"), (last_i, bi, "item"),
+                 (last_i, bj, "item"), (mf.user_emb, bu, "user"),
+                 (mf.item_emb, bi, "item"), (mf.item_emb, bj, "item")])
+            xs = [x.requires_grad_() for x in xs]
+            with torch.enable_grad():
+                loss = row_loss(*xs, theta, lu, li, lj, bm, denom)
+                grads = torch.autograd.grad(loss, xs)
+            # the whole batch's row gradients, in the single-rank order
+            gu, gi, gj = layout.gather_data(list(grads))
+            sparse = {"user_emb": TableGrad(u.long(), gu),
+                      "item_emb": TableGrad(torch.cat([i, j]).long(),
+                                            torch.cat([gi, gj], dim=0))}
+            opt = sparse_dense_adam_update(
+                mf, opt, sparse, lr=cfg.mf_lr,
+                blocks={"user_emb": layout.blocks["user"],
+                        "item_emb": layout.blocks["item"]})
+            return opt, layout.sum_data(loss.detach())
+        lu, li, lj = layout.rows_many([(last_u, bu, "user"),
+                                       (last_i, bi, "item"),
+                                       (last_i, bj, "item")])
+        tabs = {f: getattr(mf, f).detach().requires_grad_()
+                for f in ("user_emb", "item_emb")}
+        with torch.enable_grad():
+            loss = row_loss(layout.rows(tabs["user_emb"], bu, "user"),
+                            layout.rows(tabs["item_emb"], bi, "item"),
+                            layout.rows(tabs["item_emb"], bj, "item"),
+                            theta, lu, li, lj, bm, denom)
+            grads = torch.autograd.grad(loss, list(tabs.values()))
+        grads, loss = _sum_data(layout, list(grads), loss.detach())
+        opt = adam_update(mf._asdict(), dict(zip(tabs, grads)), opt,
+                          lr=cfg.mf_lr)
+        return opt, loss
 
     def epoch(mf: MFParams, opt: AdamState, theta: TransferParams,
               last_u, last_i, rows, mask, n_real: int,
@@ -130,6 +197,9 @@ def make_inner_epoch(cfg: SMLConfig):
 
         def step(opt, r, m, gen):
             u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
+            if layout is not None:
+                return sharded_step(mf, opt, theta, last_u, last_i, u, i, j,
+                                    m)
             lu, li, lj = _g32(last_u, u), _g32(last_i, i), _g32(last_i, j)
             if cfg.fast_table_adam:
                 xs = [mf.user_emb[u].requires_grad_(),
@@ -161,10 +231,21 @@ def make_inner_epoch(cfg: SMLConfig):
     return epoch
 
 
-def make_outer_epoch(cfg: SMLConfig):
+def _sum_data(layout, grads, loss):
+    """Gradients and the loss summed over 'data', in one all-reduce."""
+    flat = layout.sum_data(torch.cat([g.reshape(-1) for g in grads]
+                                     + [loss.reshape(1)]))
+    parts = flat.split([g.numel() for g in grads] + [1])
+    return ([p.view_as(g) for p, g in zip(parts, grads)],
+            parts[-1].reshape(()))
+
+
+def make_outer_epoch(cfg: SMLConfig, layout=None):
     """Outer (Θ) epoch on the detached snapshots: ``epoch(theta, opt,
     last_u, last_i, hat_u, hat_i, rows, mask, n_real, generator,
-    index=None) -> (theta, opt, losses)``, with Θ updated in place."""
+    index=None) -> (theta, opt, losses)``, with Θ updated in place. With
+    ``layout`` the snapshots are this rank's row blocks and the losses are
+    the whole batch's."""
     tcfg = cfg.transfer
     batch = cfg.tr_batch_size
     mode = "replay" if cfg.replay_mode else cfg.tr_sample_type
@@ -175,8 +256,25 @@ def make_outer_epoch(cfg: SMLConfig):
         rows = _epoch_triples(rows, generator, mode)
         leaves = theta_leaves(theta)
 
+        def sharded_step(opt, u, i, j, m):
+            bu, bi, bj, bm, denom = _block(layout, u, i, j, m)
+            rows = layout.rows_many(
+                [(last_u, bu, "user"), (last_i, bi, "item"),
+                 (last_i, bj, "item"), (hat_u, bu, "user"),
+                 (hat_i, bi, "item"), (hat_i, bj, "item")])
+            with torch.enable_grad():
+                loss = transferred_pair_loss(theta, tcfg, *rows, bm,
+                                             cfg.use_bce, denom)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads, loss = _sum_data(layout, list(grads), loss.detach())
+            opt = adam_update(leaves, dict(zip(leaves, grads)), opt,
+                              lr=cfg.tr_lr, weight_decay=cfg.tr_l2)
+            return opt, loss
+
         def step(opt, r, m, gen):
             u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
+            if layout is not None:
+                return sharded_step(opt, u, i, j, m)
             with torch.enable_grad():
                 loss = transferred_pair_loss(
                     theta, tcfg, _g32(last_u, u), _g32(last_i, i),

@@ -16,7 +16,8 @@ bit-equal to its plain version (every operation explicitly rounded), ``p``
 held to rtol 1e-6; P2 exact on integer tables and within 1e-4 on N(0,1)
 ones (bf16 products are exact in f32, only the order of the sums differs),
 on int64 strided and int32 ids, out-of-range ids and odd B and C;
-P3 exact on integer tables. The edge-case rows: no bit set, every item
+P3 exact on integer tables; two and four ranks sharing the card over
+gloo within 1e-4 of one rank. The edge-case rows: no bit set, every item
 set, one 16-byte chunk of the mask, its last chunk (K2, P3); no bit, one
 bit, one full 4096-item mask block, every item (P1). P1 also at widths
 that are not multiples of 16 (zero-padded, exact).
@@ -690,3 +691,27 @@ def test_profiled_period_on_card_traces_kernels(card, tmp_path, capsys):
     assert any("transfer_rows" in e["name"] for e in kernels)
     spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     assert {"refresh", "inner_epoch", "outer_epoch"} <= spans
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_ranks_sharing_the_card_match_one_rank(card, n):
+    """``dryrun_multichip`` with every rank on cuda:0 over gloo (mesh (1, 2)
+    or (2, 2)): one full step in 'alone', replay and 'all' mode within
+    1e-4 of one rank on the card, sharded serving equal to dense; every
+    rank launches K1 twice per refresh and K3 once per fast step, as many
+    as every other rank (the dry run's test scores by gathering, as the
+    JAX dry run's does: its 32 items hold each row's target among the 999
+    negatives, which the masked modes would rank against itself; the
+    smoke's parallel phase drives K2 on a mesh)."""
+    from sml_tpu_torch.parallel.dryrun import dryrun_multichip
+    report = dryrun_multichip(n, device="cuda", timeout_s=300)
+    for mode in ("alone", "replay", "all"):
+        assert max(report[mode]["max_delta"].values()) < 1e-4
+        per_rank = report[mode]["launches"]
+        assert len(per_rank) == n
+        for launches in per_rank:
+            assert launches["transfer_rows_kernel"] == 4
+            assert launches["masked_rank_gather_kernel"] == 0
+            assert launches["decay_adam_kernel"] > 0
+            assert launches == per_rank[0]
+    assert report["serving"] <= 1e-5

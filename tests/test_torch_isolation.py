@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no ``sml_tpu``, no quiet CPU fallback.
 
-* every module of ``sml_tpu_torch`` (and ``chip_smoke.py``) imports in a
-  fresh interpreter where ``jax``, ``jaxlib``, ``optax`` and ``sml_tpu``
-  cannot be imported;
+* every module of ``sml_tpu_torch`` (``parallel/`` included) and
+  ``chip_smoke.py`` imports in a fresh interpreter where ``jax``,
+  ``jaxlib``, ``optax`` and ``sml_tpu`` cannot be imported;
 * no file of the port names them in an import statement (matched exactly:
   ``sml_tpu`` and ``sml_tpu.*``, never the port's own ``sml_tpu_torch``);
 * an entry point called without ``device`` raises on a host without a GPU;
@@ -25,7 +25,9 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "sml_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the multi-process tests' rank functions start without JAX as well
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_workers.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -53,6 +55,11 @@ def test_port_sources_import_no_jax_or_reference():
                           for n in names if _forbidden(n)]
     assert not offenders, offenders
     assert len(_port_files()) > 15
+    # the parallel layer is among the files checked
+    names = {str(f.relative_to(PORT)) for f in _port_files()
+             if PORT in f.parents}
+    assert {f"parallel/{m}.py" for m in ("sharding", "collective",
+                                         "multihost", "dryrun")} <= names
 
 
 def test_port_imports_with_jax_blocked():
@@ -116,6 +123,15 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(tmp_path):
         theta_from_numpy(tree)
     with pytest.raises(RuntimeError, match="cuda"):
         pad_rows(np.zeros((3, 4), np.int64), 8)
+    # the multi-rank launchers and the dry run, before any rank starts
+    from sml_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                               run_cli_world, run_world)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_world("sml_tpu_torch.parallel.dryrun:check_transport", 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_cli_world(["rank", "--model", str(model), "--users", "0"], 2)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

@@ -1,0 +1,239 @@
+"""Rank functions for the port's multi-process tests.
+
+``sml_tpu_torch.parallel.dryrun.run_world`` spawns each rank, which
+imports the module holding its function: this module imports neither JAX
+nor ``sml_tpu``, so a rank starts without them. Every function takes the
+rank's device first and returns numpy arrays (rank 0's answer is the one
+the tests read; the others return theirs too).
+"""
+
+import numpy as np
+import torch
+
+
+def _mesh(shape):
+    from sml_tpu_torch.parallel.sharding import make_mesh
+    return make_mesh(*shape)
+
+
+def _block(n, mesh):
+    per = n // mesh.shape["model"]
+    lo = mesh.index("model") * per
+    return slice(lo, lo + per)
+
+
+def gather_and_grad(device, table, idx, w, n_model):
+    """``collective_gather`` of ``idx`` from the rank's block of ``table``
+    and the gradient of ``sum(rows * w)`` in that block."""
+    from sml_tpu_torch.parallel.collective import collective_gather
+    mesh = _mesh((1, n_model))
+    shard = torch.from_numpy(table[_block(table.shape[0], mesh)].copy())
+    shard.requires_grad_()
+    rows = collective_gather(shard, torch.from_numpy(idx),
+                             mesh.group("model"))
+    (g,) = torch.autograd.grad(torch.sum(rows * torch.from_numpy(w)),
+                               [shard])
+    return rows.detach().numpy(), g.numpy()
+
+
+def mf_step(device, ut, it, u, i, j, n_model):
+    """One ``make_sharded_mf_train_step`` on the rank's blocks; returns
+    the updated blocks and the loss."""
+    from sml_tpu_torch.parallel.collective import make_sharded_mf_train_step
+    mesh = _mesh((1, n_model))
+    us = torch.from_numpy(ut[_block(ut.shape[0], mesh)].copy())
+    its = torch.from_numpy(it[_block(it.shape[0], mesh)].copy())
+    step = make_sharded_mf_train_step(mesh, lr=0.01, l2=1e-5)
+    nu, ni, loss = step(us, its, *(torch.from_numpy(x) for x in (u, i, j)))
+    return nu.numpy(), ni.numpy(), float(loss)
+
+
+def transport(device):
+    """The three collectives over each axis of a (2, 2) mesh,
+    ``replicate``, ``global_batch`` and ``process_slice``."""
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.sharding import replicate
+    mesh = _mesh((2, 2))
+    d, m = mesh.index("data"), mesh.index("model")
+    rank = 2 * d + m
+    out = {"coords": (d, m),
+           "local_rank": mesh.device_mesh.get_local_rank("model"),
+           "transport": collective.transport(mesh.group("model"))}
+    for axis in ("data", "model"):
+        g = mesh.group(axis)
+        out[f"sum_{axis}"] = collective.all_reduce(
+            torch.full((3,), float(rank)), g).numpy()
+        out[f"gather_{axis}"] = collective.all_gather(
+            torch.full((2, 1), float(rank)), g).numpy()
+        out[f"bcast_{axis}"] = collective.broadcast(
+            torch.full((2,), float(rank)), g, src=1).numpy()
+    out["replicated"] = replicate({"a": torch.full((2,), float(rank))},
+                                  mesh)["a"].numpy()
+    # this rank's rows of a padded set, by data index and by process
+    from sml_tpu_torch.ops.batching import pad_rows
+    from sml_tpu_torch.parallel.multihost import global_batch, process_slice
+    padded = pad_rows(np.arange(10).reshape(5, 2), 4, device="cpu")
+    block = global_batch(padded, mesh)
+    out["batch"] = (block.rows.numpy(), block.mask.numpy(), block.n_real)
+    out["process_slice"] = process_slice(8)
+    return out
+
+
+def sharded_refresh(device, theta_tree, tcfg, tables, n_model):
+    """``apply_tables_sharded`` on the rank's row blocks of the four
+    snapshots; returns the refreshed tables made whole."""
+    from sml_tpu_torch.models.transfer import (apply_tables_sharded,
+                                               theta_from_numpy)
+    from sml_tpu_torch.parallel import collective
+    mesh = _mesh((1, n_model))
+    theta = theta_from_numpy(theta_tree, device="cpu")
+    blocks = [torch.from_numpy(t[_block(t.shape[0], mesh)].copy())
+              for t in tables]
+    new = apply_tables_sharded(theta, tcfg, *blocks)
+    return [collective.all_gather(t, mesh.group("model")).numpy()
+            for t in new]
+
+
+def born_sharded(device, cfg, n_users, n_items, mesh_shape, pretrained):
+    """``init_state_sharded`` against ``init_state`` then ``shard_state``,
+    leaf for leaf: ``{path: (equal, local rows)}`` and the plan."""
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.parallel.sharding import shard_state, table_leaves
+    from sml_tpu_torch.train.engine import SMLEngine
+    mesh = _mesh(mesh_shape)
+    eng = SMLEngine(cfg, n_users, n_items, device=device)
+    want = shard_state(eng.init_state(pretrained_mf=pretrained), mesh,
+                       n_users, n_items)
+    got = eng.init_state_sharded(mesh, pretrained_mf=pretrained)
+    a, b = table_leaves(got), table_leaves(want)
+    out = {p: (bool(torch.equal(a[p], b[p])), a[p].shape[0]) for p in a}
+    ta, tb = theta_leaves(got.theta), theta_leaves(want.theta)
+    out["theta"] = (all(torch.equal(ta[k], tb[k]) for k in ta), 0)
+    out["gen"] = (bool(torch.equal(got.gen.get_state(),
+                                   want.gen.get_state())), 0)
+    return out, {p: (None if blk is None else tuple(blk))
+                 for p, blk in eng.plan.items()}
+
+
+def _load_state(path, device):
+    """The port's state from an ``.npz`` written by the tests (a JAX
+    engine's state carried across)."""
+    from sml_tpu_torch.models.mf import MFParams
+    from sml_tpu_torch.models.transfer import theta_from_numpy
+    from sml_tpu_torch.train.engine import SMLState
+    from sml_tpu_torch.train.optim import AdamState
+    z = np.load(path)
+
+    def t(k):
+        return torch.from_numpy(z[k].copy())
+
+    mf = MFParams(*(t(f"mf/{f}") for f in MFParams._fields))
+    theta = theta_from_numpy(
+        {s: {k.split("/")[2]: z[k] for k in z.files
+             if k.startswith(f"theta/{s}/")} for s in ("user", "item")},
+        device=device)
+
+    def opt(name, names):
+        return AdamState(int(z[f"{name}/count"]),
+                         {n: t(f"{name}/mu/{n}") for n in names},
+                         {n: t(f"{name}/nu/{n}") for n in names})
+    from sml_tpu_torch.models.transfer import theta_leaves
+    return SMLState(mf=mf, theta=theta,
+                    **{f: t(f) for f in ("last_user", "last_item",
+                                         "hat_user", "hat_item")},
+                    mf_opt=opt("mf_opt", MFParams._fields),
+                    tr_opt=opt("tr_opt", theta_leaves(theta)),
+                    gen=torch.Generator().manual_seed(0))
+
+
+def replay_phases(device, cfg, n_users, n_items, state_path, inner_rows,
+                  outer_rows, test_rows, mesh_shape, phases=2,
+                  with_one=False):
+    """``phases`` replay-mode SML phases from the carried state on a mesh
+    (``mesh_shape=None``: one rank alone), then a test, plain and
+    attributed, and the weight diagnostics: the whole tables, Θ, the
+    losses, the test's records and the diagnostics. ``with_one``: rank 0
+    also runs them alone (no mesh) and returns that run under ``"one"``."""
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.parallel.sharding import shard_state
+    from sml_tpu_torch.train.engine import SMLEngine
+    eng = SMLEngine(cfg, n_users, n_items, device=device)
+    state = _load_state(state_path, device)
+    mesh = None
+    if mesh_shape is not None:
+        mesh = _mesh(mesh_shape)
+        eng.set_mesh(mesh)
+        state = shard_state(state, mesh, n_users, n_items)
+    losses = []
+    for _ in range(phases):
+        state = eng.snapshot_last(state)
+        state, il = eng.inner_epoch(state, *eng.prep_inner(inner_rows))
+        state = eng.refresh(eng.snapshot_hat(state))
+        state, ol = eng.outer_epoch(state, *eng.prep_outer(outer_rows))
+        state = eng.refresh(state)
+        losses.append((il.numpy(), ol.numpy()))
+    metrics = eng.evaluate(state.mf, test_rows)
+    # every fifth user and item new: the attributed evaluation's masks
+    masks = eng.new_entity_masks(np.arange(0, n_users, 5),
+                                 np.arange(0, n_items, 5))
+    attributed = eng.evaluate_attributed(state.mf, test_rows, *masks)
+    diagnostics = eng.diagnostics(state)
+    whole = eng.whole_state(state)
+    out = {"attributed": attributed, "diagnostics": diagnostics,
+           "user_emb": whole.mf.user_emb.numpy(),
+           "item_emb": whole.mf.item_emb.numpy(),
+           "theta": {k: p.detach().numpy()
+                     for k, p in theta_leaves(whole.theta).items()},
+           "losses": losses, "metrics": metrics,
+           "mf_count": state.mf_opt.count}
+    if with_one and mesh.index("data") + mesh.index("model") == 0:
+        out["one"] = replay_phases(device, cfg, n_users, n_items, state_path,
+                                   inner_rows, outer_rows, test_rows, None,
+                                   phases)
+    return out
+
+
+def sampled_run(device, cfg, n_users, n_items, set_t, set_tt, mesh_shape,
+                with_one=False):
+    """Two sampled ('alone') phases from a fresh state; the whole tables
+    and Θ (``mesh_shape=None``: one rank alone; ``with_one``: rank 0 also
+    runs them alone and returns that run under ``"one"``)."""
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.train.engine import SMLEngine
+    eng = SMLEngine(cfg, n_users, n_items, device=device)
+    state = (eng.init_state() if mesh_shape is None
+             else eng.init_state_sharded(_mesh(mesh_shape)))
+    for _ in range(2):
+        state = eng.snapshot_last(state)
+        state, _ = eng.inner_epoch(state, *eng.prep_inner(set_t))
+        state = eng.refresh(eng.snapshot_hat(state))
+        state, _ = eng.outer_epoch(state, *eng.prep_outer(set_tt))
+        state = eng.refresh(state)
+    whole = eng.whole_state(state)
+    out = {"user_emb": whole.mf.user_emb.numpy(),
+           "item_emb": whole.mf.item_emb.numpy(),
+           "theta": {k: p.detach().numpy()
+                     for k, p in theta_leaves(whole.theta).items()}}
+    if with_one and eng.mesh.index("data") + eng.mesh.index("model") == 0:
+        out["one"] = sampled_run(device, cfg, n_users, n_items, set_t,
+                                 set_tt, None)
+    return out
+
+
+def sharded_topk(device, user_rows, items, k, methods, n_model):
+    """``make_sharded_full_topk`` on the rank's block of ``items`` per
+    method, and ``recommend(mesh=...)`` of every user of ``user_rows``."""
+    from sml_tpu_torch.eval.full_ranking import (make_sharded_full_topk,
+                                                 recommend)
+    from sml_tpu_torch.models.mf import MFParams
+    mesh = _mesh((1, n_model))
+    shard = torch.from_numpy(items[_block(items.shape[0], mesh)].copy())
+    rows = torch.from_numpy(user_rows)
+    out = {m: tuple(t.numpy() for t in
+                    make_sharded_full_topk(mesh, k, None, m)(rows, shard))
+           for m in methods}
+    mf = MFParams(rows, shard, torch.zeros(rows.shape[0], 1),
+                  torch.zeros(shard.shape[0], 1))
+    out["recommend"] = tuple(t.numpy() for t in recommend(
+        mf, torch.arange(rows.shape[0]), k, mesh=mesh))
+    return out
