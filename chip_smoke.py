@@ -37,8 +37,10 @@ Phases, one JSON line each:
             are held together.
 6. K3       ``decay_adam_kernel``, one launch over the four Yelp MF leaves
             ((100,000, 64), (20,000, 64), (100,000, 1), (20,000, 1)) as
-            ``sparse_dense_adam_update`` makes it, against its plain
-            version at step 7: ``mu``/``nu`` bit-equal, ``p`` within rtol
+            ``sparse_dense_adam_update`` makes it (the bias corrections
+            read on the card from a ``BiasTable``, as the optimizer's
+            steps pass them), against its plain version at step 7 (the
+            host's floats): ``mu``/``nu`` bit-equal, ``p`` within rtol
             1e-6 (and counted where not bit-equal); times per 4-leaf step
             by eager launches and by CUDA-graph replay, bound, and a fused
             ``torch.optim.Adam`` yardstick timed both ways.
@@ -55,7 +57,10 @@ Phases, one JSON line each:
             directory: 100,000 users, 20,000 items, 4 periods (one
             warm-up, two test periods), 65,536 train and 16,384 test rows
             per period, ``yelp_sml()`` with ``fast_table_adam`` and masked
-            scoring. Launch counts must equal those derived from the data
+            scoring, pinned to the unfused path (``fuse_phases=False,
+            fuse_period=False``: its epochs are wrapped and timed, which a
+            CUDA-graph replay never enters, so its numbers stay comparable
+            with the earlier runs). Launch counts must equal those derived from the data
             (K3 480: one per fast step; K1 126; K2 32: one per eval
             batch); losses finite,
             metrics in [0, 1].
@@ -67,6 +72,39 @@ Phases, one JSON line each:
             record.
             With two test periods the summary's test side is empty (the
             reference averages test periods [N3:-1]) and reads 0.
+9b. fused-sweep  the same dataset, seed and configuration with the
+            default ``fuse_period="auto"``, which fuses on the card: each
+            period's phases through ``SMLEngine.period_step`` (branch C's
+            phase 0 unfused), the run's first phase eagerly on the capture
+            stream, then one CUDA graph per period, replayed. It prints
+            the captures, replays and warm-ups (one capture per period, a
+            replay for every other fused phase), both sweeps' period and
+            sweep walls, the max differences of the final tables,
+            snapshots, Θ and Adam moments against the unfused sweep
+            (within ``FUSED_ATOL``; bit equality expected), whether the
+            step counts and the generators' positions are equal, each
+            fused phase's losses against the unfused epochs' (rtol
+            ``LOSS_RTOL``), the tests' hit differences (at most
+            ``SLICE_HIT_TOL``) and the K1/K2/K3 launches, replays counted,
+            against those derived from the data, and per
+            ``period_step`` call its wall, warm-up and capture seconds
+            and from them the wall ms per replay.
+9c. fused-evals  period 0 of the same sweep (branch A) with evals of
+            the val set after every inner and outer epoch, ``log_norms``
+            and ``saddle_retries=1``, unfused and then fused: K2, the eval
+            sums and the seven norms inside the captured phase, the
+            guard's stalled attempt (the data drive the loss to the
+            saddle, so the guard stalls) and a second capture on the
+            retry's new buffers. The fused run is held to the unfused one:
+            the retries used, every ``inner_eval``/``outer_eval``/
+            ``phase``/``saddle_retry`` record (kinds, order, epochs and
+            phases equal; eval metrics within ``SLICE_HIT_TOL`` hits,
+            losses and norms within ``LOSS_RTOL``), the final state within
+            ``FUSED_ATOL`` and the generators' positions; each run's K1,
+            K2 and K3 launches against those derived from the phases it
+            ran (the fused guard runs the stalled attempt's every phase),
+            and each ``period_step`` call's launches against its warm-up
+            and replays.
 10. P1      every instantiation of the dense ``masked_rank_kernel`` that
             the eval-design probe ``eval_kernel_probe`` runs (rows per
             block 64 or 128, grid order ij or ji, f32 on the CUDA cores or
@@ -179,9 +217,22 @@ Phases, one JSON line each:
             (``PAR_CLI_DATA``; ``scripts/multicard_check.py``'s
             ``cli_against_one_process``: tables, each test's hits, the
             served rows).
+18b. fused-trace  last, since its ~1.3M kernel events make the script's
+            largest trace: a fused run of the sweep's first two periods
+            with period 1 traced (phase 0 and the test unfused, a capture
+            and nine replays): the device's busy share over the traced and
+            the untraced period's wall, the kernels' busy ms inside the
+            ``period_step`` span per replay against the untraced wall ms
+            per replay (the busy share inside a replay), top kernels,
+            spans. The K1, K2 and K3 kernels the card ran from inside
+            period 1's ``period_step`` span (each belongs to the graph
+            launch with its correlation id) must equal the launches the
+            wrappers' counts give that call, and both the per-phase
+            launches derived from the data times the replays.
 19. the card's name and power limit as nvidia-smi prints them, the
    ``kernels`` line (launches from each kernel's own path: the train
-   sweep and the parallel phase's ranks for K1-K3, the probes for P1-P3),
+   sweep, the fused sweep, both fused-evals runs and the parallel
+   phase's ranks for K1-K3, the probes for P1-P3),
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -242,6 +293,9 @@ K3_STEP = 7
 # tolerance, per-batch losses within LOSS_RTOL
 TRAIN_ATOL = 1e-4
 LOSS_RTOL = 1e-5
+# fused sweep against the unfused one: the same kernels on the same inputs
+# (bit equality expected); tables, snapshots, Θ and moments within this
+FUSED_ATOL = 1e-5
 INNER_ROWS, OUTER_ROWS = 8192, 4096
 SWEEP_PERIODS, SWEEP_TRAIN_ROWS, SWEEP_TEST_ROWS = 4, 65_536, 16_384
 # eval-design probes: P1 at its probe's shape; the probe mains' repeats
@@ -452,6 +506,13 @@ def phase_k1(torch):
         check(err <= K1_TOL * max(1.0, scale),
               f"K1 {name} max abs err {err} over {K1_TOL}")
         worst = max(worst, err)
+    # the fused phase refreshes into the MF tables themselves (out=)
+    for tower, last, hat in sides:
+        buf = torch.full_like(last, float("nan"))
+        check(tk.transfer_rows_cuda(tower, last, hat, out=buf) is buf
+              and torch.equal(buf, tk.transfer_rows_cuda(tower, last, hat)),
+              "K1 into out= differs from K1 into a new tensor")
+    out["out_equal"] = True
 
     def kernel():
         for tower, last, hat in sides:
@@ -822,10 +883,15 @@ def phase_k3(torch):
     from sml_tpu_torch.config import yelp_sml
     from sml_tpu_torch.ops import adam_kernel as ak
     from sml_tpu_torch.train.optim import (ADAM_B1, ADAM_B2, ADAM_EPS,
-                                           bias_corrections)
+                                           BiasTable, bias_corrections)
 
     lr = yelp_sml().mf_lr
     bc1, bc2 = bias_corrections(K3_STEP)
+    # the kernel reads bc1/bc2 on the card, from a BiasTable as the
+    # optimizer's steps do; the plain version takes the host's floats
+    table = BiasTable(1, "cuda")
+    table.fill(K3_STEP - 1)
+    bc_dev = table.at(K3_STEP, ADAM_B1, ADAM_B2)
     kw = dict(lr=lr, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
     leaves = yelp_leaves(torch, SEED + 41)
     n = sum(p.numel() for p, _, _ in leaves)
@@ -833,7 +899,7 @@ def phase_k3(torch):
     got = [tuple(t.clone() for t in leaf) for leaf in leaves]
     want = [tuple(t.clone() for t in leaf) for leaf in leaves]
     before = ak.decay_adam_cuda.launches
-    ak.decay_adam_cuda(got, bc1, bc2, **kw)
+    ak.decay_adam_cuda(got, *bc_dev, **kw)
     check(ak.decay_adam_cuda.launches == before + 1,
           "K3 took more than one launch for the four leaves")
     for leaf in want:
@@ -852,7 +918,7 @@ def phase_k3(torch):
     del got, want
 
     def kernel():
-        ak.decay_adam_cuda(leaves, bc1, bc2, **kw)
+        ak.decay_adam_cuda(leaves, *bc_dev, **kw)
 
     def plain():
         for p, mu, nu in leaves:
@@ -1071,92 +1137,484 @@ def expected_sweep_launches(spec, cfg, feeder_rows, eval_batches) -> dict:
             "masked_rank_gather_kernel": k2}
 
 
-def phase_train_sweep(torch):
-    from sml_tpu_torch.config import DataSpec, yelp_sml
+def sweep_cfg(**kw):
+    """The train sweep's configuration (``yelp_sml()``, K3 on, masked
+    scoring); ``kw`` sets the fused-program switches."""
+    from sml_tpu_torch.config import yelp_sml
+    return yelp_sml().replace(fast_table_adam=True, eval_scoring="masked",
+                              **kw)
+
+
+def sweep_driver(torch, root: str, cfg, log_name: str):
+    """An ``SMLDriver`` on the sweep dataset with a jsonl logger, and the
+    launches derived from the data for ``cfg``."""
+    from sml_tpu_torch.config import DataSpec
     from sml_tpu_torch.data.formats import row_count
-    from sml_tpu_torch.ops import adam_kernel as ak
     from sml_tpu_torch.ops.batching import bucket_rows
-    from sml_tpu_torch.ops import eval_kernel as ek
-    from sml_tpu_torch.ops import transfer_kernel as tk
     from sml_tpu_torch.train.driver import SMLDriver
     from sml_tpu_torch.utils.logging import MetricsLogger
 
-    root = tempfile.mkdtemp(prefix="sml_sweep_")
-    try:
-        t0 = time.perf_counter()
-        write_sweep_dataset(torch, root)
-        data_s = time.perf_counter() - t0
-        spec = DataSpec(root=root, name="synth", num_periods=SWEEP_PERIODS,
-                        online_train_start=0, online_test_start=2)
-        cfg = yelp_sml().replace(fast_table_adam=True, eval_scoring="masked")
-        logger = MetricsLogger(os.path.join(root, "metrics.jsonl"))
-        driver = SMLDriver(cfg, spec, logger=logger, device="cuda")
+    spec = DataSpec(root=root, name="synth", num_periods=SWEEP_PERIODS,
+                    online_train_start=0, online_test_start=2)
+    logger = MetricsLogger(os.path.join(root, log_name))
+    driver = SMLDriver(cfg, spec, logger=logger, device="cuda")
+    bound = driver.engine.shape_targets.get("eval", 0)
+    want = expected_sweep_launches(
+        spec, cfg, lambda kind, p: row_count(spec.path, kind, p),
+        lambda n: max(bucket_rows(n, cfg.eval_batch_size),
+                      bucket_rows(bound, cfg.eval_batch_size))
+        // cfg.eval_batch_size)
+    return driver, logger, want
+
+
+def sweep_tests(path: str) -> list:
+    with open(path) as fh:
+        return [{k: r[k] for k in ("period", "n_test", "recall@5",
+                                   "recall@20")}
+                for r in map(json.loads, fh) if r["kind"] == "test"]
+
+
+def phase_train_sweep(torch, root: str, data_s: float):
+    """The sweep on the unfused path (pinned: its epochs are wrapped and
+    timed, which a replay never enters), so its numbers stay comparable
+    with the earlier runs. Returns its launches and what the fused sweep
+    is held to."""
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+
+    cfg = sweep_cfg(fuse_phases=False, fuse_period=False)
+    driver, logger, want = sweep_driver(torch, root, cfg, "metrics.jsonl")
+    eng = driver.engine
+    step_ms = {"inner": [], "outer": []}
+    losses = []
+
+    def timed(kind, fn, batch):
+        def run(state, padded, index):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, lo = fn(state, padded, index)
+            torch.cuda.synchronize()
+            steps = -(-padded.n_real // batch)
+            step_ms[kind].append((time.perf_counter() - t) * 1e3 / steps)
+            losses.append(lo[:steps])
+            return state, lo
+        return run
+
+    eng.inner_epoch = timed("inner", eng.inner_epoch, cfg.mf_batch_size)
+    eng.outer_epoch = timed("outer", eng.outer_epoch, cfg.tr_batch_size)
+    state = eng.init_state(pretrained_mf=random_tables(torch, SEED + 81))
+    zero_counts(ak, tk, ek)
+    t0 = time.perf_counter()
+    report = driver.run(state)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = kernel_counts(ak, tk, ek)
+    driver.close()
+    logger.close()
+    check(launches == want, f"sweep launches {launches}, derived from "
+                            f"the data {want}")
+    check(all(bool(torch.isfinite(lo).all()) for lo in losses),
+          "a training loss is not finite")
+    summary = report.summary()
+    metrics = {k: v for k, v in summary.items() if k != "total_seconds"}
+    check(bool(metrics) and all(0.0 <= v <= 1.0 for v in metrics.values()),
+          f"summary metrics out of [0, 1]: {summary}")
+    tests = sweep_tests(os.path.join(root, "metrics.jsonl"))
+    check(len(tests) == 2 and all(0.0 <= t["recall@20"] <= 1.0
+                                  for t in tests),
+          f"expected two test records in [0, 1]: {tests}")
+    item_spread = driver.final_state.mf.item_emb.std(dim=0).mean()
+    emit({"phase": "train-sweep", "users": N_USERS, "items": N_ITEMS,
+          "periods": SWEEP_PERIODS, "train_rows": SWEEP_TRAIN_ROWS,
+          "test_rows": SWEEP_TEST_ROWS, "fused": False, "data_s": data_s,
+          "sweep_s": sweep_s, "period_s": report.period_seconds,
+          "inner_epochs": len(step_ms["inner"]),
+          "outer_epochs": len(step_ms["outer"]),
+          "inner_step_ms": sum(step_ms["inner"]) / len(step_ms["inner"]),
+          "outer_step_ms": sum(step_ms["outer"]) / len(step_ms["outer"]),
+          "launches": launches, "derived_launches": want,
+          "last_outer_loss": float(losses[-1].mean()),
+          "bce_saddle": 2 * math.log(2.0),
+          "final_item_spread": float(item_spread),
+          "tests": tests, "summary": summary})
+    # the epochs in call order: per period, per phase, inner then outer
+    # (mf_epochs = tr_epochs = 1)
+    per_period = 2 * cfg.multi_num
+    epochs = [losses[i:i + per_period]
+              for i in range(0, len(losses), per_period)]
+    ref = {"state": driver.final_state, "epochs": epochs, "tests": tests,
+           "sweep_s": sweep_s, "period_s": report.period_seconds}
+    return launches, ref
+
+
+def state_errors(torch, a, b) -> dict:
+    """Max absolute differences of two states' tables, snapshots, Θ and
+    Adam moments, and whether their generators stand at one position."""
+    from sml_tpu_torch.models.transfer import theta_leaves
+
+    def err(x, y):
+        return (x.detach().float() - y.detach().float()).abs().max().item()
+    out = {"tables": max(err(x, y) for x, y in zip(a.mf, b.mf)),
+           "snapshots": max(err(getattr(a, f), getattr(b, f))
+                            for f in ("last_user", "last_item", "hat_user",
+                                      "hat_item"))}
+    ta, tb = theta_leaves(a.theta), theta_leaves(b.theta)
+    out["theta"] = max(err(ta[k], tb[k]) for k in ta)
+    out["moments"] = max(err(getattr(oa, part)[k], getattr(ob, part)[k])
+                         for oa, ob in ((a.mf_opt, b.mf_opt),
+                                        (a.tr_opt, b.tr_opt))
+                         for part in ("mu", "nu")
+                         for k in getattr(oa, part))
+    out["counts_equal"] = ((a.mf_opt.count, a.tr_opt.count)
+                           == (b.mf_opt.count, b.tr_opt.count))
+    out["generator_equal"] = bool(torch.equal(a.gen.get_state(),
+                                              b.gen.get_state()))
+    return out
+
+
+def phase_fused_sweep(torch, root: str, ref: dict):
+    """The train sweep's dataset, seed and configuration with the default
+    ``fuse_period="auto"``, which fuses on the card: each period's phases
+    are ``SMLEngine.period_step`` (the run's first phase eagerly on the
+    capture stream, then one CUDA graph per period, replayed). Held to the
+    unfused sweep: final tables, Θ and Adam moments, the generator's
+    position, every fused phase's losses, the tests' hits and the launches
+    (replays counted) derived from the data. Then one traced fused period
+    for the device's busy share."""
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+
+    cfg = sweep_cfg()
+    check(cfg.fuse_period == "auto" and cfg.fuse_phases,
+          f"the fused sweep must run the default switches: {cfg}")
+    driver, logger, want = sweep_driver(torch, root, cfg, "fused.jsonl")
+    eng = driver.engine
+    check(eng.fused_program_warm(), "'auto' does not fuse on the card")
+    stacks, calls = [], []
+    period_step = eng.period_step
+
+    def recorded(state, prep_t, prep_tt, n_phases, *a, **k):
+        before = dict(eng.graph_stats)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = period_step(state, prep_t, prep_tt, n_phases, *a, **k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        stacks.append((out[2], n_phases, prep_t[0].n_real,
+                       prep_tt[0].n_real))
+        d = {k: eng.graph_stats[k] - before[k] for k in before}
+        # what is left of the call besides its warm-up and capture is its
+        # replays (and the copies of their losses into the stacks)
+        calls.append({"wall_s": wall, **d, "replay_ms": 1e3 * (
+            wall - d["warmup_s"] - d["capture_s"]) / max(d["replays"], 1)})
+        return out
+
+    eng.period_step = recorded
+    state = eng.init_state(pretrained_mf=random_tables(torch, SEED + 81))
+    zero_counts(ak, tk, ek)
+    t0 = time.perf_counter()
+    report = driver.run(state)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = kernel_counts(ak, tk, ek)
+    stats = dict(eng.graph_stats)
+    driver.close()
+    logger.close()
+    check(launches == want, f"fused sweep launches {launches}, derived "
+                            f"from the data {want}")
+    fused_phases = sum(n for _, n, _, _ in stacks)
+    check(len(stacks) == SWEEP_PERIODS - 1
+          and fused_phases == (SWEEP_PERIODS - 1) * cfg.multi_num - 2,
+          f"expected one period_step per period (branch C's phase 0 "
+          f"unfused): {[n for _, n, _, _ in stacks]}")
+    check(stats["captures"] == len(stacks) and stats["warmups"] == 1
+          and stats["replays"] == fused_phases - stats["warmups"],
+          f"captures/replays: {stats} for {fused_phases} fused phases")
+    # each fused phase's last inner and outer losses against the unfused
+    # sweep's epochs of the same period and phase
+    loss_rel = 0.0
+    for period, ((ils, ols), n, n_t, n_tt) in enumerate(stacks):
+        first = cfg.multi_num - n
+        for p in range(n):
+            for kind, stack, n_real, batch in (
+                    (0, ils, n_t, cfg.mf_batch_size),
+                    (1, ols, n_tt, cfg.tr_batch_size)):
+                steps = -(-n_real // batch)
+                got = stack[p, :steps]
+                exp = ref["epochs"][period][2 * (first + p) + kind]
+                check(bool(torch.isfinite(got).all()),
+                      "a fused training loss is not finite")
+                loss_rel = max(loss_rel, ((got - exp).abs()
+                                          / exp.abs()).max().item())
+    errs = state_errors(torch, driver.final_state, ref["state"])
+    check(max(errs[k] for k in ("tables", "snapshots", "theta",
+                                "moments")) <= FUSED_ATOL
+          and errs["counts_equal"],
+          f"fused sweep state differs from the unfused one: {errs}")
+    check(loss_rel <= LOSS_RTOL,
+          f"fused losses differ from the unfused ones: rel {loss_rel}")
+    tests = sweep_tests(os.path.join(root, "fused.jsonl"))
+    hit_diff = [max(abs(t[k] - u[k]) * t["n_test"]
+                    for k in ("recall@5", "recall@20"))
+                for t, u in zip(tests, ref["tests"])]
+    check(len(tests) == len(ref["tests"])
+          and max(hit_diff, default=0) <= SLICE_HIT_TOL
+          and [t["period"] for t in tests]
+          == [u["period"] for u in ref["tests"]],
+          f"fused tests {tests} against unfused {ref['tests']}")
+
+    emit({"phase": "fused-sweep", "users": N_USERS, "items": N_ITEMS,
+          "periods": SWEEP_PERIODS, "fused": True, "graphs": stats,
+          "fused_phases": fused_phases,
+          "sweep_s": sweep_s, "unfused_sweep_s": ref["sweep_s"],
+          "period_s": report.period_seconds,
+          "unfused_period_s": ref["period_s"],
+          "period_step_calls": calls,
+          "max_abs_err_vs_unfused": errs,
+          "loss_max_rel_err_vs_unfused": loss_rel,
+          "test_hit_diff": hit_diff, "tests": tests,
+          "launches": launches, "derived_launches": want})
+    return launches, report.period_seconds[1], calls[1]
+
+
+def eval_and_phase_records(path: str) -> list:
+    """The in-training eval, phase and saddle-retry records of a metrics
+    log, without their wall-clock fields."""
+    kinds = ("inner_eval", "outer_eval", "phase", "saddle_retry")
+    with open(path) as fh:
+        return [{k: v for k, v in r.items() if k not in ("ts", "seconds")}
+                for r in map(json.loads, fh) if r["kind"] in kinds]
+
+
+def record_differences(got: list, want: list, n_val: int) -> dict:
+    """Two record lists of one shape (kinds, keys, epochs and phases in one
+    order): the largest eval-metric difference in hits of ``n_val`` rows
+    and the largest relative difference of the other numbers."""
+    check(len(got) == len(want)
+          and all(g.keys() == w.keys() and all(
+              g[k] == w[k] for k in g if isinstance(g[k], (str, bool))
+              or k in ("epoch", "phase", "d_time", "attempt"))
+              for g, w in zip(got, want)),
+          f"fused records differ in kind, order or keys from the unfused "
+          f"ones: {len(got)} against {len(want)} records")
+    hits = rel = 0.0
+    for g, w in zip(got, want):
+        for k, v in g.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            if g["kind"].endswith("_eval"):
+                hits = max(hits, abs(v - w[k]) * n_val)
+            else:
+                rel = max(rel, abs(v - w[k]) / max(abs(w[k]), 1e-30))
+    return {"eval_hits": hits, "rel": rel}
+
+
+def phase_fused_evals(torch, root: str):
+    """Period 0 of the sweep (branch A) with in-training evals after every
+    inner and outer epoch, ``log_norms`` and one saddle retry, unfused and
+    then fused: K2 and the eval sums, the seven norms and the stalled
+    attempt run inside the captured phase, and the retry's new buffers are
+    captured again. Held to the unfused run: final state, the generator,
+    every eval, phase and retry record, and both runs' launches derived
+    from the phases each ran (the fused guard runs a stalled attempt's
+    every phase, then keeps the records of those the unfused guard ran)."""
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+
+    extra = dict(eval_during_inner=True, eval_during_outer=True,
+                 log_norms=True, saddle_retries=1)
+    runs = {}
+    for name, fuse in (("unfused", dict(fuse_phases=False,
+                                        fuse_period=False)),
+                       ("fused", {})):
+        cfg = sweep_cfg(**extra, **fuse)
+        log_name = f"evals_{name}.jsonl"
+        driver, logger, want = sweep_driver(torch, root, cfg, log_name)
         eng = driver.engine
-        bound = eng.shape_targets.get("eval", 0)
-        want = expected_sweep_launches(
-            spec, cfg, lambda kind, p: row_count(spec.path, kind, p),
-            lambda n: max(bucket_rows(n, cfg.eval_batch_size),
-                          bucket_rows(bound, cfg.eval_batch_size))
-            // cfg.eval_batch_size)
-        step_ms = {"inner": [], "outer": []}
-        losses = []
+        calls = []
+        if name == "fused":
+            check(eng.fused_program_warm(), "'auto' does not fuse on the "
+                                            "card")
+            period_step = eng.period_step
 
-        def timed(kind, fn, batch):
-            def run(state, padded, index):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                state, lo = fn(state, padded, index)
-                torch.cuda.synchronize()
-                steps = -(-padded.n_real // batch)
-                step_ms[kind].append((time.perf_counter() - t) * 1e3 / steps)
-                losses.append(lo[:steps])
-                return state, lo
-            return run
-
-        eng.inner_epoch = timed("inner", eng.inner_epoch, cfg.mf_batch_size)
-        eng.outer_epoch = timed("outer", eng.outer_epoch, cfg.tr_batch_size)
+            def counted(*a, _step=period_step, _eng=eng, **k):
+                before = (kernel_counts(ak, tk, ek), dict(_eng.graph_stats))
+                out = _step(*a, **k)
+                calls.append({"launches": {
+                    n: c - before[0][n]
+                    for n, c in kernel_counts(ak, tk, ek).items()},
+                    **{s: _eng.graph_stats[s] - before[1][s]
+                       for s in ("warmups", "captures", "replays")}})
+                return out
+            eng.period_step = counted
         state = eng.init_state(pretrained_mf=random_tables(torch, SEED + 81))
         zero_counts(ak, tk, ek)
         t0 = time.perf_counter()
-        report = driver.run(state)
+        report = driver.run(state, max_periods=1)
         torch.cuda.synchronize()
-        sweep_s = time.perf_counter() - t0
-        launches = kernel_counts(ak, tk, ek)
+        wall = time.perf_counter() - t0
+        runs[name] = {
+            "cfg": cfg, "state": driver.final_state, "wall_s": wall,
+            "launches": kernel_counts(ak, tk, ek), "calls": calls,
+            "retries": report.saddle_retries_used,
+            "graphs": dict(eng.graph_stats),
+            "records": eval_and_phase_records(os.path.join(root, log_name)),
+            "eval_bound": eng.shape_targets.get("eval", 0)}
         driver.close()
         logger.close()
-        check(launches == want, f"sweep launches {launches}, derived from "
-                                f"the data {want}")
-        check(all(bool(torch.isfinite(lo).all()) for lo in losses),
-              "a training loss is not finite")
-        summary = report.summary()
-        metrics = {k: v for k, v in summary.items() if k != "total_seconds"}
-        check(bool(metrics) and all(0.0 <= v <= 1.0
-                                    for v in metrics.values()),
-              f"summary metrics out of [0, 1]: {summary}")
-        with open(os.path.join(root, "metrics.jsonl")) as fh:
-            tests = [{k: r[k] for k in ("period", "n_test", "recall@5",
-                                        "recall@20")}
-                     for r in map(json.loads, fh) if r["kind"] == "test"]
-        check(len(tests) == 2 and all(0.0 <= t["recall@20"] <= 1.0
-                                      for t in tests),
-              f"expected two test records in [0, 1]: {tests}")
-        item_spread = driver.final_state.mf.item_emb.std(dim=0).mean()
-        emit({"phase": "train-sweep", "users": N_USERS, "items": N_ITEMS,
-              "periods": SWEEP_PERIODS, "train_rows": SWEEP_TRAIN_ROWS,
-              "test_rows": SWEEP_TEST_ROWS, "data_s": data_s,
-              "sweep_s": sweep_s, "period_s": report.period_seconds,
-              "inner_epochs": len(step_ms["inner"]),
-              "outer_epochs": len(step_ms["outer"]),
-              "inner_step_ms": sum(step_ms["inner"]) / len(step_ms["inner"]),
-              "outer_step_ms": sum(step_ms["outer"]) / len(step_ms["outer"]),
-              "launches": launches, "derived_launches": want,
-              "last_outer_loss": float(losses[-1].mean()),
-              "bce_saddle": 2 * math.log(2.0),
-              "final_item_spread": float(item_spread),
-              "tests": tests, "summary": summary})
-        return launches
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    unf, fus = runs["unfused"], runs["fused"]
+    cfg = fus["cfg"]
+    check(unf["retries"] == fus["retries"] >= 1,
+          f"the guard must stall once on both paths: retries "
+          f"{unf['retries']} unfused, {fus['retries']} fused")
+    n_val = SWEEP_TEST_ROWS
+    diff = record_differences(fus["records"], unf["records"], n_val)
+    check(diff["eval_hits"] <= SLICE_HIT_TOL and diff["rel"] <= LOSS_RTOL,
+          f"fused eval/phase records differ from the unfused ones: {diff}")
+    errs = state_errors(torch, fus["state"], unf["state"])
+    check(max(errs[k] for k in ("tables", "snapshots", "theta",
+                                "moments")) <= FUSED_ATOL
+          and errs["counts_equal"] and errs["generator_equal"],
+          f"fused state differs from the unfused one: {errs}")
+    # launches per phase: K3 one per fast step, K1 two per refresh (after
+    # the inner block and each outer epoch), K2 one per eval batch (an
+    # eval after each inner and each outer epoch); two K1 at the period's
+    # end
+    from sml_tpu_torch.data.formats import row_count
+    from sml_tpu_torch.ops.batching import bucket_rows
+    mf_rows = row_count(os.path.join(root, "synth"),
+                        "test" if cfg.mf_sample == "all" else "train", 0)
+    steps = -(-mf_rows // cfg.mf_batch_size) * cfg.mf_epochs
+    eval_batches = max(bucket_rows(n, cfg.eval_batch_size)
+                       for n in (n_val, fus["eval_bound"])) \
+        // cfg.eval_batch_size
+    per_phase = {"decay_adam_kernel": steps,
+                 "transfer_rows_kernel": 2 * (1 + cfg.tr_epochs),
+                 "masked_rank_gather_kernel":
+                     eval_batches * (cfg.mf_epochs + cfg.tr_epochs)}
+
+    def derived(phases):
+        out = {k: v * phases for k, v in per_phase.items()}
+        out["transfer_rows_kernel"] += 2
+        return out
+    unf_phases = sum(r["kind"] == "phase" for r in unf["records"])
+    fus_phases = cfg.multi_num * (fus["retries"] + 1)
+    check(unf["launches"] == derived(unf_phases),
+          f"unfused launches {unf['launches']}, derived for {unf_phases} "
+          f"phases {derived(unf_phases)}")
+    check(fus["launches"] == derived(fus_phases),
+          f"fused launches {fus['launches']}, derived for {fus_phases} "
+          f"phases {derived(fus_phases)}")
+    # every fused phase ran in a period_step call: the stalled attempt's
+    # (warm-up, capture, replays) and the retry's (capture, replays)
+    calls = fus["calls"]
+    check(len(calls) == fus["retries"] + 1
+          and [c["captures"] for c in calls] == [1] * len(calls)
+          and sum(c["warmups"] + c["replays"] for c in calls) == fus_phases
+          and all(c["launches"] == {k: v * (c["warmups"] + c["replays"])
+                                    for k, v in per_phase.items()}
+                  for c in calls),
+          f"period_step calls {calls} against {per_phase} per phase")
+    emit({"phase": "fused-evals", "period": 0, "config": extra,
+          "retries": fus["retries"], "unfused_phases": unf_phases,
+          "fused_phases": fus_phases, "graphs": fus["graphs"],
+          "period_step_calls": calls, "records": len(fus["records"]),
+          "record_kinds": sorted({r["kind"] for r in fus["records"]}),
+          "max_eval_hit_diff": diff["eval_hits"],
+          "max_phase_rel_diff": diff["rel"],
+          "max_abs_err_vs_unfused": errs,
+          "launches": fus["launches"], "unfused_launches": unf["launches"],
+          "per_phase_launches": per_phase,
+          "wall_s": fus["wall_s"], "unfused_wall_s": unf["wall_s"]})
+    return {k: unf["launches"][k] + fus["launches"][k]
+            for k in per_phase}
+
+
+def phase_fused_trace(torch, root: str, untraced_s: float,
+                      untraced_call: dict):
+    """One traced fused period: a fused run of the sweep's first two
+    periods with period 1 traced (branch C: phase 0 and the test unfused,
+    then a capture and nine replays). Its ~1.3M kernel events are the
+    script's largest trace, so it runs last, after every other phase that
+    profiles."""
+    import re
+
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+
+    t_phase = time.perf_counter()
+    prof = os.path.join(root, "fused_profile")
+    cfg = sweep_cfg(profile_dir=prof, profile_period=1)
+    driver, logger, want = sweep_driver(torch, root, cfg,
+                                        "fused_traced.jsonl")
+    eng = driver.engine
+    period_step, calls = eng.period_step, []
+
+    def counted(*a, **k):
+        before = (kernel_counts(ak, tk, ek), eng.graph_stats["replays"])
+        out = period_step(*a, **k)
+        calls.append({"replays": eng.graph_stats["replays"] - before[1],
+                      "launches": {n: c - before[0][n] for n, c in
+                                   kernel_counts(ak, tk, ek).items()}})
+        return out
+    eng.period_step = counted
+    driver.run(eng.init_state(pretrained_mf=random_tables(torch, SEED + 81)),
+               max_periods=2)
+    driver.close()
+    logger.close()
+    traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+    check(len(traces) == 1, f"expected one trace, found {traces}")
+    trace_bytes = os.path.getsize(os.path.join(prof, traces[0]))
+    t0 = time.perf_counter()
+    tr = read_trace(os.path.join(prof, traces[0]), busy_in=("period_step",),
+                    count_in=("period_step",))
+    read_s = time.perf_counter() - t0
+    # the launches the wrappers' counts claim for period 1's replays
+    # against the kernels the card ran from inside its period_step span,
+    # and both against those derived per phase
+    call = calls[1]
+    in_span = tr.pop("span_kernels")["period_step"]
+    traced = {k: sum(c for name, c in in_span.items()
+                     if re.search(rf"\b{k}\b", name))
+              for k in call["launches"]}
+    phases = (SWEEP_PERIODS - 1) * cfg.multi_num
+    per_phase = {"decay_adam_kernel": want["decay_adam_kernel"] // phases,
+                 "transfer_rows_kernel": 2 * (1 + cfg.tr_epochs),
+                 "masked_rank_gather_kernel": 0}
+    check(traced == call["launches"]
+          == {k: v * call["replays"] for k, v in per_phase.items()},
+          f"period 1's period_step: kernels traced inside the span "
+          f"{traced}, launches counted {call['launches']}, derived "
+          f"{per_phase} per phase x {call['replays']} replays")
+    os.remove(os.path.join(prof, traces[0]))
+    with open(os.path.join(root, "fused_traced.jsonl")) as fh:
+        traced_s = next(r["seconds"] for r in map(json.loads, fh)
+                        if r["kind"] == "period" and r["d_time"] == 1)
+    # the period_step span holds the capture (no kernel runs) and the
+    # replays: its busy ms per replay against the untraced run's wall ms
+    # per replay is the card's busy share inside a replay
+    replays = untraced_call["replays"]
+    check(replays > 0, f"period 1 replayed nothing: {untraced_call}")
+    replay_busy_ms = tr["span_busy_ms"].get("period_step", 0.0) / replays
+    check(tr["kernel_events"] > 0 and "period_step" in tr["spans"],
+          f"the traced fused period holds no kernel or no period_step "
+          f"span: {tr['spans']}")
+    emit({"phase": "fused-trace", "period": 1, "wall_ms": traced_s * 1e3,
+          "untraced_wall_ms": untraced_s * 1e3, "replays": call["replays"],
+          "traced_launches_in_replays": traced,
+          "counted_launches_in_replays": call["launches"],
+          "replay_device_ms": replay_busy_ms,
+          "untraced_replay_wall_ms": untraced_call["replay_ms"],
+          "device_busy_share_in_replays":
+              replay_busy_ms / untraced_call["replay_ms"],
+          "device_busy_share": tr["busy_ms"] / (traced_s * 1e3),
+          "device_busy_share_of_untraced": tr["busy_ms"] / (untraced_s * 1e3),
+          "trace_bytes": trace_bytes, "read_s": read_s, **tr,
+          "phase_s": time.perf_counter() - t_phase})
 
 
 def quiet_main(main, argv):
@@ -1887,19 +2345,40 @@ def check_ingested(path: str, n_events: int) -> dict:
                 os.path.join(path, "test", f"{len(train) - 1}.npy"))}
 
 
-def read_trace(path: str) -> dict:
+def read_trace(path: str, busy_in=(), count_in=()) -> dict:
     """From a Chrome trace of ``torch.profiler``: the union of the device
-    kernels' intervals, the five kernels with the most total time, and
-    the calls and wall ms of each annotated span."""
+    kernels' intervals, the five kernels with the most total time, the
+    calls and wall ms of each annotated span, for the spans named in
+    ``busy_in`` the kernels' busy ms inside them, and for those in
+    ``count_in`` the kernels launched inside them, counted by name (a
+    kernel belongs to the runtime call with its correlation id: a graph's
+    kernels to its ``cudaGraphLaunch``)."""
+    import bisect
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                      if e.get("cat") == "kernel")
     busy_us, end = 0.0, -math.inf
+    merged = []
     for s, e in kernels:
         if e > end:
             busy_us += e - max(s, end)
+            merged.append([max(s, end), e])
             end = e
+    starts = [m[0] for m in merged]
+
+    def busy_between(lo, hi):
+        us = 0.0
+        for s, e in merged[max(bisect.bisect_right(starts, lo) - 1, 0):]:
+            if s >= hi:
+                break
+            us += max(0.0, min(e, hi) - max(s, lo))
+        return us
+    span_busy = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in busy_in:
+            span_busy[e["name"]] = span_busy.get(e["name"], 0.0) + \
+                busy_between(e["ts"], e["ts"] + e["dur"]) / 1e3
     by_name, spans = {}, {}
     for e in events:
         if e.get("cat") == "kernel":
@@ -1910,8 +2389,22 @@ def read_trace(path: str) -> dict:
             t = spans.setdefault(e["name"], [0, 0.0])
             t[0] += 1
             t[1] += e["dur"] / 1e3
+    span_kernels = {}
+    for name in count_in:
+        ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation" and e["name"] == name]
+        corr = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and any(lo <= e["ts"] <= hi for lo, hi in ranges)}
+        counts = span_kernels[name] = {}
+        for e in events:
+            if (e.get("cat") == "kernel"
+                    and e.get("args", {}).get("correlation") in corr):
+                counts[e["name"]] = counts.get(e["name"], 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     return {"kernel_events": len(kernels), "busy_ms": busy_us / 1e3,
+            "span_busy_ms": span_busy, "span_kernels": span_kernels,
             "top_kernels": [{"name": k[:120], "count": c, "ms": ms}
                             for k, (c, ms) in top],
             "spans": {k: {"calls": c, "ms": ms} for k, (c, ms) in
@@ -2084,7 +2577,12 @@ def phase_ingest_sweep(torch, dev: str = "cuda"):
         wall_ms, untraced_ms = period0_ms(traced_recs), period0_ms(recs)
         check(tr["kernel_events"] > 0 or dev != "cuda",
               "the trace holds no device kernel")
-        check({"refresh", "inner_epoch", "outer_epoch"} <= set(tr["spans"]),
+        # "auto" fuses on the card: the traced warm-up period is one
+        # period_step (a replay enters no per-epoch span), then a refresh
+        want_spans = ({"refresh", "period_step"} if dev == "cuda"
+                      and cfg.fuse_phases and cfg.fuse_period == "auto"
+                      else {"refresh", "inner_epoch", "outer_epoch"})
+        check(want_spans <= set(tr["spans"]),
               f"annotated spans missing from the trace: {tr['spans']}")
         split = split_eval(torch, out, spec.online_test_start, dev)
         emit({"phase": "ingest-sweep", "events": n_events, "info": info,
@@ -2291,26 +2789,42 @@ def main() -> int:
     k3 = phase_k3(torch)
     phase_crossover(torch)
     phase_train_lockstep(torch)
-    launches = phase_train_sweep(torch)
-    p1 = phase_p1(torch)
-    probe_rows = probe_eval_rows(torch)
-    p3, p3_l2_rate = phase_p3(torch, probe_rows)
-    p2 = phase_p2(torch, probe_rows, (k2_l2_rate, p3_l2_rate))
-    del probe_rows
-    probe_launches = phase_eval_probes(torch)
-    root = tempfile.mkdtemp(prefix="sml_pretrain_")
+    # the sweep dataset stays until the traced fused period, the last phase
+    sweep_root = tempfile.mkdtemp(prefix="sml_sweep_")
     try:
         t0 = time.perf_counter()
-        spec = write_pretrain_dataset(root)
-        pretrained = phase_pretrain(torch, spec, time.perf_counter() - t0)
-        phase_baselines(torch, spec, pretrained)
+        write_sweep_dataset(torch, sweep_root)
+        launches, ref = phase_train_sweep(torch, sweep_root,
+                                          time.perf_counter() - t0)
+        fused_launches, fused_period1_s, fused_call1 = phase_fused_sweep(
+            torch, sweep_root, ref)
+        del ref
+        for k, v in fused_launches.items():
+            launches[k] += v
+        for k, v in phase_fused_evals(torch, sweep_root).items():
+            launches[k] += v
+        p1 = phase_p1(torch)
+        probe_rows = probe_eval_rows(torch)
+        p3, p3_l2_rate = phase_p3(torch, probe_rows)
+        p2 = phase_p2(torch, probe_rows, (k2_l2_rate, p3_l2_rate))
+        del probe_rows
+        probe_launches = phase_eval_probes(torch)
+        root = tempfile.mkdtemp(prefix="sml_pretrain_")
+        try:
+            t0 = time.perf_counter()
+            spec = write_pretrain_dataset(root)
+            pretrained = phase_pretrain(torch, spec, time.perf_counter() - t0)
+            phase_baselines(torch, spec, pretrained)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        phase_transfer_kinds(torch)
+        phase_ingest_sweep(torch)
+        par_launches = phase_parallel(torch)
+        for k, v in par_launches.items():
+            launches[k] += v
+        phase_fused_trace(torch, sweep_root, fused_period1_s, fused_call1)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    phase_transfer_kinds(torch)
-    phase_ingest_sweep(torch)
-    par_launches = phase_parallel(torch)
-    for k, v in par_launches.items():
-        launches[k] += v
+        shutil.rmtree(sweep_root, ignore_errors=True)
 
     kernels = [
         {"name": "transfer_rows_kernel", "route": "cuda",

@@ -54,8 +54,8 @@ SIGNATURES = {
     # ue, tgt, maskm, table, rank, B, ipad, stream
     "sml_dense_mask_rank": [_P] * 5 + [_I] * 2 + [_P],
     # leaves (n_leaves rows of int64 p, mu, nu, n), n_leaves, lr, b1, b2,
-    # eps, bc1, bc2, stream
-    "sml_decay_adam": [ctypes.POINTER(_L), _I] + [_F] * 6 + [_P],
+    # eps, bc1, bc2 (one f32 each on the card), stream
+    "sml_decay_adam": [ctypes.POINTER(_L), _I] + [_F] * 4 + [_P] * 3,
 }
 
 
@@ -149,3 +149,16 @@ def check(code: int, kernel: str) -> None:
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the kernel wrappers that count their launches, in the order they were
+# defined (a CUDA-graph capture reads them: ``train/graphs.py``)
+COUNTED = []
+
+
+def counted(wrapper):
+    """Register a kernel wrapper that adds one to ``wrapper.launches``
+    where it launches its kernel, and nowhere else; starts the count at 0."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper

@@ -38,8 +38,12 @@
 // __fsqrt_rn, __fadd_rn), so nvcc cannot contract a multiply and an add
 // into an FMA: each element is rounded exactly as the plain PyTorch
 // version's separate f32 ops round it, and the two agree bit for bit.
-// bc1 = 1 - b1^t and bc2 = 1 - b2^t come by value, computed on the host in
-// f32 from the integer step count. Unlike the TPU kernel (>= 2^20
+// bc1 = 1 - b1^t and bc2 = 1 - b2^t are computed on the host in f32 from
+// the integer step count and are read on the card through two device
+// pointers when the kernel runs: a step captured into a CUDA graph reads
+// each replay's values from a buffer the host refills before the replay
+// (train/optim.py BiasTable), where a by-value argument would repeat the
+// captured step's numbers. Unlike the TPU kernel (>= 2^20
 // elements, a multiple of 128 lanes, >= 256-row blocks) it takes any
 // length, so the bias tables go through it too.
 #include <cuda_runtime.h>
@@ -54,7 +58,9 @@ constexpr int MAX_LEAVES = 8;
 constexpr int UNROLL = 2;       // 4-element units per thread per trip
 
 struct DecayArgs {
-  float neg_lr, b1, b2, eps, bc1, bc2;
+  float neg_lr, b1, b2, eps;
+  const float* bc1;   // one f32 each on the tables' device, read at launch
+  const float* bc2;
 };
 
 // Leaf l owns units [start[l], start[l + 1]) of the flat index space.
@@ -69,11 +75,12 @@ struct LeafTable {
 };
 
 __device__ __forceinline__ void decay_one(float& p, float& mu, float& nu,
-                                          const DecayArgs& a) {
+                                          const DecayArgs& a, float bc1,
+                                          float bc2) {
   const float m = __fmul_rn(a.b1, mu);
   const float v = __fmul_rn(a.b2, nu);
-  const float mh = __fdiv_rn(m, a.bc1);
-  const float vh = __fdiv_rn(v, a.bc2);
+  const float mh = __fdiv_rn(m, bc1);
+  const float vh = __fdiv_rn(v, bc2);
   const float den = __fadd_rn(__fsqrt_rn(vh), a.eps);
   p = __fadd_rn(p, __fmul_rn(a.neg_lr, __fdiv_rn(mh, den)));
   mu = m;
@@ -108,6 +115,7 @@ __device__ __forceinline__ void store4(float* x, int64_t e, int len,
 
 __global__ void __launch_bounds__(THREADS) decay_adam_kernel(
     const __grid_constant__ LeafTable t, const DecayArgs a) {
+  const float bc1 = *a.bc1, bc2 = *a.bc2;
   const int64_t total = t.start[t.count];
   const int64_t chunk = (int64_t)THREADS * UNROLL;
   for (int64_t c0 = (int64_t)blockIdx.x * chunk; c0 < total;
@@ -133,7 +141,8 @@ __global__ void __launch_bounds__(THREADS) decay_adam_kernel(
 #pragma unroll
     for (int j = 0; j < UNROLL; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) decay_one(P[j][i], M[j][i], V[j][i], a);
+      for (int i = 0; i < 4; ++i)
+        decay_one(P[j][i], M[j][i], V[j][i], a, bc1, bc2);
 #pragma unroll
     for (int j = 0; j < UNROLL; ++j) {
       const int l = leaf[j];
@@ -164,14 +173,8 @@ cudaError_t wave_blocks(int& blocks) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// leaves: n_leaves (<= 8) rows of four int64 (p, mu, nu, n): three distinct
-// buffers of n contiguous f32 values each, updated in place. Returns
-// cudaGetLastError() after the launch.
-extern "C" int sml_decay_adam(const int64_t* leaves, int n_leaves, float lr,
-                              float b1, float b2, float eps, float bc1,
-                              float bc2, void* stream) {
+int launch_decay(const int64_t* leaves, int n_leaves, const DecayArgs& a,
+                 void* stream) {
   if (n_leaves < 0 || n_leaves > MAX_LEAVES)
     return (int)cudaErrorInvalidValue;
   LeafTable t{};
@@ -194,8 +197,23 @@ extern "C" int sml_decay_adam(const int64_t* leaves, int n_leaves, float lr,
   const int64_t chunk = (int64_t)THREADS * UNROLL;
   int64_t blocks = (total + chunk - 1) / chunk;
   if (blocks > wave) blocks = wave;
-  DecayArgs a{-lr, b1, b2, eps, bc1, bc2};
   decay_adam_kernel<<<(unsigned)blocks, THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(t, a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// leaves: n_leaves (<= 8) rows of four int64 (p, mu, nu, n): three distinct
+// buffers of n contiguous f32 values each, updated in place. bc1_ptr and
+// bc2_ptr: one f32 each on the tables' device, read when the kernel runs.
+// Returns cudaGetLastError() after the launch.
+extern "C" int sml_decay_adam(const int64_t* leaves, int n_leaves,
+                                  float lr, float b1, float b2, float eps,
+                                  const float* bc1_ptr, const float* bc2_ptr,
+                                  void* stream) {
+  if (bc1_ptr == nullptr || bc2_ptr == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_decay(leaves, n_leaves,
+                      DecayArgs{-lr, b1, b2, eps, bc1_ptr, bc2_ptr}, stream);
 }

@@ -323,12 +323,16 @@ def apply_rows(theta: TransferParams, cfg: TransferConfig, side: str,
 
 def _apply_blocked(theta: TransferParams, cfg: TransferConfig, side: str,
                    last: torch.Tensor, hat: torch.Tensor,
-                   block_rows: int) -> torch.Tensor:
+                   block_rows: int, out=None) -> torch.Tensor:
     """Θ_side over every row in blocks of ``block_rows``, each block
     upcast to f32 (snapshots may be stored bf16), so only one block's
-    intermediates and f32 copy are live."""
+    intermediates and f32 copy are live; into ``out`` when given."""
     n, d = last.shape
-    out = torch.empty((n, d), dtype=torch.float32, device=last.device)
+    if out is None:
+        out = torch.empty((n, d), dtype=torch.float32, device=last.device)
+    elif out.shape != (n, d) or out.dtype != torch.float32:
+        raise ValueError(f"out must be ({n}, {d}) float32, got "
+                         f"{tuple(out.shape)} {out.dtype}")
     for s in range(0, n, block_rows):
         out[s:s + block_rows] = apply_rows(
             theta, cfg, side, last[s:s + block_rows].float(),
@@ -339,9 +343,11 @@ def _apply_blocked(theta: TransferParams, cfg: TransferConfig, side: str,
 def apply_tables(theta: TransferParams, cfg: TransferConfig,
                  last_user: torch.Tensor, hat_user: torch.Tensor,
                  last_item: torch.Tensor, hat_item: torch.Tensor,
-                 block_rows: int = 65536):
+                 block_rows: int = 65536, out=None):
     """Full-table refresh W_t = Θ(W_{t-1}, W_hat_t), forward only; the
-    output is f32 whatever the snapshots' dtype.
+    output is f32 whatever the snapshots' dtype. ``out``: a ``(user,
+    item)`` pair of f32 tables to write into (they may be the MF tables
+    themselves: only the snapshots and Θ are read), else new tensors.
 
     ``conv_com`` goes through :func:`ops.transfer_kernel.fused_table_transfer`,
     one side at a time: kernel K1 for tensors on the card, its row-blocked
@@ -349,19 +355,20 @@ def apply_tables(theta: TransferParams, cfg: TransferConfig,
     row-blocked plain operations on either device (the reference has no
     kernel for them), so K1 never receives another kind's tower."""
     _check_kind(cfg)
+    out_u, out_i = (None, None) if out is None else out
     with torch.no_grad():
         if cfg.kind == "conv_com":
             from sml_tpu_torch.ops import transfer_kernel
             return (transfer_kernel.fused_table_transfer(
                         theta.user, last_user, hat_user,
-                        block_rows=block_rows),
+                        block_rows=block_rows, out=out_u),
                     transfer_kernel.fused_table_transfer(
                         theta.item, last_item, hat_item,
-                        block_rows=block_rows))
+                        block_rows=block_rows, out=out_i))
         return (_apply_blocked(theta, cfg, "user", last_user, hat_user,
-                               block_rows),
+                               block_rows, out=out_u),
                 _apply_blocked(theta, cfg, "item", last_item, hat_item,
-                               block_rows))
+                               block_rows, out=out_i))
 
 
 # The JAX package's ``apply_tables_sharded``: the refresh is row-parallel,

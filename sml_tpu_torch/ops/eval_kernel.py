@@ -102,6 +102,7 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
+@_build.counted
 def masked_rank_cuda(ue: torch.Tensor, items: torch.Tensor,
                      sstar: torch.Tensor, maskp: torch.Tensor) -> torch.Tensor:
     """K2: launch ``masked_rank_gather_kernel`` once for the batch; ``items``
@@ -139,8 +140,6 @@ def masked_rank_cuda(ue: torch.Tensor, items: torch.Tensor,
     masked_rank_cuda.launches += 1
     return rank
 
-
-masked_rank_cuda.launches = 0
 
 
 # P1: the eval-design probe ``scripts/eval_kernel_probe.py`` runs K2's
@@ -189,6 +188,7 @@ def pad_width(ue: torch.Tensor, items_t: torch.Tensor):
             torch.nn.functional.pad(items_t, (0, 0, 0, extra)))
 
 
+@_build.counted
 def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
                              sstar: torch.Tensor, maskp: torch.Tensor,
                              rows_per_block: int = 64,
@@ -246,8 +246,6 @@ def masked_rank_variant_cuda(ue: torch.Tensor, items_t: torch.Tensor,
     masked_rank_variant_cuda.launches += 1
     return rank
 
-
-masked_rank_variant_cuda.launches = 0
 
 
 def masked_rank_variant(ue: torch.Tensor, items_t: torch.Tensor,

@@ -71,6 +71,7 @@ def _candidate_scores_entry():
     return _build.load_library().sml_candidate_scores
 
 
+@_build.counted
 def candidate_scores_cuda(ue_t: torch.Tensor, users: torch.Tensor,
                           cand: torch.Tensor,
                           table: torch.Tensor) -> torch.Tensor:
@@ -122,8 +123,6 @@ def candidate_scores_cuda(ue_t: torch.Tensor, users: torch.Tensor,
     return out
 
 
-candidate_scores_cuda.launches = 0
-
 
 def candidate_scores(ue_t: torch.Tensor, users: torch.Tensor,
                      cand: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -148,6 +147,7 @@ def dense_mask_rank_plain(table: torch.Tensor, ue: torch.Tensor,
     return ((maskm != 0) & (s > sstar)).sum(dim=1, dtype=torch.int32)
 
 
+@_build.counted
 def dense_mask_rank_cuda(table: torch.Tensor, ue: torch.Tensor,
                          tgt: torch.Tensor,
                          maskm: torch.Tensor) -> torch.Tensor:
@@ -186,8 +186,6 @@ def dense_mask_rank_cuda(table: torch.Tensor, ue: torch.Tensor,
     dense_mask_rank_cuda.launches += 1
     return rank
 
-
-dense_mask_rank_cuda.launches = 0
 
 
 def dense_mask_rank(table: torch.Tensor, ue: torch.Tensor, tgt: torch.Tensor,

@@ -13,7 +13,10 @@ shared memory grows with ``d`` only.
 :func:`fused_table_transfer` routes by device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes :func:`transfer_rows_plain`, the
 plain PyTorch version of the same function. Forward only: gradients never
-flow through the full-table refresh.
+flow through the full-table refresh. Both write into ``out`` when it is
+given: the kernel reads only ``last``, ``hat`` and the tower, so ``out``
+may be the MF table the refresh replaces (the fused phase refreshes the
+tables in place, so a CUDA graph that captured it keeps its addresses).
 """
 
 from __future__ import annotations
@@ -28,14 +31,33 @@ MAX_D = 512    # the kernel's fc2 register tiles cover d <= 512
 MAX_C1 = 16    # conv1's outputs are held in registers
 
 
+def _check_out(out: torch.Tensor, last: torch.Tensor,
+               hat: torch.Tensor) -> None:
+    """``out`` must be a contiguous (N, d) f32 tensor on the rows' device
+    that shares no memory with ``last`` or ``hat``."""
+    if (out.shape != last.shape or out.dtype != torch.float32
+            or out.device != last.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(last.shape)} "
+                         f"float32 tensor on {last.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    lo, hi = out.data_ptr(), out.data_ptr() + out.numel() * 4
+    for t in (last, hat):
+        t_lo = t.data_ptr()
+        if t_lo < hi and lo < t_lo + t.numel() * t.element_size():
+            raise ValueError("out must not overlap last or hat")
+
+
 def transfer_rows_plain(tower: ConvTower, last: torch.Tensor,
-                        hat: torch.Tensor,
-                        block_rows: int = 65536) -> torch.Tensor:
+                        hat: torch.Tensor, block_rows: int = 65536,
+                        out: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch Θ_side(last, hat) over all rows, blocked so the (R, H)
     intermediates stay one block in size; rows are upcast to f32 per block
-    (snapshots may be stored bf16)."""
+    (snapshots may be stored bf16). Written into ``out`` when given."""
     n, d = last.shape
-    out = torch.empty((n, d), dtype=torch.float32, device=last.device)
+    if out is None:
+        out = torch.empty((n, d), dtype=torch.float32, device=last.device)
+    else:
+        _check_out(out, last, hat)
     with torch.no_grad():
         for s in range(0, n, block_rows):
             x_t = last[s:s + block_rows].float()
@@ -45,9 +67,12 @@ def transfer_rows_plain(tower: ConvTower, last: torch.Tensor,
     return out
 
 
+@_build.counted
 def transfer_rows_cuda(tower: ConvTower, last: torch.Tensor,
-                       hat: torch.Tensor) -> torch.Tensor:
-    """Launch ``transfer_rows_kernel`` once over all N rows; (N, d) f32."""
+                       hat: torch.Tensor,
+                       out: torch.Tensor = None) -> torch.Tensor:
+    """Launch ``transfer_rows_kernel`` once over all N rows; (N, d) f32,
+    written into ``out`` when given."""
     if not (last.is_cuda and hat.is_cuda):
         raise ValueError("transfer_rows_cuda takes CUDA tensors")
     if last.shape != hat.shape or last.dim() != 2:
@@ -78,7 +103,10 @@ def transfer_rows_cuda(tower: ConvTower, last: torch.Tensor,
     weights = [w.contiguous() for w in weights]
     last = last.contiguous()
     hat = hat.contiguous()
-    out = torch.empty((n, d), dtype=torch.float32, device=last.device)
+    if out is None:
+        out = torch.empty((n, d), dtype=torch.float32, device=last.device)
+    else:
+        _check_out(out, last, hat)
     lib = _build.load_library()
     with torch.cuda.device(last.device):
         rc = lib.sml_transfer_rows(
@@ -90,16 +118,16 @@ def transfer_rows_cuda(tower: ConvTower, last: torch.Tensor,
     return out
 
 
-transfer_rows_cuda.launches = 0
-
 
 def fused_table_transfer(tower: ConvTower, last: torch.Tensor,
-                         hat: torch.Tensor,
-                         block_rows: int = 65536) -> torch.Tensor:
+                         hat: torch.Tensor, block_rows: int = 65536,
+                         out: torch.Tensor = None) -> torch.Tensor:
     """Θ_side(last, hat) over all N rows, (N, d) -> (N, d) f32: the CUDA
-    kernel for tensors on the card, the plain version for CPU tensors."""
+    kernel for tensors on the card, the plain version for CPU tensors;
+    written into ``out`` (contiguous f32, not overlapping the rows) when
+    given."""
     if last.is_cuda:
-        return transfer_rows_cuda(tower, last, hat)
+        return transfer_rows_cuda(tower, last, hat, out=out)
     if last.device.type == "cpu":
-        return transfer_rows_plain(tower, last, hat, block_rows)
+        return transfer_rows_plain(tower, last, hat, block_rows, out=out)
     raise ValueError(f"unsupported device {last.device}")

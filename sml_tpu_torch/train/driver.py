@@ -23,12 +23,20 @@ the attributed evaluation (its base sums make the ``test`` record) and adds
 a ``test_attribution`` record; with ``cfg.profile_dir`` period
 ``cfg.profile_period`` is traced by ``torch.profiler``, with one span per
 engine call (``refresh``, ``make_eval_set``, ``evaluate``,
-``inner_epoch``, ``outer_epoch``).
+``inner_epoch``, ``outer_epoch``, and for the fused programs
+``period_step`` and ``phase_step``: a replay enters no per-epoch span).
 
-Only the unfused path is ported: the JAX package's fused phase and period
-programs exist to cut JAX dispatches and compiles, and its own tests hold
-them equal to the unfused path, so ``cfg.fuse_phases`` and
-``cfg.fuse_period`` are accepted and have no effect here.
+The fused branches are the JAX package's (``cfg.fuse_phases``,
+``cfg.fuse_period``): a fused period runs its phases through
+``SMLEngine.period_step`` (on the card, CUDA-graph replays), branch A
+whole, branch C after its unfused phase 0 (the test must score the
+post-refresh tables before the outer epochs refresh them again); the
+saddle guard replays its rule on the returned outer-loss stack, and the
+in-program evals are logged as the records the unfused path logs, in its
+order. ``fuse_period="auto"`` fuses on a CUDA engine and runs the unfused
+path on the CPU and under a mesh (``SMLEngine.fused_program_warm``);
+``True`` under a mesh raises. Every route gives the unfused path's
+numbers, draws and records.
 """
 
 from __future__ import annotations
@@ -43,8 +51,10 @@ import torch
 
 from sml_tpu_torch.config import DataSpec, SMLConfig
 from sml_tpu_torch.data.feeder import PeriodFeeder, StageData
+from sml_tpu_torch.ops.batching import PaddedRows
 from sml_tpu_torch.ops.metrics import weighted_period_average
-from sml_tpu_torch.train.engine import SMLEngine, SMLState, copy_state
+from sml_tpu_torch.train.engine import (DIAG_NAMES, SMLEngine, SMLState,
+                                        copy_state)
 from sml_tpu_torch.utils.logging import MetricsLogger
 from sml_tpu_torch.utils.profiling import annotate, maybe_trace
 
@@ -198,15 +208,109 @@ class SMLDriver:
                     val) -> None:
         with annotate("evaluate"):
             sums = self.engine.evaluate_deferred(state.mf, val)
-        self._pending_evals.append((kind, epoch, sums))
+        self._defer(kind, epoch, sums)
+
+    def _defer(self, kind: str, epoch: int, payload) -> None:
+        """Queue an eval's device sums (or a fused period's stacked ones)
+        for :meth:`_flush_evals`, marking where its work ends."""
+        self._pending_evals.append((kind, epoch, payload))
         if self.engine.device.type == "cuda":
             ev = torch.cuda.Event()
             ev.record()
             self._pending_evals_done = ev
 
+    def _fusion(self) -> bool:
+        """Whether the fused programs may run: ``fuse_phases``, and
+        ``fuse_period`` True, False (phases may still fuse one by one) or
+        "auto" (the engine's route). Under a mesh only "auto" and False
+        are taken, both unfused; True raises."""
+        cfg = self.cfg
+        if not cfg.fuse_phases:
+            return False
+        if isinstance(cfg.fuse_period, str):
+            return self.engine.fused_program_warm()
+        if self.engine.mesh is not None:
+            if cfg.fuse_period:
+                raise ValueError(
+                    "fuse_period=True needs the fused period under a mesh, "
+                    "which the port does not have yet (gloo's collectives "
+                    "cannot be captured; ROADMAP §2, fused periods over "
+                    "NCCL): use fuse_period='auto' or False")
+            return False
+        return True
+
+    def _can_fuse(self, val) -> bool:
+        """One fused program per phase, unless in-training evals need the
+        intermediate states."""
+        return self._fusion() and not (
+            val is not None and (self.cfg.eval_during_inner
+                                 or self.cfg.eval_during_outer))
+
+    def _can_fuse_period(self, prep_tt) -> bool:
+        """One fused program per period (``SMLEngine.period_step``):
+        in-training evals and diagnostics ride inside it."""
+        return bool(self._fusion() and self.cfg.fuse_period
+                    and prep_tt is not None)
+
+    def _fused_period(self, state: SMLState, prep_t, prep_tt, val,
+                      n_phases: int, d_time: int = 0, start_phase: int = 0,
+                      guard: bool = False):
+        """``n_phases`` phases through ``SMLEngine.period_step``; any
+        in-program eval sums are deferred as one ``"__stacked__"`` entry,
+        expanded by :meth:`_flush_evals` into the unfused path's records.
+        With ``log_norms`` the phase records come from the stacked losses
+        and norms; ``guard`` replays the saddle rule on the outer-loss
+        stack, and a stalled attempt keeps the records of the phases the
+        unfused guard would have run. Returns ``(state, stalled)``."""
+        ev = val if isinstance(val, PaddedRows) else None
+        with annotate("period_step"):
+            state, evals, (ils, ols), diags = self.engine.period_step(
+                state, prep_t, prep_tt, n_phases, ev, self.cfg.log_norms)
+        stalled, keep = False, n_phases
+        if guard or self._track_losses:
+            ils, ols, diags = self.engine.fetch_host((ils, ols, diags))
+            inner_mean = [_mean_loss(ils[p], prep_t[0].n_real,
+                                     self.cfg.mf_batch_size)
+                          for p in range(n_phases)]
+            outer_mean = [_mean_loss(ols[p], prep_tt[0].n_real,
+                                     self.cfg.tr_batch_size)
+                          for p in range(n_phases)]
+            if guard:
+                check_phase, stalled_at = self._saddle_rule()
+                for phase in dict.fromkeys(
+                        (check_phase, self.cfg.multi_num - 1)):
+                    if phase < n_phases and stalled_at(phase,
+                                                       outer_mean[phase]):
+                        stalled, keep = True, phase + 1
+                        break
+            self._last_inner_loss = inner_mean[keep - 1]
+            self._last_outer_loss = outer_mean[keep - 1]
+            if self.cfg.log_norms:
+                for p in range(keep):
+                    self.logger.log(
+                        kind="phase", d_time=d_time, phase=start_phase + p,
+                        inner_loss=inner_mean[p], outer_loss=outer_mean[p],
+                        **{nm: float(diags[i][p])
+                           for i, nm in enumerate(DIAG_NAMES)},
+                        **self.engine.sampler_stats)
+        if evals:
+            self._defer("__stacked__", 0, (evals, max(ev.n_real, 1), keep))
+        return state, stalled
+
     def _one_phase(self, state: SMLState, prep_t, prep_tt, val) -> SMLState:
         """One SML phase: inner epochs -> hat snapshot -> refresh -> outer
-        epochs."""
+        epochs; one fused program (``SMLEngine.phase_step``) when it can
+        fuse."""
+        if self._can_fuse(val):
+            with annotate("phase_step"):
+                state, il, ol = self.engine.phase_step(state, prep_t,
+                                                       prep_tt)
+            if self._track_losses:
+                self._last_inner_loss = _mean_loss(
+                    il, prep_t[0].n_real, self.cfg.mf_batch_size)
+                self._last_outer_loss = _mean_loss(
+                    ol, prep_tt[0].n_real, self.cfg.tr_batch_size)
+            return state
         state = self._inner_block(state, prep_t, self.cfg.mf_epochs, val)
         state = self.engine.snapshot_hat(state)
         state = self._refresh(state)
@@ -269,9 +373,19 @@ class SMLDriver:
             return
         pending, self._pending_evals = self._pending_evals, []
         self._pending_evals_done = None
-        metrics = self.engine.resolve_evals([d for _, _, d in pending])
-        for (kind, epoch, _), m in zip(pending, metrics):
-            self.logger.log(kind=kind, epoch=epoch, **_flatten(m))
+        metrics = self.engine.resolve_evals(
+            [d for kind, _, d in pending if kind != "__stacked__"])
+        stacked = self.engine.resolve_stacked_evals(
+            [d for kind, _, d in pending if kind == "__stacked__"])
+        it, it_s = iter(metrics), iter(stacked)
+        for kind, epoch, _ in pending:
+            if kind == "__stacked__":
+                # a fused period's in-program evals: the unfused path's
+                # per-epoch records, in its order
+                for k2, e2, m2 in next(it_s):
+                    self.logger.log(kind=k2, epoch=e2, **_flatten(m2))
+            else:
+                self.logger.log(kind=kind, epoch=epoch, **_flatten(next(it)))
 
     def _drain_tests(self) -> None:
         """Resolve the deferred per-period tests, in period order, into the
@@ -367,12 +481,18 @@ class SMLDriver:
         if sd.now_test is None:
             # branch A: warm-up, with the optional first-period saddle guard
             budget = self.cfg.saddle_retries if d_time == 0 else 0
+            fused = self._can_fuse_period(prep_tt)
             state0 = copy_state(state) if budget > 0 else None
             attempt = 0
             while True:
-                state, stalled = self._warmup_phases(
-                    state, prep_t, prep_tt, sd.val, d_time,
-                    guard=attempt < budget)
+                if fused:
+                    state, stalled = self._fused_period(
+                        state, prep_t, prep_tt, sd.val, self.cfg.multi_num,
+                        d_time, guard=attempt < budget)
+                else:
+                    state, stalled = self._warmup_phases(
+                        state, prep_t, prep_tt, sd.val, d_time,
+                        guard=attempt < budget)
                 if not stalled:
                     break
                 attempt += 1
@@ -410,11 +530,18 @@ class SMLDriver:
             self._record_test(state, sd.now_test, d_time)
             state = self._outer_block(state, prep_tt, sd.val)
             self._log_phase(state, d_time, 0)
-            for phase in range(1, self.cfg.multi_num):
-                state = self._one_phase(state, prep_t, prep_tt, sd.val)
-                self._log_phase(state, d_time, phase)
+            rest = self.cfg.multi_num - 1
+            if rest > 0 and self._can_fuse_period(prep_tt):
+                state, _ = self._fused_period(state, prep_t, prep_tt,
+                                              sd.val, rest, d_time,
+                                              start_phase=1)
+            else:
+                for phase in range(1, self.cfg.multi_num):
+                    state = self._one_phase(state, prep_t, prep_tt, sd.val)
+                    self._log_phase(state, d_time, phase)
             state = self._refresh(state)
 
+        self.engine.release_programs()
         self._flush_evals(force=False)
         dt = time.time() - t0
         self.report.period_seconds.append(dt)

@@ -10,9 +10,18 @@ warm-start and the saddle guard's re-roll, the host-side data preparation
 packed candidate masks (kernel K2 on the card), plain or with hit
 attribution by entity freshness.
 
-The JAX package's fused phase and period programs exist to cut JAX
-dispatches and compiles; the port runs eagerly and has only the
-epoch-at-a-time path. Tables, Θ and moments are updated in place.
+Tables, Θ and moments are updated in place. Besides the epoch-at-a-time
+operations the driver's unfused path calls, the engine has the JAX
+package's fused programs: :meth:`SMLEngine.phase_step` runs one SML phase
+(inner epochs -> hat snapshot -> refresh -> outer epochs, each with its
+refresh, the val evals inside when given) and :meth:`SMLEngine.period_step`
+a period's phases, stacking their losses, eval sums and weight norms. The
+phase is the same calls in the same order as the unfused driver's, on
+fixed buffers (the refresh and the snapshot write into the state's own
+tables, the Adam steps read their bias corrections from a device table).
+On the card a phase is captured once per period as a CUDA graph and
+replayed (``train/graphs.py``); on the CPU it runs eagerly, which is its
+plain version. No mesh: gloo's collectives cannot be captured.
 
 Under a mesh (:meth:`SMLEngine.set_mesh`, the ``placement`` property or
 :meth:`SMLEngine.init_state_sharded`) each rank holds its row blocks of the
@@ -28,6 +37,7 @@ from __future__ import annotations
 import copy
 import hashlib
 import threading
+import time
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -42,13 +52,15 @@ from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
                                            apply_tables,
                                            init_transfer, theta_leaves)
 from sml_tpu_torch.ops import eval_kernel
-from sml_tpu_torch.ops.batching import PaddedRows, bucket_rows, pad_rows
+from sml_tpu_torch.ops.batching import (PaddedRows, bucket_rows,
+                                        num_batches, pad_rows)
 from sml_tpu_torch.parallel.sharding import (TableLayout, shard_rows,
                                              state_shardings)
 from sml_tpu_torch.ops.sampling import (PeriodIndex, build_period_index,
                                         sampler_stats)
-from sml_tpu_torch.train.optim import (AdamState, adam_init, adam_update,
-                                       copy_opt_state)
+from sml_tpu_torch.train import graphs
+from sml_tpu_torch.train.optim import (AdamState, BiasTable, adam_init,
+                                       adam_update, copy_opt_state)
 from sml_tpu_torch.train.steps import make_inner_epoch, make_outer_epoch
 from sml_tpu_torch.utils.profiling import annotate
 
@@ -148,6 +160,16 @@ class SMLEngine:
         self.layout: Optional[TableLayout] = None
         self.plan = None
         self._placement = None
+        # fused phase programs of the current period, by their inputs; the
+        # side stream that captures them, and whether it has run a phase
+        self._programs: Dict[tuple, _PhaseProgram] = {}
+        self._stream = None
+        self._stream_warm = False
+        # the fused programs on the card: eager warm-up phases on the
+        # capture stream, captures, replays, and the host seconds spent in
+        # warm-ups and captures
+        self.graph_stats = {"warmups": 0, "captures": 0, "replays": 0,
+                            "warmup_s": 0.0, "capture_s": 0.0}
 
     # ------------------------------------------------------------------ state
     def _snap_dtype(self) -> torch.dtype:
@@ -438,9 +460,142 @@ class SMLEngine:
             padded.n_real, state.gen, index)
         return state._replace(theta=theta, tr_opt=opt), losses
 
-    def diagnostics(self, state: SMLState) -> Dict[str, float]:
-        """Mean per-row squared norm of the tables and snapshots (over the
-        whole tables under a mesh), and the global L2 norm of Θ."""
+    # ---------------------------------------------------- fused programs
+    def fused_program_warm(self) -> bool:
+        """The route ``fuse_period="auto"`` takes: True (fused: each phase
+        a CUDA-graph replay) on a CUDA engine, False (the eager per-phase
+        path) on the CPU and under a mesh. The JAX package's marker file
+        avoided a first XLA compile of minutes; a capture costs about one
+        eager phase, so the port needs none."""
+        return self.device.type == "cuda" and self.mesh is None
+
+    def _capture_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _program(self, state: SMLState, prep_t, prep_tt, ev,
+                 want_diag: bool) -> "_PhaseProgram":
+        """The phase program for these inputs and the state's buffers,
+        made on first use (one per period; :meth:`release_programs`)."""
+        if self.mesh is not None:
+            raise ValueError(
+                "the fused phase and period programs do not run under a "
+                "mesh: gloo's collectives cannot be captured (ROADMAP §2, "
+                "fused periods over NCCL); use fuse_period=False")
+        key = (id(prep_t[0].rows), id(prep_tt[0].rows),
+               None if ev is None else id(ev[0]), want_diag,
+               _buffer_key(state))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _PhaseProgram(
+                self, state, prep_t, prep_tt, ev, want_diag)
+        return prog
+
+    def release_programs(self) -> None:
+        """Drop the period's phase programs (their graphs and buffers)."""
+        self._programs.clear()
+
+    def phase_step(self, state: SMLState, prep_t, prep_tt):
+        """One fused SML phase; returns ``(state, last_inner_losses,
+        last_outer_losses)``. The same calls in the same order as the
+        driver's unfused phase (so the same numbers and draws); on the
+        card a CUDA-graph replay after the period's first call."""
+        prog = self._program(state, prep_t, prep_tt, None, False)
+        state = prog.run(state)
+        return state, prog.il.clone(), prog.ol.clone()
+
+    def period_step(self, state: SMLState, prep_t, prep_tt, n_phases: int,
+                    val: Optional[PaddedRows] = None,
+                    want_diag: bool = False):
+        """``n_phases`` fused SML phases; returns ``(state, evals, (ils,
+        ols), diags)``. ``ils``/``ols``: the last inner/outer epoch's
+        per-batch losses of each phase, ``(n_phases, n_batches)``;
+        ``evals``: {} or, when ``val`` (a ``make_eval_set`` result) is
+        given and in-training evals are on, ``{"inner"/"outer": {K: (hit,
+        ndcg)}}`` sums of shape ``(n_phases, epochs)``, observed on the
+        same intermediate states as the unfused path's evals (expand them
+        with :meth:`resolve_stacked_evals`); ``diags``: with ``want_diag``
+        the 7 :data:`DIAG_NAMES` norms of each phase-end state, each
+        ``(n_phases,)``, else ``()``. Nothing is read back to the host."""
+        cfg = self.cfg
+        ev = None
+        if val is not None and (cfg.eval_during_inner
+                                or cfg.eval_during_outer):
+            ev = (val.rows, val.mask, val.cand_mask)
+        prog = self._program(state, prep_t, prep_tt, ev, want_diag)
+
+        def stack(buf):
+            return (None if buf is None else
+                    torch.zeros((n_phases, *buf.shape), dtype=buf.dtype,
+                                device=self.device))
+        outs = [(prog.il, stack(prog.il)), (prog.ol, stack(prog.ol)),
+                (prog.ev_in, stack(prog.ev_in)),
+                (prog.ev_out, stack(prog.ev_out)),
+                (prog.diag, stack(prog.diag))]
+        for p in range(n_phases):
+            state = prog.run(state)
+            for buf, st in outs:
+                if buf is not None:
+                    st[p].copy_(buf)
+        ils, ols, ev_in, ev_out, diag = (st for _, st in outs)
+        evals = {}
+        for name, st in (("inner", ev_in), ("outer", ev_out)):
+            if st is not None:
+                evals[name] = {k: (st[:, :, i, 0], st[:, :, i, 1])
+                               for i, k in enumerate(cfg.topk)}
+        diags = (() if diag is None
+                 else tuple(diag[:, i] for i in range(len(DIAG_NAMES))))
+        return state, evals, (ils, ols), diags
+
+    def resolve_stacked_evals(self, bundles):
+        """Expand ``period_step`` eval bundles into the per-epoch records
+        the unfused path logs, in its order (per phase: the inner epochs,
+        then the outer epochs). ``bundles``: a list of ``(evals, n)`` or
+        ``(evals, n, keep)``, ``keep`` limiting the expansion to the first
+        ``keep`` phases (a guard-aborted attempt keeps the phases the
+        unfused guard would have run). Returns one list of ``(kind, epoch,
+        {K: {recall, ndcg}})`` per bundle, after one host fetch for all."""
+        if not bundles:
+            return []
+        flat = [t for b in bundles for sec in b[0].values()
+                for pair in sec.values() for t in pair]
+        host = (torch.cat([t.reshape(-1) for t in flat]).cpu().numpy()
+                if flat else np.zeros(0, np.float32))
+        pos = 0
+
+        def take(t):
+            nonlocal pos
+            out = host[pos:pos + t.numel()].reshape(tuple(t.shape))
+            pos += t.numel()
+            return out
+        out_all = []
+        for bundle in bundles:
+            evals, n = bundle[0], bundle[1]
+            keep = bundle[2] if len(bundle) > 2 else None
+            sections = [(kind, {k: (take(h), take(nd))
+                                for k, (h, nd) in evals[key].items()})
+                        for kind, key in (("inner_eval", "inner"),
+                                          ("outer_eval", "outer"))
+                        if key in evals]
+            out = []
+            if sections:
+                n_phases = next(iter(sections[0][1].values()))[0].shape[0]
+                if keep is not None:
+                    n_phases = min(n_phases, keep)
+                for p in range(n_phases):
+                    for kind, sec in sections:
+                        epochs = next(iter(sec.values()))[0].shape[1]
+                        for e in range(epochs):
+                            out.append((kind, e,
+                                        {k: {"recall": float(h[p, e]) / n,
+                                             "ndcg": float(nd[p, e]) / n}
+                                         for k, (h, nd) in sec.items()}))
+            out_all.append(out)
+        return out_all
+
+    def _diag_values(self, state: SMLState):
+        """The :data:`DIAG_NAMES` values as 0-d tensors on the device."""
         with torch.no_grad():
             def rownorm(t, side):
                 t = t.float()
@@ -450,14 +605,19 @@ class SMLEngine:
                         / self._rows_of(t, side))
             theta_sq = sum(torch.sum(p * p)
                            for p in theta_leaves(state.theta).values())
-            vals = (rownorm(state.mf.user_emb, "user"),
+            return (rownorm(state.mf.user_emb, "user"),
                     rownorm(state.mf.item_emb, "item"),
                     rownorm(state.hat_user, "user"),
                     rownorm(state.hat_item, "item"),
                     rownorm(state.last_user, "user"),
                     rownorm(state.last_item, "item"),
                     torch.sqrt(theta_sq))
-            return {n: float(v) for n, v in zip(DIAG_NAMES, vals)}
+
+    def diagnostics(self, state: SMLState) -> Dict[str, float]:
+        """Mean per-row squared norm of the tables and snapshots (over the
+        whole tables under a mesh), and the global L2 norm of Θ."""
+        return {n: float(v)
+                for n, v in zip(DIAG_NAMES, self._diag_values(state))}
 
     def whole_state(self, state: SMLState) -> SMLState:
         """The global state with CPU table leaves: under a mesh the row
@@ -700,3 +860,172 @@ class SMLEngine:
                 self.device)] = 1.0
             return m
         return mask(self.n_users, new_users), mask(self.n_items, new_items)
+
+
+def _buffer_key(state: SMLState) -> tuple:
+    """The identity of the buffers a phase reads and writes: the tables,
+    snapshots, Θ, both optimizers' moments, and the generator."""
+    tensors = [*state.mf, state.last_user, state.last_item, state.hat_user,
+               state.hat_item, *theta_leaves(state.theta).values()]
+    for opt in (state.mf_opt, state.tr_opt):
+        tensors += [opt.mu[k] for k in sorted(opt.mu)]
+        tensors += [opt.nu[k] for k in sorted(opt.nu)]
+    return tuple(t.data_ptr() for t in tensors) + (id(state.gen),)
+
+
+class _PhaseProgram:
+    """One SML phase on fixed buffers, for one period's prepared inputs and
+    one state's buffers: the driver's unfused phase (``_inner_block``,
+    ``snapshot_hat``, ``refresh``, ``_outer_block``) as the same calls in
+    the same order, with three differences that keep every address fixed
+    and change no number:
+
+    * the hat snapshot is copied into the state's ``hat_*`` buffers, each
+      refresh writes into the MF tables themselves (``apply_tables(...,
+      out=)``), and ``load_w_hat`` copies the snapshot into the tables;
+    * the epochs write their losses into :attr:`il` / :attr:`ol`, the val
+      evals their sums into :attr:`ev_in` / :attr:`ev_out` (``(epochs, K,
+      2)``: hit, NDCG) and, with ``want_diag``, the phase-end norms go
+      into :attr:`diag`;
+    * the Adam steps read their bias corrections from two
+      :class:`~sml_tpu_torch.train.optim.BiasTable` (one row per step of
+      the phase), filled from the state's counts before every run.
+
+    :meth:`run` runs the phase: eagerly on the CPU; on the card the first
+    run on an engine goes eagerly on the capture stream (its warm-up), the
+    next captures the phase as a CUDA graph, and every run from then on is
+    a replay."""
+
+    def __init__(self, eng: SMLEngine, state: SMLState, prep_t, prep_tt,
+                 ev, want_diag: bool):
+        cfg = eng.cfg
+        self.eng, self.cfg = eng, cfg
+        self.prep_t, self.prep_tt, self.ev = prep_t, prep_tt, ev
+        self.key = _buffer_key(state)
+        _check_disjoint(state)
+        pt, ptt = prep_t[0], prep_tt[0]
+        dev = eng.device
+        nb_in = pt.rows.shape[0] // cfg.mf_batch_size
+        nb_out = ptt.rows.shape[0] // cfg.tr_batch_size
+        self.steps_mf = cfg.mf_epochs * min(
+            num_batches(pt.n_real, cfg.mf_batch_size), nb_in)
+        self.steps_tr = cfg.tr_epochs * min(
+            num_batches(ptt.n_real, cfg.tr_batch_size), nb_out)
+        self.mf_bias = BiasTable(self.steps_mf, dev)
+        self.tr_bias = BiasTable(self.steps_tr, dev)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        self.il, self.ol = zeros(nb_in), zeros(nb_out)
+        n_k = len(cfg.topk)
+        self.ev_in = (zeros(cfg.mf_epochs, n_k, 2)
+                      if ev is not None and cfg.eval_during_inner else None)
+        self.ev_out = (zeros(cfg.tr_epochs, n_k, 2)
+                       if ev is not None and cfg.eval_during_outer
+                       and cfg.refresh_after_outer_epoch else None)
+        self.diag = zeros(len(DIAG_NAMES)) if want_diag else None
+        self.call: Optional[graphs.CapturedCall] = None
+
+    def _eval_into(self, buf: torch.Tensor, mf: MFParams) -> None:
+        rows, mask, cand_mask = self.ev
+        sums = self.eng._eval(mf, rows, mask, cand_mask)
+        buf.copy_(torch.stack([torch.stack(sums[k]) for k in self.cfg.topk]))
+
+    def _refresh(self, state: SMLState) -> None:
+        apply_tables(state.theta, self.cfg.transfer,
+                     state.last_user, state.hat_user,
+                     state.last_item, state.hat_item,
+                     out=(state.mf.user_emb, state.mf.item_emb))
+
+    def body(self, state: SMLState) -> SMLState:
+        cfg, eng = self.cfg, self.eng
+        (pt, it), (ptt, itt) = self.prep_t, self.prep_tt
+        mf_opt = state.mf_opt._replace(bias=self.mf_bias)
+        tr_opt = state.tr_opt._replace(bias=self.tr_bias)
+        for e in range(cfg.mf_epochs):
+            _, mf_opt, _ = eng._inner(
+                state.mf, mf_opt, state.theta, state.last_user,
+                state.last_item, pt.rows, pt.mask, pt.n_real, state.gen, it,
+                losses=self.il)
+            if self.ev_in is not None:
+                self._eval_into(self.ev_in[e], state.mf)
+        with torch.no_grad():
+            state.hat_user.copy_(state.mf.user_emb)
+            state.hat_item.copy_(state.mf.item_emb)
+        self._refresh(state)
+        for e in range(cfg.tr_epochs):
+            _, tr_opt, _ = eng._outer(
+                state.theta, tr_opt, state.last_user, state.last_item,
+                state.hat_user, state.hat_item, ptt.rows, ptt.mask,
+                ptt.n_real, state.gen, itt, losses=self.ol)
+            if cfg.refresh_after_outer_epoch:
+                self._refresh(state)
+                if self.ev_out is not None:
+                    self._eval_into(self.ev_out[e], state.mf)
+        if cfg.load_w_hat:
+            with torch.no_grad():
+                state.mf.user_emb.copy_(state.hat_user)
+                state.mf.item_emb.copy_(state.hat_item)
+        if self.diag is not None:
+            self.diag.copy_(torch.stack(eng._diag_values(state)))
+        return state._replace(mf_opt=mf_opt._replace(bias=None),
+                              tr_opt=tr_opt._replace(bias=None))
+
+    def run(self, state: SMLState) -> SMLState:
+        """One phase from ``state`` (whose buffers are this program's);
+        returns the state after it, its step counts advanced."""
+        if _buffer_key(state) != self.key:
+            raise ValueError("this phase program was made for other "
+                             "buffers")
+        c_mf, c_tr = state.mf_opt.count, state.tr_opt.count
+        self.mf_bias.fill(c_mf)
+        self.tr_bias.fill(c_tr)
+        eng = self.eng
+        if eng.device.type == "cuda" and (self.call is not None
+                                          or eng._stream_warm):
+            if self.call is None:
+                t0 = time.perf_counter()
+                self.call = graphs.CapturedCall(
+                    lambda: self.body(state), eng._capture_stream(),
+                    generators=(state.gen,))
+                if _buffer_key(self.call.result) != self.key:
+                    raise RuntimeError("the captured phase rebound a "
+                                       "buffer; a replay would not update "
+                                       "the state")
+                eng.graph_stats["captures"] += 1
+                eng.graph_stats["capture_s"] += time.perf_counter() - t0
+            self.call.replay()
+            eng.graph_stats["replays"] += 1
+            return state._replace(
+                mf_opt=state.mf_opt._replace(count=c_mf + self.steps_mf),
+                tr_opt=state.tr_opt._replace(count=c_tr + self.steps_tr))
+        if eng.device.type == "cuda":
+            t0 = time.perf_counter()
+            out = graphs.run_on(eng._capture_stream(),
+                                lambda: self.body(state))
+            eng._stream_warm = True
+            eng.graph_stats["warmups"] += 1
+            eng.graph_stats["warmup_s"] += time.perf_counter() - t0
+        else:
+            out = self.body(state)
+        if (out.mf_opt.count, out.tr_opt.count) != (c_mf + self.steps_mf,
+                                                    c_tr + self.steps_tr):
+            raise RuntimeError("the phase took another number of Adam "
+                               "steps than its inputs give")
+        return out
+
+
+def _check_disjoint(state: SMLState) -> None:
+    """The fused phase writes the MF tables and the hat snapshots in place:
+    none of them may share memory with another or with ``last``."""
+    ts = [state.mf.user_emb, state.mf.item_emb, state.hat_user,
+          state.hat_item, state.last_user, state.last_item]
+    spans = [(t.untyped_storage().data_ptr(),
+              t.untyped_storage().data_ptr() + t.untyped_storage().nbytes())
+             for t in ts]
+    for a in range(len(spans)):
+        for b in range(a + 1, len(spans)):
+            if spans[a][0] < spans[b][1] and spans[b][0] < spans[a][1]:
+                raise ValueError("the state's tables and snapshots share "
+                                 "memory; the fused phase writes them in "
+                                 "place")

@@ -17,6 +17,15 @@ names are the leaf paths of the JAX optimizer state (``user_emb``,
 ``user/fc1_w``); :func:`opt_state_from_numpy` carries a JAX state across.
 Parameters and moments are updated in place.
 
+The bias corrections ``1 - b**t`` are computed on the host in f32 from the
+count (:func:`bias_corrections`) and divide as 0-d tensors on the device.
+A step that a CUDA graph replays (``train/graphs.py``) cannot take them by
+value: the replay would repeat the captured step's numbers. There the
+state's ``bias`` is a :class:`BiasTable`, a device buffer of one
+``(bc1, bc2)`` pair per step of the captured region, filled on the host
+with the same f32 values before every replay; the steps read their pair
+through fixed views, so they round exactly as the by-value steps do.
+
 :func:`sparse_dense_adam_update` is the same step for row-sparse table
 gradients with exact dense semantics: a full-table g=0 pass (kernel K3 on
 the card, :mod:`sml_tpu_torch.ops.adam_kernel`) and an exact fix-up of the
@@ -43,6 +52,9 @@ class AdamState(NamedTuple):
     count: int                      # steps taken
     mu: Dict[str, torch.Tensor]     # first moments, by leaf name
     nu: Dict[str, torch.Tensor]     # second moments, by leaf name
+    # where steps read their bias corrections: None, from ``count`` on the
+    # host; a BiasTable inside a captured region
+    bias: Optional["BiasTable"] = None
 
 
 class TableGrad(NamedTuple):
@@ -77,6 +89,58 @@ def _full(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
+class BiasTable:
+    """The bias corrections of ``steps`` consecutive Adam steps in one
+    ``(steps, 2)`` f32 buffer on ``device``: row ``k`` holds ``(bc1, bc2)``
+    of step ``base + 1 + k``. :meth:`fill` writes them for a new ``base``
+    (one host-to-device copy, ordered on the current stream); a step of
+    count ``c`` reads row ``c - base - 1`` through :meth:`at`, whose views
+    keep their addresses, so a CUDA graph that captured the steps reads
+    each replay's values."""
+
+    def __init__(self, steps: int, device, b1: float = ADAM_B1,
+                 b2: float = ADAM_B2):
+        self.steps, self.b1, self.b2 = steps, b1, b2
+        self.buf = torch.zeros((steps, 2), dtype=torch.float32,
+                               device=device)
+        self.base = 0
+
+    def fill(self, base: int) -> None:
+        """Rows for counts ``base + 1 ... base + steps``, each pair the f32
+        values :func:`bias_corrections` gives."""
+        vals = torch.tensor([bias_corrections(base + 1 + k, self.b1, self.b2)
+                             for k in range(self.steps)],
+                            dtype=torch.float32).reshape(self.steps, 2)
+        if self.buf.is_cuda:
+            # pinned, so the copy is ordered on the stream (the previous
+            # replay may still read the buffer) and the host goes on
+            self.buf.copy_(vals.pin_memory(), non_blocking=True)
+        else:
+            self.buf.copy_(vals)
+        self.base = base
+
+    def at(self, count: int, b1: float, b2: float):
+        """``(bc1, bc2)`` of step ``count`` as 0-d views of the buffer."""
+        k = count - self.base - 1
+        if not 0 <= k < self.steps or (b1, b2) != (self.b1, self.b2):
+            raise ValueError(f"step {count} with b1={b1}, b2={b2} is not in "
+                             f"this table (steps {self.base + 1} ... "
+                             f"{self.base + self.steps}, b1={self.b1}, "
+                             f"b2={self.b2})")
+        row = self.buf[k]
+        return row[0], row[1]
+
+
+def _bias_of(state: AdamState, count: int, b1: float, b2: float,
+             like: torch.Tensor):
+    """Step ``count``'s bias corrections as 0-d f32 tensors on ``like``'s
+    device: from the host, or the state's :class:`BiasTable`."""
+    if state.bias is not None:
+        return state.bias.at(count, b1, b2)
+    bc1, bc2 = bias_corrections(count, b1, b2)
+    return _full(bc1, like), _full(bc2, like)
+
+
 def adam_update(params: Mapping, grads: Mapping, state: AdamState, *,
                 lr: float, weight_decay: float = 0.0, b1: float = ADAM_B1,
                 b2: float = ADAM_B2, eps: float = ADAM_EPS) -> AdamState:
@@ -84,7 +148,7 @@ def adam_update(params: Mapping, grads: Mapping, state: AdamState, *,
     ``grads[name]`` may be None (a leaf the loss does not reach: zero
     gradient, so its moments decay and it moves on its momentum)."""
     count = state.count + 1
-    bc1, bc2 = bias_corrections(count, b1, b2)
+    bc1, bc2 = _bias_of(state, count, b1, b2, next(iter(params.values())))
     with torch.no_grad():
         for name, p in params.items():
             g = grads.get(name)
@@ -95,8 +159,7 @@ def adam_update(params: Mapping, grads: Mapping, state: AdamState, *,
             mu, nu = state.mu[name], state.nu[name]
             mu.mul_(b1).add_(g * (1 - b1))
             nu.mul_(b2).add_((g * g) * (1 - b2))
-            step = (mu / _full(bc1, p)) / (torch.sqrt(nu / _full(bc2, p))
-                                           + eps)
+            step = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
             p.add_(step * (-lr))
     return state._replace(count=count)
 
@@ -149,9 +212,10 @@ def sparse_dense_adam_update(params, state: AdamState,
     over all of them, and only the owned ids are fixed up, at their local
     rows."""
     count = state.count + 1
-    bc1, bc2 = bias_corrections(count, b1, b2)
     leaves = {name: (getattr(params, name), state.mu[name], state.nu[name])
               for name in params._fields}
+    # 0-d tensors on the tables' device: K3 reads them through pointers
+    bc1, bc2 = _bias_of(state, count, b1, b2, params[0])
     with torch.no_grad():
         fixes = []
         for name, (idx, g_rows) in sparse.items():
@@ -169,8 +233,8 @@ def sparse_dense_adam_update(params, state: AdamState,
         for (p, mu, nu), idx, g_sum, p_rows, mu_rows, nu_rows in fixes:
             mu_f = g_sum * (1 - b1) + mu_rows * b1
             nu_f = (g_sum * g_sum) * (1 - b2) + nu_rows * b2
-            p_f = p_rows + (mu_f / _full(bc1, p)) / (
-                torch.sqrt(nu_f / _full(bc2, p)) + eps) * (-lr)
+            p_f = p_rows + (mu_f / bc1) / (
+                torch.sqrt(nu_f / bc2) + eps) * (-lr)
             mu[idx] = mu_f
             nu[idx] = nu_f
             p[idx] = p_f

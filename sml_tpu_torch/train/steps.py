@@ -24,7 +24,11 @@ Gradient flow, as in the JAX package:
 
 Parameters and moments are updated in place. Random draws (negative
 columns, shuffles, sampled negatives) come from one ``torch.Generator`` on
-the device, in a fixed order; replay mode draws nothing.
+the device, in a fixed order; replay mode draws nothing. No step reads a
+value back to the host (the step count is ``ceil(n_real/B)`` from the host
+int ``n_real``), so a CUDA graph can capture whole epochs; the inner and
+outer epochs then write their losses into a buffer they are given
+(``losses=``) rather than a new one.
 
 Under a mesh (``layout``, a :class:`~sml_tpu_torch.parallel.sharding.
 TableLayout`) the inner and outer epochs write out what GSPMD inserts in
@@ -67,15 +71,22 @@ from sml_tpu_torch.train.optim import (AdamState, TableGrad, adam_update,
 
 def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
                generator: torch.Generator, batch_size: int, step_fn,
-               shuffle: bool = True):
+               shuffle: bool = True, losses: torch.Tensor = None):
     """Shuffle, then ``ceil(n_real/B)`` calls of ``step_fn(carry, rows_b,
     mask_b, generator) -> (carry, loss)``. Returns ``(carry, losses)`` with
-    ``losses`` (nb_max,) f32 on the rows' device, 0 for skipped batches.
+    ``losses`` (nb_max,) f32 on the rows' device, 0 for skipped batches;
+    ``losses`` given, the epoch zeroes and fills that buffer.
     ``shuffle=False`` (replay mode) keeps the given order."""
     if shuffle:
         rows, mask = shuffle_real_first(generator, rows, mask)
     nb_max = rows.shape[0] // batch_size
-    losses = torch.zeros(nb_max, dtype=torch.float32, device=rows.device)
+    if losses is None:
+        losses = torch.zeros(nb_max, dtype=torch.float32, device=rows.device)
+    elif losses.shape != (nb_max,):
+        raise ValueError(f"losses must be ({nb_max},), got "
+                         f"{tuple(losses.shape)}")
+    else:
+        losses.zero_()
     for b in range(min(num_batches(n_real, batch_size), nb_max)):
         sl = slice(b * batch_size, (b + 1) * batch_size)
         carry, loss = step_fn(carry, rows[sl], mask[sl], generator)
@@ -139,10 +150,10 @@ def _block(layout, u, i, j, m):
 
 def make_inner_epoch(cfg: SMLConfig, layout=None):
     """Inner (MF) epoch through the frozen Θ: ``epoch(mf, opt, theta,
-    last_u, last_i, rows, mask, n_real, generator, index=None) -> (mf,
-    opt, losses)``, with ``mf`` updated in place. With ``layout`` the
-    tables are this rank's row blocks and the losses are the whole
-    batch's."""
+    last_u, last_i, rows, mask, n_real, generator, index=None,
+    losses=None) -> (mf, opt, losses)``, with ``mf`` updated in place (and
+    the losses in ``losses`` when given). With ``layout`` the tables are
+    this rank's row blocks and the losses are the whole batch's."""
     tcfg = cfg.transfer
     batch = cfg.mf_batch_size
     mode = "replay" if cfg.replay_mode else cfg.mf_sample
@@ -192,7 +203,7 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
     def epoch(mf: MFParams, opt: AdamState, theta: TransferParams,
               last_u, last_i, rows, mask, n_real: int,
               generator: torch.Generator,
-              index: Optional[PeriodIndex] = None):
+              index: Optional[PeriodIndex] = None, losses=None):
         rows = _epoch_triples(rows, generator, mode)
 
         def step(opt, r, m, gen):
@@ -225,7 +236,8 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
             return opt, loss
 
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
-                                 step, shuffle=mode != "replay")
+                                 step, shuffle=mode != "replay",
+                                 losses=losses)
         return mf, opt, losses
 
     return epoch
@@ -243,16 +255,17 @@ def _sum_data(layout, grads, loss):
 def make_outer_epoch(cfg: SMLConfig, layout=None):
     """Outer (Θ) epoch on the detached snapshots: ``epoch(theta, opt,
     last_u, last_i, hat_u, hat_i, rows, mask, n_real, generator,
-    index=None) -> (theta, opt, losses)``, with Θ updated in place. With
-    ``layout`` the snapshots are this rank's row blocks and the losses are
-    the whole batch's."""
+    index=None, losses=None) -> (theta, opt, losses)``, with Θ updated in
+    place (and the losses in ``losses`` when given). With ``layout`` the
+    snapshots are this rank's row blocks and the losses are the whole
+    batch's."""
     tcfg = cfg.transfer
     batch = cfg.tr_batch_size
     mode = "replay" if cfg.replay_mode else cfg.tr_sample_type
 
     def epoch(theta: TransferParams, opt: AdamState, last_u, last_i, hat_u,
               hat_i, rows, mask, n_real: int, generator: torch.Generator,
-              index: Optional[PeriodIndex] = None):
+              index: Optional[PeriodIndex] = None, losses=None):
         rows = _epoch_triples(rows, generator, mode)
         leaves = theta_leaves(theta)
 
@@ -287,7 +300,8 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
             return opt, loss
 
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
-                                 step, shuffle=mode != "replay")
+                                 step, shuffle=mode != "replay",
+                                 losses=losses)
         return theta, opt, losses
 
     return epoch

@@ -17,10 +17,14 @@ held to rtol 1e-6; P2 exact on integer tables and within 1e-4 on N(0,1)
 ones (bf16 products are exact in f32, only the order of the sums differs),
 on int64 strided and int32 ids, out-of-range ids and odd B and C;
 P3 exact on integer tables; two and four ranks sharing the card over
-gloo within 1e-4 of one rank. The edge-case rows: no bit set, every item
-set, one 16-byte chunk of the mask, its last chunk (K2, P3); no bit, one
-bit, one full 4096-item mask block, every item (P1). P1 also at widths
-that are not multiples of 16 (zero-padded, exact).
+gloo within 1e-4 of one rank; a captured SML phase replayed against the
+same phases run call by call within 1e-5 (the same kernels on the same
+inputs: bit equality expected), the generators at one position, eval hits
+within 1; K3 reading each replay's bias corrections and K1 into ``out=``
+bit-equal to their plain versions and fresh outputs. The edge-case rows:
+no bit set, every item set, one 16-byte chunk of the mask, its last chunk
+(K2, P3); no bit, one bit, one full 4096-item mask block, every item (P1).
+P1 also at widths that are not multiples of 16 (zero-padded, exact).
 """
 
 import json
@@ -690,7 +694,9 @@ def test_profiled_period_on_card_traces_kernels(card, tmp_path, capsys):
     # the refresh's K1 launches are among the traced kernels
     assert any("transfer_rows" in e["name"] for e in kernels)
     spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
-    assert {"refresh", "inner_epoch", "outer_epoch"} <= spans
+    # "auto" fuses on the card: the warm-up period is one period_step
+    # (its phase the engine's first, run eagerly), then the final refresh
+    assert {"refresh", "period_step"} <= spans
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -715,3 +721,166 @@ def test_ranks_sharing_the_card_match_one_rank(card, n):
             assert launches["decay_adam_kernel"] > 0
             assert launches == per_rank[0]
     assert report["serving"] <= 1e-5
+
+
+def _fused_engine(card, **kw):
+    """A small engine on the card whose phase draws negatives (so the
+    generator matters), takes row-sparse Adam steps (K3 by pointer),
+    refreshes through K1 and evaluates with K2 inside the phase."""
+    from sml_tpu_torch.train.engine import SMLEngine
+    base = dict(latent_dim=16, mf_batch_size=64, tr_batch_size=32,
+                eval_batch_size=64, mf_epochs=2, tr_epochs=2, multi_num=4,
+                mf_sample="alone", fast_table_adam=True,
+                eval_scoring="masked", eval_during_inner=True,
+                eval_during_outer=True,
+                transfer=TransferConfig(latent_dim=16, fc_hidden=64))
+    base.update(kw)
+    return SMLEngine(SMLConfig(**base), 500, 300, device=card)
+
+
+def _fused_inputs(eng):
+    rng = np.random.default_rng(21)
+    pairs = np.unique(np.stack([rng.integers(0, 500, 900),
+                                rng.integers(0, 300, 900)], 1), axis=0)
+    users = rng.permutation(500)[:100]
+    cand = np.stack([rng.permutation(300)[:21] for _ in users])
+    val = np.concatenate([users[:, None], cand], 1)
+    return (eng.prep_inner(pairs), eng.prep_outer(pairs[:300]),
+            eng.make_eval_set(val, build_mask=True))
+
+
+def _eager_phase(eng, state, prep_t, prep_tt, val):
+    """The driver's unfused phase, call by call."""
+    sums = []
+    for _ in range(eng.cfg.mf_epochs):
+        state, il = eng.inner_epoch(state, *prep_t)
+        sums.append(eng.evaluate_deferred(state.mf, val)[0])
+    state = eng.refresh(eng.snapshot_hat(state))
+    for _ in range(eng.cfg.tr_epochs):
+        state, ol = eng.outer_epoch(state, *prep_tt)
+        state = eng.refresh(state)
+        sums.append(eng.evaluate_deferred(state.mf, val)[0])
+    return state, il, ol, sums
+
+
+def test_captured_phase_replays_match_eager_phases(card):
+    """``period_step`` (the engine's first phase eagerly on the capture
+    stream, then one capture and replays) against the same phases run
+    call by call from a copy of the state: tables, Θ, moments, losses,
+    eval sums and the generator's position."""
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.train.engine import copy_state
+    n = 4
+    fused, plain = _fused_engine(card), _fused_engine(card)
+    prep_t, prep_tt, val = _fused_inputs(fused)
+    state = fused.snapshot_last(fused.init_state())
+    ref = copy_state(state)
+    state, evals, (ils, ols), _ = fused.period_step(state, prep_t, prep_tt,
+                                                    n, val)
+    assert [fused.graph_stats[k] for k in ("warmups", "captures",
+                                           "replays")] == [1, 1, n - 1]
+    hits = []
+    for _ in range(n):
+        ref, il, ol, sums = _eager_phase(plain, ref, prep_t, prep_tt, val)
+        hits.append(sums)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for f in ("user_emb", "item_emb", "user_bias", "item_bias"):
+        torch.testing.assert_close(getattr(state.mf, f), getattr(ref.mf, f),
+                                   **tol)
+    for f in ("hat_user", "hat_item"):
+        torch.testing.assert_close(getattr(state, f), getattr(ref, f), **tol)
+    tg, tr = theta_leaves(state.theta), theta_leaves(ref.theta)
+    for k in tg:
+        torch.testing.assert_close(tg[k].detach(), tr[k].detach(), **tol)
+    for opt in ("mf_opt", "tr_opt"):
+        a, b = getattr(state, opt), getattr(ref, opt)
+        assert a.count == b.count
+        for part in ("mu", "nu"):
+            for k, t in getattr(a, part).items():
+                torch.testing.assert_close(t, getattr(b, part)[k], **tol)
+    torch.testing.assert_close(ils[-1], il, **tol)
+    torch.testing.assert_close(ols[-1], ol, **tol)
+    assert torch.equal(state.gen.get_state(), ref.gen.get_state())
+    got = fused.resolve_stacked_evals([(evals, 100)])[0]
+    want = [sums for phase in hits for sums in phase]
+    assert len(got) == len(want) == n * 4
+    for (_, _, m), sums in zip(got, want):
+        for k in fused.cfg.topk:
+            assert abs(m[k]["recall"] * 100 - float(sums[k][0])) <= 1
+
+
+def test_replays_count_their_launches(card):
+    """A capture adds no launch; every replay adds the captured ones, so
+    the counts equal those of the same phases run eagerly."""
+    n = 3
+    counted = (AK.decay_adam_cuda, TK.transfer_rows_cuda, E.masked_rank_cuda)
+    totals = []
+    for fuse in (True, False):
+        eng = _fused_engine(card)
+        prep_t, prep_tt, val = _fused_inputs(eng)
+        state = eng.snapshot_last(eng.init_state())
+        before = [w.launches for w in counted]
+        if fuse:
+            eng.period_step(state, prep_t, prep_tt, n, val)
+            assert eng.graph_stats["replays"] == n - 1
+        else:
+            for _ in range(n):
+                state = _eager_phase(eng, state, prep_t, prep_tt, val)[0]
+        torch.cuda.synchronize()
+        totals.append([w.launches - b for w, b in zip(counted, before)])
+    steps = -(-prep_t[0].n_real // 64) * 2
+    # K3 one per fast step; K1 2 per refresh (3 per phase); K2 2 batches
+    # per eval (4 per phase)
+    assert totals[0] == totals[1] == [n * steps, n * 6, n * 4 * 2]
+
+
+def test_decay_adam_reads_bias_corrections_when_it_runs(card):
+    """K3 reads bc1/bc2 through pointers when it runs: one launch captured
+    in a CUDA graph, replayed after each refill of its BiasTable, takes the
+    steps the plain version takes with each step's floats, bit for bit;
+    floats go the same way."""
+    from sml_tpu_torch.train.optim import (ADAM_B1, ADAM_B2, ADAM_EPS,
+                                           BiasTable, bias_corrections)
+    g = torch.Generator().manual_seed(23)
+    leaves = [tuple(torch.randn(n, generator=g).abs().to(card) * s
+                    for s in (1.0, 1e-2, 1e-4)) for n in (1001, 64, 7)]
+    want = [tuple(t.clone() for t in leaf) for leaf in leaves]
+    table = BiasTable(1, card)
+    table.fill(10)
+    kw = dict(lr=0.01, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        AK.decay_adam_cuda(leaves, *table.at(11, ADAM_B1, ADAM_B2), **kw)
+    for count in (11, 12, 13):
+        table.fill(count - 1)
+        graph.replay()
+        for leaf in want:
+            AK.decay_adam_plain(*leaf, *bias_corrections(count), **kw)
+    before = AK.decay_adam_cuda.launches
+    AK.fused_decay_adam_multi(leaves, *bias_corrections(14), **kw)
+    for leaf in want:
+        AK.decay_adam_plain(*leaf, *bias_corrections(14), **kw)
+    torch.cuda.synchronize()
+    assert AK.decay_adam_cuda.launches == before + 1
+    for got, exp in zip(leaves, want):
+        assert all(torch.equal(a, b) for a, b in zip(got, exp))
+    with pytest.raises(ValueError, match="one f32 value"):
+        AK.decay_adam_cuda(leaves, table.buf[0], 0.5, **kw)
+
+
+def test_transfer_kernel_writes_into_out(card):
+    th = init_transfer(torch.Generator().manual_seed(24),
+                       TransferConfig(latent_dim=64), device=card)
+    g = torch.Generator().manual_seed(25)
+    last = torch.randn(3000, 64, generator=g).to(card)
+    hat = torch.randn(3000, 64, generator=g).to(card)
+    out = torch.full((3000, 64), float("nan"), device=card)
+    before = TK.transfer_rows_cuda.launches
+    got = TK.fused_table_transfer(th.user, last, hat, out=out)
+    assert got is out and TK.transfer_rows_cuda.launches == before + 1
+    assert torch.equal(out, TK.fused_table_transfer(th.user, last, hat))
+    with pytest.raises(ValueError, match="overlap"):
+        TK.fused_table_transfer(th.user, last, hat, out=last)
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.fused_table_transfer(th.user, last, hat, out=out.t())

@@ -60,6 +60,8 @@ def test_port_sources_import_no_jax_or_reference():
              if PORT in f.parents}
     assert {f"parallel/{m}.py" for m in ("sharding", "collective",
                                          "multihost", "dryrun")} <= names
+    # and the fused programs' CUDA graphs
+    assert "train/graphs.py" in names
 
 
 def test_port_imports_with_jax_blocked():
