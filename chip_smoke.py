@@ -55,15 +55,16 @@ Phases, one JSON line each:
 9. train-sweep  ``SMLDriver`` (what ``python -m sml_tpu_torch sml`` runs)
             on a seeded synthetic dataset written to a temporary
             directory: 100,000 users, 20,000 items, 4 periods (one
-            warm-up, two test periods), 65,536 train and 16,384 test rows
-            per period, ``yelp_sml()`` with ``fast_table_adam`` and masked
+            warm-up, two test periods) of different row counts
+            (``SWEEP_TRAIN_ROWS`` train and ``SWEEP_TEST_ROWS`` test rows:
+            every period's inner and outer epochs take another number of
+            steps), ``yelp_sml()`` with ``fast_table_adam`` and masked
             scoring, pinned to the unfused path (``fuse_phases=False,
             fuse_period=False``: its epochs are wrapped and timed, which a
             CUDA-graph replay never enters, so its numbers stay comparable
-            with the earlier runs). Launch counts must equal those derived from the data
-            (K3 480: one per fast step; K1 126; K2 32: one per eval
-            batch); losses finite,
-            metrics in [0, 1].
+            with the earlier runs). Launch counts must equal those derived
+            from the data (K3: one per fast step, 440; K1 126; K2 32: one
+            per eval batch); losses finite, metrics in [0, 1].
             The data carry no signal, so training drives the loss to the
             BCE saddle (2 ln 2) and the item rows together (scores tie,
             and the strictly-greater rank then counts every target a
@@ -76,9 +77,13 @@ Phases, one JSON line each:
             default ``fuse_period="auto"``, which fuses on the card: each
             period's phases through ``SMLEngine.period_step`` (branch C's
             phase 0 unfused), the run's first phase eagerly on the capture
-            stream, then one CUDA graph per period, replayed. It prints
-            the captures, replays and warm-ups (one capture per period, a
-            replay for every other fused phase), both sweeps' period and
+            stream, then one CUDA graph for the whole sweep, replayed in
+            every period whatever its step counts (the steps past a
+            period's real batches are IF nodes the card skips). It prints
+            the programs, captures, replays and warm-ups (one program, one
+            capture and one warm-up for the sweep, a replay for every
+            other fused phase), each period's inner and outer step counts
+            (all different), both sweeps' period and
             sweep walls, the max differences of the final tables,
             snapshots, Θ and Adam moments against the unfused sweep
             (within ``FUSED_ATOL``; bit equality expected), whether the
@@ -94,8 +99,10 @@ Phases, one JSON line each:
             and ``saddle_retries=1``, unfused and then fused: K2, the eval
             sums and the seven norms inside the captured phase, the
             guard's stalled attempt (the data drive the loss to the
-            saddle, so the guard stalls) and a second capture on the
-            retry's new buffers. The fused run is held to the unfused one:
+            saddle, so the guard stalls); the retry's new buffers and
+            generator are copied into the same program and replayed (one
+            capture for both attempts). The fused run is held to the
+            unfused one:
             the retries used, every ``inner_eval``/``outer_eval``/
             ``phase``/``saddle_retry`` record (kinds, order, epochs and
             phases equal; eval metrics within ``SLICE_HIT_TOL`` hits,
@@ -153,14 +160,25 @@ Phases, one JSON line each:
             interactions, the test from period ``PRE_TEST``): recall@20
             above random (20/1,000) by ``PRE_RECALL_Z`` standard errors of
             its measurement on ``PRE_ROWS`` rows; no K3 launch (the auto rule
-            keeps 120,000 table rows on the dense path); then one dense
-            and one forced ``fast_lr`` plain epoch, timed, the latter with
-            its derived K3 launches (one per step).
+            keeps 120,000 table rows on the dense path); its epochs run
+            through one epoch program (the warm-up, one capture, replays;
+            the counts and the wall printed). Then ``PRE_GRAPH_EPOCHS``
+            dense and forced ``fast_lr`` plain epochs from the best tables
+            through an epoch program and eagerly from one generator seed:
+            tables, moments and generators equal, the program one warm-up,
+            one capture and replays; eager step ms and the last (a replay
+            alone) epoch's step ms; K3 launches one per fast step on both
+            routes.
 15. baselines ``BaselineDriver`` full, fine and spmf over the two periods
             after the pretrain period, from the pretrained tables: two
             attributed ``baseline_test`` records each (the dataset ships
             new-entity ids), metrics in [0, 1], full retrain above random
-            by ``BASE_RECALL_Z`` standard errors.
+            by ``BASE_RECALL_Z`` standard errors; full and fine through one
+            epoch program each (spmf stays eager), their counts printed.
+            Then full and fine over ``BASE_GRAPH_EPOCHS`` epochs a period,
+            through the program and with the epochs called eagerly: tables,
+            recalls and generators equal, one capture for the run, both
+            walls.
 16. transfer-kinds  each of the seven transfer kinds at the Yelp widths
             (H = 1024 for conv_com_root, 512 otherwise, as the ``sml``
             CLI sets it): one full-table refresh of 100,000 + 20,000 rows
@@ -217,10 +235,14 @@ Phases, one JSON line each:
             (``PAR_CLI_DATA``; ``scripts/multicard_check.py``'s
             ``cli_against_one_process``: tables, each test's hits, the
             served rows).
-18b. fused-trace  last, since its ~1.3M kernel events make the script's
-            largest trace: a fused run of the sweep's first two periods
-            with period 1 traced (phase 0 and the test unfused, a capture
-            and nine replays): the device's busy share over the traced and
+18b. fused-trace  last, since its ~1M kernel events make the script's
+            largest trace, and in a fresh process of this script (after
+            the ingest-sweep phase in the same process, a traced replay
+            of a fused program dies in ``cudaGraphLaunch``; ``PERF.md``
+            §7): a fused run of the sweep's first two periods
+            with period 1 traced (phase 0 and the test unfused, then nine
+            replays of the program period 0 captured): the device's busy
+            share over the traced and
             the untraced period's wall, the kernels' busy ms inside the
             ``period_step`` span per replay against the untraced wall ms
             per replay (the busy share inside a replay), top kernels,
@@ -297,7 +319,12 @@ LOSS_RTOL = 1e-5
 # (bit equality expected); tables, snapshots, Θ and moments within this
 FUSED_ATOL = 1e-5
 INNER_ROWS, OUTER_ROWS = 8192, 4096
-SWEEP_PERIODS, SWEEP_TRAIN_ROWS, SWEEP_TEST_ROWS = 4, 65_536, 16_384
+# the sweep's periods differ in their train and test row counts, so its
+# epochs take other step counts each period (one captured program serves
+# them all: its tail steps are skipped on the card)
+SWEEP_PERIODS = 4
+SWEEP_TRAIN_ROWS = (65_536, 57_344, 49_400, 61_440)
+SWEEP_TEST_ROWS = (16_384, 12_800, 14_848, 11_264)
 # eval-design probes: P1 at its probe's shape; the probe mains' repeats
 PROBE_ROWS, PROBE_ITEMS = 16_384, 20_480
 PROBE_TRIALS, PROBE_ROUNDS = 3, 3
@@ -313,6 +340,9 @@ P2_ODD_B, P2_ODD_C = (1, 3, 1025), (1, 17, 4096)
 PRE_PERIODS, PRE_TEST, PRE_ROWS = 30, 27, 20_000
 PRE_EPOCHS, PRE_BATCH, PRE_INIT_SCALE = 8, 1024, 0.1
 BASE_EPOCHS, BASE_POOL = 1, 100_000
+# epochs per run where a graphed plain MF epoch is held to the eager one:
+# the program's warm-up, its capture (and first replay), then replays
+PRE_GRAPH_EPOCHS, BASE_GRAPH_EPOCHS = 3, 2
 # recall@20 on PRE_ROWS test rows must clear random (20/1,000) by this
 # many standard errors of such a measurement: pretraining by a clear
 # margin, the full retrain (one epoch from the pretrained tables) at all
@@ -1084,25 +1114,26 @@ def phase_train_lockstep(torch):
 
 def write_sweep_dataset(torch, root: str) -> None:
     """The train-sweep dataset, in the reference layout: ids as int32,
-    made on the card from a seed."""
+    made on the card from a seed; period ``p`` holds
+    ``SWEEP_TRAIN_ROWS[p]`` train and ``SWEEP_TEST_ROWS[p]`` test rows."""
     import numpy as np
     path = os.path.join(root, "synth")
     os.makedirs(os.path.join(path, "train"))
     os.makedirs(os.path.join(path, "test"))
     np.save(os.path.join(path, "information.npy"),
-            np.array([SWEEP_PERIODS * SWEEP_TRAIN_ROWS, N_USERS, N_ITEMS],
+            np.array([sum(SWEEP_TRAIN_ROWS), N_USERS, N_ITEMS],
                      dtype=np.int64))
     g = torch.Generator(device="cuda").manual_seed(SEED + 71)
     for p in range(SWEEP_PERIODS):
+        n = SWEEP_TRAIN_ROWS[p]
         train = torch.stack([
-            torch.randint(0, N_USERS, (SWEEP_TRAIN_ROWS,), generator=g,
-                          device="cuda"),
-            torch.randint(0, N_ITEMS, (SWEEP_TRAIN_ROWS,), generator=g,
-                          device="cuda")], dim=1)
+            torch.randint(0, N_USERS, (n,), generator=g, device="cuda"),
+            torch.randint(0, N_ITEMS, (n,), generator=g, device="cuda")],
+            dim=1)
         np.save(os.path.join(path, "train", f"{p}.npy"),
                 train.to(torch.int32).cpu().numpy())
-        test = distinct_eval_rows(torch, SWEEP_TEST_ROWS, N_USERS, N_ITEMS,
-                                  SEED + 72 + p)
+        test = distinct_eval_rows(torch, SWEEP_TEST_ROWS[p], N_USERS,
+                                  N_ITEMS, SEED + 72 + p)
         np.save(os.path.join(path, "test", f"{p}.npy"),
                 test.astype(np.int32))
 
@@ -1277,11 +1308,11 @@ def phase_fused_sweep(torch, root: str, ref: dict):
     """The train sweep's dataset, seed and configuration with the default
     ``fuse_period="auto"``, which fuses on the card: each period's phases
     are ``SMLEngine.period_step`` (the run's first phase eagerly on the
-    capture stream, then one CUDA graph per period, replayed). Held to the
-    unfused sweep: final tables, Θ and Adam moments, the generator's
-    position, every fused phase's losses, the tests' hits and the launches
-    (replays counted) derived from the data. Then one traced fused period
-    for the device's busy share."""
+    capture stream, then one CUDA graph for the whole sweep, replayed in
+    every period whatever its step counts). Held to the unfused sweep:
+    final tables, Θ and Adam moments, the generator's position, every fused
+    phase's losses, the tests' hits and the launches (replays counted)
+    derived from the data."""
     from sml_tpu_torch.ops import adam_kernel as ak
     from sml_tpu_torch.ops import eval_kernel as ek
     from sml_tpu_torch.ops import transfer_kernel as tk
@@ -1329,9 +1360,17 @@ def phase_fused_sweep(torch, root: str, ref: dict):
           and fused_phases == (SWEEP_PERIODS - 1) * cfg.multi_num - 2,
           f"expected one period_step per period (branch C's phase 0 "
           f"unfused): {[n for _, n, _, _ in stacks]}")
-    check(stats["captures"] == len(stacks) and stats["warmups"] == 1
-          and stats["replays"] == fused_phases - stats["warmups"],
-          f"captures/replays: {stats} for {fused_phases} fused phases")
+    check(stats["programs"] == 1 and stats["captures"] == 1
+          and stats["warmups"] == 1 and stats["replays"] == fused_phases - 1,
+          f"programs/captures/replays: {stats} for {fused_phases} fused "
+          f"phases (one program and one capture for the sweep expected)")
+    step_counts = [(-(-n_t // cfg.mf_batch_size),
+                    -(-n_tt // cfg.tr_batch_size))
+                   for _, _, n_t, n_tt in stacks]
+    check(all(len({c[i] for c in step_counts}) == len(step_counts)
+              for i in (0, 1)),
+          f"the fused periods must differ in both epochs' step counts: "
+          f"{step_counts}")
     # each fused phase's last inner and outer losses against the unfused
     # sweep's epochs of the same period and phase
     loss_rel = 0.0
@@ -1368,6 +1407,7 @@ def phase_fused_sweep(torch, root: str, ref: dict):
     emit({"phase": "fused-sweep", "users": N_USERS, "items": N_ITEMS,
           "periods": SWEEP_PERIODS, "fused": True, "graphs": stats,
           "fused_phases": fused_phases,
+          "inner_outer_steps_per_period": step_counts,
           "sweep_s": sweep_s, "unfused_sweep_s": ref["sweep_s"],
           "period_s": report.period_seconds,
           "unfused_period_s": ref["period_s"],
@@ -1415,8 +1455,9 @@ def phase_fused_evals(torch, root: str):
     """Period 0 of the sweep (branch A) with in-training evals after every
     inner and outer epoch, ``log_norms`` and one saddle retry, unfused and
     then fused: K2 and the eval sums, the seven norms and the stalled
-    attempt run inside the captured phase, and the retry's new buffers are
-    captured again. Held to the unfused run: final state, the generator,
+    attempt run inside the captured phase, and the retry's new buffers and
+    generator are copied into the program and replayed (one capture for
+    both attempts). Held to the unfused run: final state, the generator,
     every eval, phase and retry record, and both runs' launches derived
     from the phases each ran (the fused guard runs a stalled attempt's
     every phase, then keeps the records of those the unfused guard ran)."""
@@ -1470,7 +1511,7 @@ def phase_fused_evals(torch, root: str):
     check(unf["retries"] == fus["retries"] >= 1,
           f"the guard must stall once on both paths: retries "
           f"{unf['retries']} unfused, {fus['retries']} fused")
-    n_val = SWEEP_TEST_ROWS
+    n_val = SWEEP_TEST_ROWS[1]      # period 0's val set is test/1
     diff = record_differences(fus["records"], unf["records"], n_val)
     check(diff["eval_hits"] <= SLICE_HIT_TOL and diff["rel"] <= LOSS_RTOL,
           f"fused eval/phase records differ from the unfused ones: {diff}")
@@ -1509,10 +1550,11 @@ def phase_fused_evals(torch, root: str):
           f"fused launches {fus['launches']}, derived for {fus_phases} "
           f"phases {derived(fus_phases)}")
     # every fused phase ran in a period_step call: the stalled attempt's
-    # (warm-up, capture, replays) and the retry's (capture, replays)
+    # (warm-up, capture, replays) and the retry's (replays only)
     calls = fus["calls"]
     check(len(calls) == fus["retries"] + 1
-          and [c["captures"] for c in calls] == [1] * len(calls)
+          and [c["captures"] for c in calls] == [1] + [0] * (len(calls) - 1)
+          and fus["graphs"]["programs"] == 1
           and sum(c["warmups"] + c["replays"] for c in calls) == fus_phases
           and all(c["launches"] == {k: v * (c["warmups"] + c["replays"])
                                     for k, v in per_phase.items()}
@@ -1537,9 +1579,9 @@ def phase_fused_trace(torch, root: str, untraced_s: float,
                       untraced_call: dict):
     """One traced fused period: a fused run of the sweep's first two
     periods with period 1 traced (branch C: phase 0 and the test unfused,
-    then a capture and nine replays). Its ~1.3M kernel events are the
-    script's largest trace, so it runs last, after every other phase that
-    profiles."""
+    then nine replays of the program period 0 captured). Its ~1.3M kernel
+    events are the script's largest trace, so it runs last, after every
+    other phase that profiles."""
     import re
 
     from sml_tpu_torch.ops import adam_kernel as ak
@@ -1549,8 +1591,7 @@ def phase_fused_trace(torch, root: str, untraced_s: float,
     t_phase = time.perf_counter()
     prof = os.path.join(root, "fused_profile")
     cfg = sweep_cfg(profile_dir=prof, profile_period=1)
-    driver, logger, want = sweep_driver(torch, root, cfg,
-                                        "fused_traced.jsonl")
+    driver, logger, _ = sweep_driver(torch, root, cfg, "fused_traced.jsonl")
     eng = driver.engine
     period_step, calls = eng.period_step, []
 
@@ -1581,8 +1622,11 @@ def phase_fused_trace(torch, root: str, untraced_s: float,
     traced = {k: sum(c for name, c in in_span.items()
                      if re.search(rf"\b{k}\b", name))
               for k in call["launches"]}
-    phases = (SWEEP_PERIODS - 1) * cfg.multi_num
-    per_phase = {"decay_adam_kernel": want["decay_adam_kernel"] // phases,
+    from sml_tpu_torch.data.formats import row_count
+    mf_rows = row_count(os.path.join(root, "synth"),
+                        "test" if cfg.mf_sample == "all" else "train", 1)
+    per_phase = {"decay_adam_kernel":
+                     -(-mf_rows // cfg.mf_batch_size) * cfg.mf_epochs,
                  "transfer_rows_kernel": 2 * (1 + cfg.tr_epochs),
                  "masked_rank_gather_kernel": 0}
     check(traced == call["launches"]
@@ -1615,6 +1659,23 @@ def phase_fused_trace(torch, root: str, untraced_s: float,
           "device_busy_share_of_untraced": tr["busy_ms"] / (untraced_s * 1e3),
           "trace_bytes": trace_bytes, "read_s": read_s, **tr,
           "phase_s": time.perf_counter() - t_phase})
+
+
+def fused_trace_in_child(root: str, untraced_s: float,
+                         untraced_call: dict) -> None:
+    """:func:`phase_fused_trace` in a fresh process of this script (its
+    line goes to the same standard output). In this process, after the
+    ingest-sweep phase, a replay of a fused program under
+    ``torch.profiler`` dies of a segmentation fault inside
+    ``cudaGraphLaunch`` (torch 2.11, CUDA 12.8; ``PERF.md`` §7, ROADMAP
+    §3); in a process that has traced nothing before it, the same phase
+    passes."""
+    rc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--fused-trace", root,
+         json.dumps({"untraced_s": untraced_s,
+                     "untraced_call": untraced_call})],
+        cwd=os.path.dirname(os.path.abspath(__file__))).returncode
+    check(rc == 0, f"the fused-trace process exited {rc}")
 
 
 def quiet_main(main, argv):
@@ -2091,6 +2152,23 @@ class Records:
         self.records.append(record)
 
 
+class EagerEpochs:
+    """The plain MF epochs called one by one, as the loops ran them before
+    their epoch program (``PlainEpochProgram``'s interface): what a
+    graphed run is held to."""
+
+    def __init__(self, epoch, *_):
+        self.epoch = epoch
+
+    def run(self, mf, opt, padded, gen, index):
+        return self.epoch(mf, opt, padded.rows, padded.mask, padded.n_real,
+                          gen, index)
+
+
+def same_tables(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def phase_pretrain(torch, spec, data_s):
     from sml_tpu_torch.config import PretrainConfig
     from sml_tpu_torch.data.feeder import StreamingPeriods
@@ -2098,55 +2176,99 @@ def phase_pretrain(torch, spec, data_s):
     from sml_tpu_torch.ops import adam_kernel as ak
     from sml_tpu_torch.ops.batching import pad_rows
     from sml_tpu_torch.ops.sampling import build_period_index
+    from sml_tpu_torch.train.graphs import GraphSite
     from sml_tpu_torch.train.optim import adam_init
     from sml_tpu_torch.train.pretrain import pretrain_mf
-    from sml_tpu_torch.train.steps import make_plain_mf_epoch
+    from sml_tpu_torch.train.steps import (PlainEpochProgram,
+                                           make_plain_mf_epoch)
 
     cfg = PretrainConfig(batch_size=PRE_BATCH, max_epochs=PRE_EPOCHS,
                          eval_every=1, emb_init_scale=PRE_INIT_SCALE)
     logger = Records()
     ak.decay_adam_cuda.launches = 0
+    site = GraphSite("cuda")
     t0 = time.perf_counter()
     params, metrics = pretrain_mf(cfg, spec, PRE_TEST, logger=logger,
-                                  device="cuda")
+                                  device="cuda", site=site)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k3_auto = ak.decay_adam_cuda.launches
+    evals = [{k: r[k] for k in ("epoch", "loss", "recall@20")}
+             for r in logger.records]
 
-    # one dense and one forced fast_lr (K3) plain epoch from the best tables
+    # PRE_GRAPH_EPOCHS dense and forced fast_lr (K3) plain epochs from the
+    # best tables through an epoch program (the warm-up, a capture, then
+    # replays) and called eagerly, from one generator seed: equal tables,
+    # moments and generators
     train, _ = StreamingPeriods(spec).get_next(PRE_TEST)
     padded = pad_rows(train, PRE_BATCH, device="cuda")
     index = build_period_index(train, N_ITEMS, device="cuda")
     steps = -(-padded.n_real // PRE_BATCH)
-    epoch_ms, k3 = {}, {}
+    modes = {}
     for name, fast_lr in (("dense", None), ("fast", cfg.lr)):
-        mf = MFParams(*(t.clone() for t in params))
         epoch = make_plain_mf_epoch(PRE_BATCH, cfg.l2_user, cfg.l2_item,
                                     cfg.lr, fast_lr=fast_lr)
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 101)
-        ak.decay_adam_cuda.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, losses = epoch(mf, adam_init(mf._asdict()), padded.rows,
-                             padded.mask, padded.n_real, gen, index)
-        torch.cuda.synchronize()
-        epoch_ms[name] = (time.perf_counter() - t0) * 1e3 / steps
-        k3[name] = ak.decay_adam_cuda.launches
-        check(bool(torch.isfinite(losses).all()), f"{name} losses not finite")
-    evals = [{k: r[k] for k in ("epoch", "loss", "recall@20")}
-             for r in logger.records]
+        runs = {}
+        for route in ("eager", "graph"):
+            mf = MFParams(*(t.clone() for t in params))
+            opt = adam_init(mf._asdict())
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 101)
+            ep_site = GraphSite("cuda")
+            runner = (EagerEpochs(epoch) if route == "eager" else
+                      PlainEpochProgram(epoch, ep_site, mf, opt, padded,
+                                        index, PRE_BATCH))
+            ak.decay_adam_cuda.launches = 0
+            epoch_s, losses = [], None
+            for _ in range(PRE_GRAPH_EPOCHS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mf, opt, losses = runner.run(mf, opt, padded, gen, index)
+                torch.cuda.synchronize()
+                epoch_s.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(losses).all()),
+                  f"{name} {route} losses not finite")
+            runs[route] = {"mf": mf, "opt": opt, "gen": gen,
+                           "epoch_s": epoch_s, "stats": dict(ep_site.stats),
+                           "k3": ak.decay_adam_cuda.launches}
+        eager, graph = runs["eager"], runs["graph"]
+        stats = graph["stats"]
+        modes[name] = {
+            "eager_step_ms": [1e3 * t / steps for t in eager["epoch_s"]],
+            "graph_epoch_s": graph["epoch_s"], "graph_stats": stats,
+            # the last epoch is a replay alone
+            "replay_step_ms": 1e3 * graph["epoch_s"][-1] / steps,
+            "k3_launches": {r: runs[r]["k3"] for r in runs},
+            "tables_equal": same_tables(torch, graph["mf"], eager["mf"]),
+            "moments_equal": all(
+                torch.equal(getattr(graph["opt"], part)[k],
+                            getattr(eager["opt"], part)[k])
+                for part in ("mu", "nu") for k in graph["opt"].mu),
+            "generators_equal": bool(torch.equal(
+                graph["gen"].get_state(), eager["gen"].get_state()))}
+        want_k3 = steps * PRE_GRAPH_EPOCHS if fast_lr else 0
+        check([stats[k] for k in ("programs", "warmups", "captures",
+                                  "replays")]
+              == [1, 1, 1, PRE_GRAPH_EPOCHS - 1]
+              and modes[name]["k3_launches"] == {"eager": want_k3,
+                                                 "graph": want_k3}
+              and modes[name]["tables_equal"]
+              and modes[name]["moments_equal"]
+              and modes[name]["generators_equal"],
+              f"{name}: the graphed epochs against the eager ones: "
+              f"{modes[name]}")
     emit({"phase": "pretrain", "users": N_USERS, "items": N_ITEMS,
           "periods": PRE_TEST, "train_rows": int(train.shape[0]),
           "batch": PRE_BATCH, "data_s": data_s, "wall_s": wall,
-          "evals": evals, "metrics": metrics,
+          "graphs": site.stats, "evals": evals, "metrics": metrics,
           "random_recall@20": RANDOM_RECALL20,
           "recall@20_floor": recall_floor(PRE_RECALL_Z),
           "k3_launches_auto": k3_auto, "plain_epoch_steps": steps,
-          "step_ms": epoch_ms, "k3_launches": k3})
+          "epochs": modes})
     check(k3_auto == 0, f"K3 launched {k3_auto} times under the auto rule "
                         f"at {N_USERS + N_ITEMS} table rows, expected 0")
-    check(k3 == {"dense": 0, "fast": steps},
-          f"plain-epoch K3 launches {k3}, expected 0 and {steps}")
+    check([site.stats[k] for k in ("programs", "captures")] == [1, 1]
+          and site.stats["warmups"] + site.stats["replays"] == len(evals),
+          f"pretrain's epoch program: {site.stats} for {len(evals)} epochs")
     check(all(math.isfinite(e["loss"]) for e in evals),
           "a pretrain loss is not finite")
     check(metrics["recall@20"] >= recall_floor(PRE_RECALL_Z),
@@ -2157,25 +2279,58 @@ def phase_pretrain(torch, spec, data_s):
 
 def phase_baselines(torch, spec, pretrained):
     from sml_tpu_torch.config import BaselineConfig
-    from sml_tpu_torch.train.baselines import BaselineDriver
+    from sml_tpu_torch.train import baselines
 
-    out = {"phase": "baselines", "periods": [PRE_TEST + 1, PRE_TEST + 2],
-           "epochs": BASE_EPOCHS, "batch": PRE_BATCH, "methods": {}}
-    for method in ("full", "fine", "spmf"):
-        cfg = BaselineConfig(method=method, epochs=BASE_EPOCHS,
+    def run(method, epochs):
+        cfg = BaselineConfig(method=method, epochs=epochs,
                              batch_size=PRE_BATCH, pool_size=BASE_POOL,
                              start_period=PRE_TEST + 1, seed=SEED)
         logger = Records()
         t0 = time.perf_counter()
-        driver = BaselineDriver(cfg, spec, pretrained=pretrained,
-                                logger=logger, device="cuda")
+        driver = baselines.BaselineDriver(cfg, spec, pretrained=pretrained,
+                                          logger=logger, device="cuda")
         summary = driver.run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return driver, summary, logger, time.perf_counter() - t0
+
+    out = {"phase": "baselines", "periods": [PRE_TEST + 1, PRE_TEST + 2],
+           "epochs": BASE_EPOCHS, "batch": PRE_BATCH, "methods": {},
+           "graphed_against_eager": {}}
+    for method in ("full", "fine", "spmf"):
+        driver, summary, logger, wall = run(method, BASE_EPOCHS)
         out["methods"][method] = {
             "wall_s": wall, "summary": summary,
+            "graphs": dict(driver.graph_stats),
             "records": [{k: v for k, v in r.items() if k != "ts"}
                         for r in logger.records]}
+    # full and fine over BASE_GRAPH_EPOCHS epochs a period: the epoch
+    # program (one capture for the run) against the epochs called eagerly
+    for method in ("full", "fine"):
+        runs = {}
+        for route in ("graph", "eager"):
+            if route == "eager":
+                baselines.PlainEpochProgram, saved = (
+                    EagerEpochs, baselines.PlainEpochProgram)
+            try:
+                runs[route] = run(method, BASE_GRAPH_EPOCHS)
+            finally:
+                if route == "eager":
+                    baselines.PlainEpochProgram = saved
+        (gd, gsum, _, gwall), (ed, esum, _, ewall) = (runs["graph"],
+                                                      runs["eager"])
+        res = {"graph_wall_s": gwall, "eager_wall_s": ewall,
+               "graphs": dict(gd.graph_stats),
+               "tables_equal": same_tables(torch, gd.mf, ed.mf),
+               "recall_equal": gd.recall == ed.recall,
+               "generators_equal": bool(torch.equal(gd.gen.get_state(),
+                                                    ed.gen.get_state()))}
+        out["graphed_against_eager"][method] = res
+        runs_n = 2 * BASE_GRAPH_EPOCHS
+        check([res["graphs"][k] for k in ("programs", "warmups", "captures",
+                                          "replays")]
+              == [1, 1, 1, runs_n - 1] and res["tables_equal"]
+              and res["recall_equal"] and res["generators_equal"],
+              f"{method}: the graphed epochs against the eager ones: {res}")
     out["recall@20_floor"] = recall_floor(BASE_RECALL_Z)
     emit(out)
     for method, res in out["methods"].items():
@@ -2193,6 +2348,11 @@ def phase_baselines(torch, spec, pretrained):
                   f"{method}: metrics out of [0, 1]: {r}")
         check(all(0.0 <= v <= 1.0 for v in res["summary"].values()),
               f"{method}: summary out of [0, 1]: {res['summary']}")
+        # full and fine: one program, the first epoch its warm-up, the
+        # second its capture; spmf's epochs stay eager
+        want = (0 if method == "spmf" else 1)
+        check(res["graphs"]["programs"] == want,
+              f"{method}: epoch programs {res['graphs']}")
     full = out["methods"]["full"]["records"]
     check(min(r["recall@20"] for r in full) >= out["recall@20_floor"],
           f"full retrain recall@20 not above random: {full}")
@@ -2772,7 +2932,11 @@ def phase_parallel(torch) -> dict:
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+    # a fault inside a native library prints every thread's Python stack
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -2780,6 +2944,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if sys.argv[1:2] == ["--fused-trace"]:
+        # the traced fused period alone (fused_trace_in_child)
+        args = json.loads(sys.argv[3])
+        phase_fused_trace(torch, sys.argv[2], args["untraced_s"],
+                          args["untraced_call"])
+        return 0
 
     smi_line = phase_env(torch)
     phase_build()
@@ -2822,7 +2992,7 @@ def main() -> int:
         par_launches = phase_parallel(torch)
         for k, v in par_launches.items():
             launches[k] += v
-        phase_fused_trace(torch, sweep_root, fused_period1_s, fused_call1)
+        fused_trace_in_child(sweep_root, fused_period1_s, fused_call1)
     finally:
         shutil.rmtree(sweep_root, ignore_errors=True)
 

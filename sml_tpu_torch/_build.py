@@ -56,6 +56,10 @@ SIGNATURES = {
     # leaves (n_leaves rows of int64 p, mu, nu, n), n_leaves, lr, b1, b2,
     # eps, bc1, bc2 (one f32 each on the card), stream
     "sml_decay_adam": [ctypes.POINTER(_L), _I] + [_F] * 4 + [_P] * 3,
+    # parent stream, body stream, pred (one bool on the card), capture mode
+    "sml_if_begin": [_P, _P, _P, _I],
+    # body stream
+    "sml_if_end": [_P],
 }
 
 

@@ -1,6 +1,7 @@
 """Full-catalog top-K serving (counterpart of ``sml_tpu/eval/full_ranking.py``).
 
-One ``(B, d) x (d, I)`` f32 score product and an exact ``torch.topk``.
+One ``(B, d) x (d, I)`` f32 score product, an optional additive mask and
+an exact ``torch.topk``.
 Every ``topk_method`` the JAX package accepts is served exactly here:
 ``exact``, ``exact_sort`` and ``exact_bucket`` are exact there too, and
 ``approx``/``approx99`` name the TPU's hardware PartialReduce, which has no
@@ -16,7 +17,7 @@ union of the local ones.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,14 +37,20 @@ def _scores(user_emb_rows, item_table, compute_dtype, topk_method):
 
 
 def dense_full_topk(user_emb_rows: torch.Tensor, item_table: torch.Tensor,
-                    k: int, compute_dtype=None, topk_method: str = "exact"
+                    k: int, mask_scores: Optional[torch.Tensor] = None,
+                    compute_dtype=None, topk_method: str = "exact"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-K items per user row: returns (scores (B, k) f32, item ids
-    (B, k)). ``compute_dtype`` rounds the product's inputs (e.g.
-    ``torch.bfloat16``); scores accumulate and rank in f32."""
+    (B, k)). ``mask_scores``: an optional (B, I) additive mask added to the
+    scores before the top-K (-inf excludes an item: the serving filter of
+    a user's already-seen items). ``compute_dtype`` rounds the product's
+    inputs (e.g. ``torch.bfloat16``); scores accumulate and rank in f32."""
     with torch.no_grad():
-        return torch.topk(_scores(user_emb_rows, item_table, compute_dtype,
-                                  topk_method), k, dim=1)
+        scores = _scores(user_emb_rows, item_table, compute_dtype,
+                         topk_method)
+        if mask_scores is not None:
+            scores = scores + mask_scores
+        return torch.topk(scores, k, dim=1)
 
 
 def make_sharded_full_topk(mesh, k: int, compute_dtype=None,

@@ -23,11 +23,22 @@ present); a collision can only reject a valid negative. The random draws
 come from a ``torch.Generator``, so they differ from the JAX package's
 draws while the contract (pool items, first non-positive, last draw on
 fallback) is the same.
+
+As in the JAX package, the per-period values ``pool_size`` and
+``bloom_mask`` are 0-d device tensors, not host ints: a CUDA graph that
+captured a sampled step (``train/graphs.py``) then reads each period's
+values. A pool slot is one 32-bit draw (``randint(0, 2**32 - 1)``)
+reduced modulo the pool size, so the draw takes no host bound; like
+``randint(0, pool_size)`` it takes one 32-bit value per candidate (the
+same Philox offsets on the card), and its modulo bias is below pool size /
+2**32. :func:`draw_offset` gives the Philox offset one draw reserves on a
+CUDA generator, which the eager epochs skip for the steps they do not
+run.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -89,10 +100,10 @@ def _bloom_second_hash_torch(h: torch.Tensor) -> torch.Tensor:
 class PeriodIndex(NamedTuple):
     """Per-period sampling index (device tensors, padded)."""
     item_pool: torch.Tensor   # (P,) int64 unique items, padded by repeating
-    pool_size: int            # true number of unique items (host int)
+    pool_size: torch.Tensor   # () int64 true number of unique items
     pos_hashes: torch.Tensor  # (K,) int64 sorted uint32 pair hashes, pad MAX
     bloom: torch.Tensor       # (M/32,) int64 holding uint32 bloom words
-    bloom_mask: int           # M - 1 (M = a power-of-two bit count)
+    bloom_mask: torch.Tensor  # () int64, M - 1 (M = a power-of-two bit count)
 
 
 def build_period_index(interactions: np.ndarray, n_items: int,
@@ -132,10 +143,10 @@ def build_period_index(interactions: np.ndarray, n_items: int,
                              np.uint32(1) << (pos & np.uint32(31)))
 
     def up(a):
-        return torch.from_numpy(a.astype(np.int64)).to(device)
-    return PeriodIndex(item_pool=up(pool_padded), pool_size=psize,
+        return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+    return PeriodIndex(item_pool=up(pool_padded), pool_size=up(psize),
                        pos_hashes=up(hashes_padded), bloom=up(words),
-                       bloom_mask=int(mask))
+                       bloom_mask=up(mask))
 
 
 def maybe_positive(index: PeriodIndex, users: torch.Tensor,
@@ -161,13 +172,40 @@ def is_positive(index: PeriodIndex, users: torch.Tensor,
     return index.pos_hashes[loc] == key
 
 
+_DRAW_HIGH = (1 << 32) - 1
+
+
+def pool_draws(index: PeriodIndex, shape, generator: torch.Generator
+               ) -> torch.Tensor:
+    """Uniform pool slots in ``[0, pool_size)``, int64 of ``shape``, on the
+    index's device: one random op whatever the period's pool size."""
+    return torch.randint(0, _DRAW_HIGH, tuple(shape), generator=generator,
+                         device=index.item_pool.device) % index.pool_size
+
+
+_DRAW_OFFSETS: Dict[Tuple, int] = {}
+
+
+def draw_offset(rows: int, tries: int, device) -> int:
+    """The Philox offset that one :func:`sample_negatives` call on ``rows``
+    users reserves on a CUDA generator of ``device`` (measured once on a
+    scratch generator; it depends on the shape alone)."""
+    device = torch.device(device)
+    key = (device.index, rows, tries)
+    if key not in _DRAW_OFFSETS:
+        gen = torch.Generator(device=device).manual_seed(0)
+        start = gen.get_offset()
+        torch.randint(0, _DRAW_HIGH, (rows, tries), generator=gen,
+                      device=device)
+        _DRAW_OFFSETS[key] = gen.get_offset() - start
+    return _DRAW_OFFSETS[key]
+
+
 def _draw_negatives(index: PeriodIndex, users: torch.Tensor,
                     generator: torch.Generator, tries: int):
     """``(picked, all_pos)``: the first candidate the bloom does not flag
     (the last draw where it flags all), and the fallback rows."""
-    b = users.shape[0]
-    draws = torch.randint(0, index.pool_size, (b, tries),
-                          generator=generator, device=users.device)
+    draws = pool_draws(index, (users.shape[0], tries), generator)
     cands = index.item_pool[draws]                            # (B, T)
     pos = maybe_positive(index, users[:, None], cands)        # (B, T)
     first_ok = torch.argmax((~pos).to(torch.int32), dim=1)

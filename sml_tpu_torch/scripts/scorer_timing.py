@@ -73,6 +73,9 @@ def device_kernels(fn, calls: int) -> dict:
     launch, by ``torch.profiler``: name -> ``[count per call, mean us]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from sml_tpu_torch.utils.profiling import cupti_teardown
+    cupti_teardown()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

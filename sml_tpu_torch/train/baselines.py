@@ -12,7 +12,12 @@ the stream bookkeeping are host-side numpy (stream logic, not compute); the
 training and evaluation run on the device. As in the JAX package, padded
 shapes are sweep-wide, per-period metrics are deferred and resolved in
 :meth:`BaselineDriver.finalize`, and a dataset that ships new-entity id
-files is evaluated with hit attribution.
+files is evaluated with hit attribution. The full and fine epochs run
+through one :class:`~sml_tpu_torch.train.steps.PlainEpochProgram` per
+padded shape (one per run: the shapes are sweep-wide): on the card one
+capture, replayed in every epoch of every period. SPMF's epoch, whose
+batch count and draw distribution are host values per period, stays
+eager.
 """
 
 from __future__ import annotations
@@ -36,8 +41,9 @@ from sml_tpu_torch.ops.metrics import weighted_period_average
 from sml_tpu_torch.ops.sampling import (PeriodIndex, build_period_index,
                                         sample_negatives)
 from sml_tpu_torch.train.engine import derive_seed
+from sml_tpu_torch.train.graphs import GraphSite, shape_key
 from sml_tpu_torch.train.optim import AdamState, adam_init, adam_update
-from sml_tpu_torch.train.steps import make_plain_mf_epoch
+from sml_tpu_torch.train.steps import PlainEpochProgram, make_plain_mf_epoch
 from sml_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -211,6 +217,10 @@ class BaselineDriver:
                               device=self.device,
                               emb_scale=cfg.emb_init_scale)
         self.opt = adam_init(self.mf._asdict())
+        # the full / fine epoch programs by input shape, and their site
+        self.site = GraphSite(self.device)
+        self.graph_stats = self.site.stats
+        self._programs: Dict[tuple, PlainEpochProgram] = {}
 
         # cumulative user history for SPMF's negative sampler
         self._hist_pairs: List[np.ndarray] = []
@@ -310,11 +320,16 @@ class BaselineDriver:
         index = build_period_index(train_data, self.stream.info.n_items,
                                    min_rows=self._bounds["train"],
                                    device=self.device)
+        key = shape_key(padded.rows, *index)
+        program = self._programs.get(key)
+        if program is None:
+            program = self._programs[key] = PlainEpochProgram(
+                self._epoch, self.site, self.mf, self.opt, padded, index,
+                self.cfg.batch_size)
         best20, not_chang = 0.0, 0
         for epoch in range(self.cfg.epochs):
-            self.mf, self.opt, _ = self._epoch(
-                self.mf, self.opt, padded.rows, padded.mask, padded.n_real,
-                self.gen, index)
+            self.mf, self.opt, _ = program.run(self.mf, self.opt, padded,
+                                               self.gen, index)
             if self._early_stop and test is not None:
                 not_chang += 1
                 if epoch % 5 == 0:

@@ -36,7 +36,10 @@ in-program evals are logged as the records the unfused path logs, in its
 order. ``fuse_period="auto"`` fuses on a CUDA engine and runs the unfused
 path on the CPU and under a mesh (``SMLEngine.fused_program_warm``);
 ``True`` under a mesh raises. Every route gives the unfused path's
-numbers, draws and records.
+numbers, draws and records. One phase program serves the whole run (on
+the card one capture, replayed in every period; the saddle retry's new
+buffers and generator are copied into it); :meth:`SMLDriver.run` and
+:meth:`SMLDriver.close` drop it.
 """
 
 from __future__ import annotations
@@ -541,7 +544,6 @@ class SMLDriver:
                     self._log_phase(state, d_time, phase)
             state = self._refresh(state)
 
-        self.engine.release_programs()
         self._flush_evals(force=False)
         dt = time.time() - t0
         self.report.period_seconds.append(dt)
@@ -580,12 +582,14 @@ class SMLDriver:
                 if not final_pass and d_time >= self._stop_stage:
                     break
         self.final_state = state
+        self.engine.release_programs()
         self.finalize()
         self.logger.log(kind="summary", **self.report.summary())
         return self.report
 
     def close(self) -> None:
-        """Stop the prefetch worker."""
+        """Drop the engine's phase programs and stop the prefetch worker."""
+        self.engine.release_programs()
         if hasattr(self.feeder, "close"):
             self.feeder.close()
 

@@ -17,10 +17,13 @@ package's fused programs: :meth:`SMLEngine.phase_step` runs one SML phase
 refresh, the val evals inside when given) and :meth:`SMLEngine.period_step`
 a period's phases, stacking their losses, eval sums and weight norms. The
 phase is the same calls in the same order as the unfused driver's, on
-fixed buffers (the refresh and the snapshot write into the state's own
-tables, the Adam steps read their bias corrections from a device table).
-On the card a phase is captured once per period as a CUDA graph and
-replayed (``train/graphs.py``); on the CPU it runs eagerly, which is its
+fixed buffers the program owns (a state slot and input buffers, copied
+into before each run; the refresh and the snapshot write into the slot's
+tables, the Adam steps read their bias corrections and the epochs which
+step slots run from device tables). As the JAX package compiles its period
+program once, one phase program serves a sweep: on the card it is captured
+once as a CUDA graph and replayed in every period, whatever the period's
+row counts (``train/graphs.py``); on the CPU it runs eagerly, which is its
 plain version. No mesh: gloo's collectives cannot be captured.
 
 Under a mesh (:meth:`SMLEngine.set_mesh`, the ``placement`` property or
@@ -37,7 +40,6 @@ from __future__ import annotations
 import copy
 import hashlib
 import threading
-import time
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -160,16 +162,14 @@ class SMLEngine:
         self.layout: Optional[TableLayout] = None
         self.plan = None
         self._placement = None
-        # fused phase programs of the current period, by their inputs; the
-        # side stream that captures them, and whether it has run a phase
+        # the fused phase programs, by their inputs' shapes (one per sweep
+        # under uniform shapes), and the site their graphs run on; its
+        # counts: programs made, eager warm-up phases on the capture
+        # stream, captures, replays, and the host seconds spent in warm-ups
+        # and captures
         self._programs: Dict[tuple, _PhaseProgram] = {}
-        self._stream = None
-        self._stream_warm = False
-        # the fused programs on the card: eager warm-up phases on the
-        # capture stream, captures, replays, and the host seconds spent in
-        # warm-ups and captures
-        self.graph_stats = {"warmups": 0, "captures": 0, "replays": 0,
-                            "warmup_s": 0.0, "capture_s": 0.0}
+        self._site = graphs.GraphSite(self.device)
+        self.graph_stats = self._site.stats
 
     # ------------------------------------------------------------------ state
     def _snap_dtype(self) -> torch.dtype:
@@ -469,38 +469,39 @@ class SMLEngine:
         eager phase, so the port needs none."""
         return self.device.type == "cuda" and self.mesh is None
 
-    def _capture_stream(self) -> torch.cuda.Stream:
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        return self._stream
-
     def _program(self, state: SMLState, prep_t, prep_tt, ev,
                  want_diag: bool) -> "_PhaseProgram":
-        """The phase program for these inputs and the state's buffers,
-        made on first use (one per period; :meth:`release_programs`)."""
+        """The phase program for inputs of these shapes, made on first use
+        and kept until :meth:`release_programs`: the JAX package compiles
+        its period program once per ``(length, want_diag)``, and
+        ``uniform_shapes`` gives every period one shape, so a sweep makes
+        one (replay mode, whose shapes differ by period, one per
+        shape)."""
         if self.mesh is not None:
             raise ValueError(
                 "the fused phase and period programs do not run under a "
                 "mesh: gloo's collectives cannot be captured (ROADMAP §2, "
                 "fused periods over NCCL); use fuse_period=False")
-        key = (id(prep_t[0].rows), id(prep_tt[0].rows),
-               None if ev is None else id(ev[0]), want_diag,
-               _buffer_key(state))
+        key = (want_diag, ev is not None,
+               graphs.shape_key(*_prep_tensors(prep_t),
+                                *_prep_tensors(prep_tt), *(ev or ())))
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = _PhaseProgram(
                 self, state, prep_t, prep_tt, ev, want_diag)
+        prog.load_inputs(prep_t, prep_tt, ev)
         return prog
 
     def release_programs(self) -> None:
-        """Drop the period's phase programs (their graphs and buffers)."""
+        """Drop the phase programs (their graphs and buffers)."""
         self._programs.clear()
 
     def phase_step(self, state: SMLState, prep_t, prep_tt):
         """One fused SML phase; returns ``(state, last_inner_losses,
         last_outer_losses)``. The same calls in the same order as the
         driver's unfused phase (so the same numbers and draws); on the
-        card a CUDA-graph replay after the period's first call."""
+        card a CUDA-graph replay once the program is captured. The state
+        returned holds the program's buffers."""
         prog = self._program(state, prep_t, prep_tt, None, False)
         state = prog.run(state)
         return state, prog.il.clone(), prog.ol.clone()
@@ -517,7 +518,8 @@ class SMLEngine:
         same intermediate states as the unfused path's evals (expand them
         with :meth:`resolve_stacked_evals`); ``diags``: with ``want_diag``
         the 7 :data:`DIAG_NAMES` norms of each phase-end state, each
-        ``(n_phases,)``, else ``()``. Nothing is read back to the host."""
+        ``(n_phases,)``, else ``()``. Nothing is read back to the host; the
+        state returned holds the program's buffers."""
         cfg = self.cfg
         ev = None
         if val is not None and (cfg.eval_during_inner
@@ -846,8 +848,9 @@ class SMLEngine:
         if self.layout is not None and self.layout.sharded("item"):
             return make_sharded_full_topk(self.mesh, k, compute_dtype,
                                           topk_method)(rows, mf.item_emb)
-        return dense_full_topk(rows, mf.item_emb, k, compute_dtype,
-                               topk_method)
+        return dense_full_topk(rows, mf.item_emb, k,
+                               compute_dtype=compute_dtype,
+                               topk_method=topk_method)
 
     def new_entity_masks(self, new_users: np.ndarray,
                          new_items: np.ndarray):
@@ -862,57 +865,82 @@ class SMLEngine:
         return mask(self.n_users, new_users), mask(self.n_items, new_items)
 
 
-def _buffer_key(state: SMLState) -> tuple:
-    """The identity of the buffers a phase reads and writes: the tables,
-    snapshots, Θ, both optimizers' moments, and the generator."""
+def _state_tensors(state: SMLState) -> list:
+    """The buffers a phase reads and writes: the tables, snapshots, Θ and
+    both optimizers' moments (by name)."""
     tensors = [*state.mf, state.last_user, state.last_item, state.hat_user,
                state.hat_item, *theta_leaves(state.theta).values()]
     for opt in (state.mf_opt, state.tr_opt):
         tensors += [opt.mu[k] for k in sorted(opt.mu)]
         tensors += [opt.nu[k] for k in sorted(opt.nu)]
-    return tuple(t.data_ptr() for t in tensors) + (id(state.gen),)
+    return tensors
 
 
-class _PhaseProgram:
-    """One SML phase on fixed buffers, for one period's prepared inputs and
-    one state's buffers: the driver's unfused phase (``_inner_block``,
-    ``snapshot_hat``, ``refresh``, ``_outer_block``) as the same calls in
-    the same order, with three differences that keep every address fixed
-    and change no number:
+def _prep_tensors(prep) -> tuple:
+    """The tensors of a ``prep_inner`` / ``prep_outer`` result that an
+    epoch reads: rows, mask and the sampling index (None where absent)."""
+    padded, index = prep
+    return (padded.rows, padded.mask,
+            *(index if index is not None else (None,) * 5))
 
-    * the hat snapshot is copied into the state's ``hat_*`` buffers, each
+
+def _clone_prep(prep):
+    padded, index = prep
+    return (PaddedRows(padded.rows.clone(), padded.mask.clone(),
+                       padded.n_real),
+            None if index is None else PeriodIndex(*(t.clone()
+                                                     for t in index)))
+
+
+class _PhaseProgram(graphs.Program):
+    """One SML phase on fixed buffers (``train/graphs.py``): the driver's
+    unfused phase (``_inner_block``, ``snapshot_hat``, ``refresh``,
+    ``_outer_block``) as the same calls in the same order, on buffers the
+    program owns, which change no number:
+
+    * a state slot (tables, snapshots, Θ, both optimizers' moments) and
+      input buffers at the inputs' padded shapes (set_t and set_tt rows,
+      masks and sampling indexes, and the val set when the evals run
+      inside); :meth:`load_inputs` copies a period's inputs in, and
+      :meth:`run` copies in every state buffer that is not the slot's
+      (the snapshots are new tensors each period) and returns a state
+      that holds the slot;
+    * the hat snapshot is copied into the slot's ``hat_*`` buffers, each
       refresh writes into the MF tables themselves (``apply_tables(...,
       out=)``), and ``load_w_hat`` copies the snapshot into the tables;
     * the epochs write their losses into :attr:`il` / :attr:`ol`, the val
       evals their sums into :attr:`ev_in` / :attr:`ev_out` (``(epochs, K,
       2)``: hit, NDCG) and, with ``want_diag``, the phase-end norms go
       into :attr:`diag`;
-    * the Adam steps read their bias corrections from two
-      :class:`~sml_tpu_torch.train.optim.BiasTable` (one row per step of
-      the phase), filled from the state's counts before every run.
+    * every step slot of an epoch runs under ``graphs.step_if`` on a
+      :class:`~sml_tpu_torch.train.graphs.SlotTable` marked with the
+      period's ``ceil(n_real/B)``, and the Adam steps read their bias
+      corrections from two
+      :class:`~sml_tpu_torch.train.optim.BiasTable`, filled from the
+      state's counts before every run.
 
-    :meth:`run` runs the phase: eagerly on the CPU; on the card the first
-    run on an engine goes eagerly on the capture stream (its warm-up), the
-    next captures the phase as a CUDA graph, and every run from then on is
-    a replay."""
+    So one capture serves every period of a sweep: on the card the run
+    after the engine's warm-up captures the phase, and every run from then
+    on is a replay; on the CPU it runs eagerly."""
 
     def __init__(self, eng: SMLEngine, state: SMLState, prep_t, prep_tt,
                  ev, want_diag: bool):
+        super().__init__(eng._site)
         cfg = eng.cfg
         self.eng, self.cfg = eng, cfg
-        self.prep_t, self.prep_tt, self.ev = prep_t, prep_tt, ev
-        self.key = _buffer_key(state)
-        _check_disjoint(state)
-        pt, ptt = prep_t[0], prep_tt[0]
+        self.slot = copy_state(state)._replace(gen=None)
+        _check_disjoint(self.slot)
+        self.t, self.tt = _clone_prep(prep_t), _clone_prep(prep_tt)
+        self.ev = (None if ev is None else
+                   tuple(None if x is None else x.clone() for x in ev))
         dev = eng.device
-        nb_in = pt.rows.shape[0] // cfg.mf_batch_size
-        nb_out = ptt.rows.shape[0] // cfg.tr_batch_size
-        self.steps_mf = cfg.mf_epochs * min(
-            num_batches(pt.n_real, cfg.mf_batch_size), nb_in)
-        self.steps_tr = cfg.tr_epochs * min(
-            num_batches(ptt.n_real, cfg.tr_batch_size), nb_out)
-        self.mf_bias = BiasTable(self.steps_mf, dev)
-        self.tr_bias = BiasTable(self.steps_tr, dev)
+        nb_in = self.t[0].rows.shape[0] // cfg.mf_batch_size
+        nb_out = self.tt[0].rows.shape[0] // cfg.tr_batch_size
+        self.t_slots = graphs.SlotTable(nb_in, dev)
+        self.tt_slots = graphs.SlotTable(nb_out, dev)
+        self.mf_bias = BiasTable(nb_in, dev, epochs=cfg.mf_epochs)
+        self.tr_bias = BiasTable(nb_out, dev, epochs=cfg.tr_epochs)
+        self.taken = (0, 0)
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -924,7 +952,23 @@ class _PhaseProgram:
                        if ev is not None and cfg.eval_during_outer
                        and cfg.refresh_after_outer_epoch else None)
         self.diag = zeros(len(DIAG_NAMES)) if want_diag else None
-        self.call: Optional[graphs.CapturedCall] = None
+
+    def load_inputs(self, prep_t, prep_tt, ev) -> None:
+        """Copy a period's prepared inputs into the program's buffers and
+        mark each epoch's real batches (``ceil(n_real/B)``) taken."""
+        dst = [x for x in (*_prep_tensors(self.t), *_prep_tensors(self.tt),
+                           *(self.ev or ())) if x is not None]
+        src = [x for x in (*_prep_tensors(prep_t), *_prep_tensors(prep_tt),
+                           *(ev or ())) if x is not None]
+        graphs.load_into(dst, src)
+        cfg = self.cfg
+        self.taken = (
+            min(num_batches(prep_t[0].n_real, cfg.mf_batch_size),
+                self.t_slots.host.shape[0]),
+            min(num_batches(prep_tt[0].n_real, cfg.tr_batch_size),
+                self.tt_slots.host.shape[0]))
+        self.t_slots.fill(self.taken[0])
+        self.tt_slots.fill(self.taken[1])
 
     def _eval_into(self, buf: torch.Tensor, mf: MFParams) -> None:
         rows, mask, cand_mask = self.ev
@@ -937,82 +981,54 @@ class _PhaseProgram:
                      state.last_item, state.hat_item,
                      out=(state.mf.user_emb, state.mf.item_emb))
 
-    def body(self, state: SMLState) -> SMLState:
-        cfg, eng = self.cfg, self.eng
-        (pt, it), (ptt, itt) = self.prep_t, self.prep_tt
-        mf_opt = state.mf_opt._replace(bias=self.mf_bias)
-        tr_opt = state.tr_opt._replace(bias=self.tr_bias)
+    def body(self, gen: torch.Generator) -> None:
+        cfg, eng, st = self.cfg, self.eng, self.slot
+        (pt, it), (ptt, itt) = self.t, self.tt
+        mf_opt = st.mf_opt._replace(bias=self.mf_bias)
+        tr_opt = st.tr_opt._replace(bias=self.tr_bias)
         for e in range(cfg.mf_epochs):
-            _, mf_opt, _ = eng._inner(
-                state.mf, mf_opt, state.theta, state.last_user,
-                state.last_item, pt.rows, pt.mask, pt.n_real, state.gen, it,
-                losses=self.il)
+            eng._inner(st.mf, mf_opt._replace(
+                count=self.mf_bias.epoch_count(e)), st.theta, st.last_user,
+                st.last_item, pt.rows, pt.mask, pt.n_real, gen, it,
+                losses=self.il, slots=self.t_slots)
             if self.ev_in is not None:
-                self._eval_into(self.ev_in[e], state.mf)
+                self._eval_into(self.ev_in[e], st.mf)
         with torch.no_grad():
-            state.hat_user.copy_(state.mf.user_emb)
-            state.hat_item.copy_(state.mf.item_emb)
-        self._refresh(state)
+            st.hat_user.copy_(st.mf.user_emb)
+            st.hat_item.copy_(st.mf.item_emb)
+        self._refresh(st)
         for e in range(cfg.tr_epochs):
-            _, tr_opt, _ = eng._outer(
-                state.theta, tr_opt, state.last_user, state.last_item,
-                state.hat_user, state.hat_item, ptt.rows, ptt.mask,
-                ptt.n_real, state.gen, itt, losses=self.ol)
+            eng._outer(st.theta, tr_opt._replace(
+                count=self.tr_bias.epoch_count(e)), st.last_user,
+                st.last_item, st.hat_user, st.hat_item, ptt.rows, ptt.mask,
+                ptt.n_real, gen, itt, losses=self.ol, slots=self.tt_slots)
             if cfg.refresh_after_outer_epoch:
-                self._refresh(state)
+                self._refresh(st)
                 if self.ev_out is not None:
-                    self._eval_into(self.ev_out[e], state.mf)
+                    self._eval_into(self.ev_out[e], st.mf)
         if cfg.load_w_hat:
             with torch.no_grad():
-                state.mf.user_emb.copy_(state.hat_user)
-                state.mf.item_emb.copy_(state.hat_item)
+                st.mf.user_emb.copy_(st.hat_user)
+                st.mf.item_emb.copy_(st.hat_item)
         if self.diag is not None:
-            self.diag.copy_(torch.stack(eng._diag_values(state)))
-        return state._replace(mf_opt=mf_opt._replace(bias=None),
-                              tr_opt=tr_opt._replace(bias=None))
+            self.diag.copy_(torch.stack(eng._diag_values(st)))
 
     def run(self, state: SMLState) -> SMLState:
-        """One phase from ``state`` (whose buffers are this program's);
-        returns the state after it, its step counts advanced."""
-        if _buffer_key(state) != self.key:
-            raise ValueError("this phase program was made for other "
-                             "buffers")
+        """One phase from ``state`` on the loaded inputs; returns the state
+        after it (the slot's buffers, ``state``'s generator advanced), its
+        step counts advanced by the real steps."""
+        slot = self.slot
+        graphs.load_into(_state_tensors(slot), _state_tensors(state))
         c_mf, c_tr = state.mf_opt.count, state.tr_opt.count
-        self.mf_bias.fill(c_mf)
-        self.tr_bias.fill(c_tr)
-        eng = self.eng
-        if eng.device.type == "cuda" and (self.call is not None
-                                          or eng._stream_warm):
-            if self.call is None:
-                t0 = time.perf_counter()
-                self.call = graphs.CapturedCall(
-                    lambda: self.body(state), eng._capture_stream(),
-                    generators=(state.gen,))
-                if _buffer_key(self.call.result) != self.key:
-                    raise RuntimeError("the captured phase rebound a "
-                                       "buffer; a replay would not update "
-                                       "the state")
-                eng.graph_stats["captures"] += 1
-                eng.graph_stats["capture_s"] += time.perf_counter() - t0
-            self.call.replay()
-            eng.graph_stats["replays"] += 1
-            return state._replace(
-                mf_opt=state.mf_opt._replace(count=c_mf + self.steps_mf),
-                tr_opt=state.tr_opt._replace(count=c_tr + self.steps_tr))
-        if eng.device.type == "cuda":
-            t0 = time.perf_counter()
-            out = graphs.run_on(eng._capture_stream(),
-                                lambda: self.body(state))
-            eng._stream_warm = True
-            eng.graph_stats["warmups"] += 1
-            eng.graph_stats["warmup_s"] += time.perf_counter() - t0
-        else:
-            out = self.body(state)
-        if (out.mf_opt.count, out.tr_opt.count) != (c_mf + self.steps_mf,
-                                                    c_tr + self.steps_tr):
-            raise RuntimeError("the phase took another number of Adam "
-                               "steps than its inputs give")
-        return out
+        self.mf_bias.fill(c_mf, self.taken[0])
+        self.tr_bias.fill(c_tr, self.taken[1])
+        self.launch(state.gen)
+        return slot._replace(
+            gen=state.gen,
+            mf_opt=AdamState(c_mf + self.cfg.mf_epochs * self.taken[0],
+                             slot.mf_opt.mu, slot.mf_opt.nu),
+            tr_opt=AdamState(c_tr + self.cfg.tr_epochs * self.taken[1],
+                             slot.tr_opt.mu, slot.tr_opt.nu))
 
 
 def _check_disjoint(state: SMLState) -> None:

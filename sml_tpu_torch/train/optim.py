@@ -22,9 +22,10 @@ count (:func:`bias_corrections`) and divide as 0-d tensors on the device.
 A step that a CUDA graph replays (``train/graphs.py``) cannot take them by
 value: the replay would repeat the captured step's numbers. There the
 state's ``bias`` is a :class:`BiasTable`, a device buffer of one
-``(bc1, bc2)`` pair per step of the captured region, filled on the host
-with the same f32 values before every replay; the steps read their pair
-through fixed views, so they round exactly as the by-value steps do.
+``(bc1, bc2)`` pair per step slot of the captured region, filled on the
+host with the same f32 values before every replay for the steps that run;
+the steps read their pair through fixed views, so they round exactly as
+the by-value steps do.
 
 :func:`sparse_dense_adam_update` is the same step for row-sparse table
 gradients with exact dense semantics: a full-table g=0 pass (kernel K3 on
@@ -90,27 +91,35 @@ def _full(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 class BiasTable:
-    """The bias corrections of ``steps`` consecutive Adam steps in one
-    ``(steps, 2)`` f32 buffer on ``device``: row ``k`` holds ``(bc1, bc2)``
-    of step ``base + 1 + k``. :meth:`fill` writes them for a new ``base``
-    (one host-to-device copy, ordered on the current stream); a step of
-    count ``c`` reads row ``c - base - 1`` through :meth:`at`, whose views
-    keep their addresses, so a CUDA graph that captured the steps reads
-    each replay's values."""
+    """The bias corrections of the Adam steps of a captured region in one
+    ``(epochs * slots, 2)`` f32 buffer on ``device``: row ``e * slots + b``
+    belongs to step slot ``b`` of epoch ``e``. :meth:`fill` writes them for
+    a new ``base`` count and the run's ``taken`` slots per epoch (one
+    host-to-device copy, ordered on the current stream): slot ``(e, b)``,
+    ``b < taken``, holds ``(bc1, bc2)`` of count ``base + 1 + e * taken +
+    b``. A step reads its slot's row through :meth:`at`, whose views keep
+    their addresses, so a CUDA graph that captured every slot reads each
+    replay's values whatever ``taken`` is. Inside the region the steps'
+    count runs over slots: epoch ``e`` starts at :meth:`epoch_count`."""
 
-    def __init__(self, steps: int, device, b1: float = ADAM_B1,
-                 b2: float = ADAM_B2):
-        self.steps, self.b1, self.b2 = steps, b1, b2
-        self.buf = torch.zeros((steps, 2), dtype=torch.float32,
+    def __init__(self, slots: int, device, epochs: int = 1,
+                 b1: float = ADAM_B1, b2: float = ADAM_B2):
+        self.slots, self.epochs, self.b1, self.b2 = slots, epochs, b1, b2
+        self.buf = torch.zeros((epochs * slots, 2), dtype=torch.float32,
                                device=device)
         self.base = 0
 
-    def fill(self, base: int) -> None:
-        """Rows for counts ``base + 1 ... base + steps``, each pair the f32
-        values :func:`bias_corrections` gives."""
-        vals = torch.tensor([bias_corrections(base + 1 + k, self.b1, self.b2)
-                             for k in range(self.steps)],
-                            dtype=torch.float32).reshape(self.steps, 2)
+    def fill(self, base: int, taken: Optional[int] = None) -> None:
+        """Rows for a region from count ``base`` whose epochs take their
+        first ``taken`` slots (default all), each pair the f32 values
+        :func:`bias_corrections` gives; untaken slots hold 1.0."""
+        taken = self.slots if taken is None else taken
+        vals = np.ones((self.epochs, self.slots, 2), dtype=np.float32)
+        for e in range(self.epochs):
+            for b in range(min(taken, self.slots)):
+                vals[e, b] = bias_corrections(base + 1 + e * taken + b,
+                                              self.b1, self.b2)
+        vals = torch.from_numpy(vals.reshape(-1, 2))
         if self.buf.is_cuda:
             # pinned, so the copy is ordered on the stream (the previous
             # replay may still read the buffer) and the host goes on
@@ -119,14 +128,19 @@ class BiasTable:
             self.buf.copy_(vals)
         self.base = base
 
+    def epoch_count(self, e: int) -> int:
+        """The slot count epoch ``e``'s steps start from."""
+        return self.base + e * self.slots
+
     def at(self, count: int, b1: float, b2: float):
-        """``(bc1, bc2)`` of step ``count`` as 0-d views of the buffer."""
+        """``(bc1, bc2)`` of the step whose slot count is ``count`` (slot
+        row ``count - base - 1``) as 0-d views of the buffer."""
         k = count - self.base - 1
-        if not 0 <= k < self.steps or (b1, b2) != (self.b1, self.b2):
+        if not 0 <= k < self.buf.shape[0] or (b1, b2) != (self.b1, self.b2):
             raise ValueError(f"step {count} with b1={b1}, b2={b2} is not in "
-                             f"this table (steps {self.base + 1} ... "
-                             f"{self.base + self.steps}, b1={self.b1}, "
-                             f"b2={self.b2})")
+                             f"this table (slots {self.base + 1} ... "
+                             f"{self.base + self.buf.shape[0]}, "
+                             f"b1={self.b1}, b2={self.b2})")
         row = self.buf[k]
         return row[0], row[1]
 

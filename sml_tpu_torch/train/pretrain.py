@@ -6,6 +6,11 @@ per-side L2 on the cumulative history up to the pretrain period, Adam,
 evaluation every ``eval_every`` epochs on the pretrain period's test rows,
 the best recall@20 state kept, a stop after ``patience`` best-less eval
 rounds.
+
+The epochs run through one :class:`~sml_tpu_torch.train.steps.
+PlainEpochProgram` (the JAX package jits the epoch): on the card the
+first epoch eagerly (the warm-up), then one capture, then a replay per
+epoch; the evaluations and the stop stay on the host between epochs.
 """
 
 from __future__ import annotations
@@ -23,21 +28,25 @@ from sml_tpu_torch.models.mf import MFParams, init_mf
 from sml_tpu_torch.ops.batching import pad_rows
 from sml_tpu_torch.ops.sampling import build_period_index
 from sml_tpu_torch.train.engine import derive_seed
+from sml_tpu_torch.train.graphs import GraphSite
 from sml_tpu_torch.train.optim import adam_init
-from sml_tpu_torch.train.steps import make_plain_mf_epoch
+from sml_tpu_torch.train.steps import PlainEpochProgram, make_plain_mf_epoch
 from sml_tpu_torch.utils.logging import MetricsLogger
 
 
 def pretrain_mf(cfg: PretrainConfig, spec: DataSpec, pretrain_period: int,
                 logger: Optional[MetricsLogger] = None,
                 topks: Sequence[int] = (5, 10, 20),
-                device="cuda") -> Tuple[MFParams, dict]:
+                device="cuda", site: Optional[GraphSite] = None
+                ) -> Tuple[MFParams, dict]:
     """Train the base MF on ``train/0..pretrain_period-1``, early-stopping
     on recall@20 of ``test/<pretrain_period>``; returns (best_params,
     metrics). Tables draw from a CPU generator seeded ``cfg.seed`` (the
     same tables on every device), the epochs' draws from a generator on
-    ``device``."""
+    ``device``. ``site``: where the epoch program runs (its ``stats``
+    count the warm-up, captures and replays); a new one by default."""
     device = resolve_device(device)
+    site = site or GraphSite(device)
     logger = logger or MetricsLogger(None)
     stream = StreamingPeriods(spec)
     train, test = stream.get_next(pretrain_period, mode="not_only_new")
@@ -71,9 +80,10 @@ def pretrain_mf(cfg: PretrainConfig, spec: DataSpec, pretrain_period: int,
 
     best = {"recall20": -1.0, "params": mf, "epoch": -1}
     stale = 0
+    program = PlainEpochProgram(epoch_fn, site, mf, opt, padded, index,
+                                cfg.batch_size)
     for epoch in range(cfg.max_epochs):
-        mf, opt, losses = epoch_fn(mf, opt, padded.rows, padded.mask,
-                                   padded.n_real, gen, index)
+        mf, opt, losses = program.run(mf, opt, padded, gen, index)
         if epoch % cfg.eval_every == 0:
             m = evaluate(mf)
             r20 = m[max(topks)][0]

@@ -1,10 +1,13 @@
 """Training epochs (counterpart of ``sml_tpu/train/steps.py``).
 
 Each epoch narrows the rows to ``(u, i, j)`` triples, shuffles the real rows
-ahead of the padding and runs exactly ``ceil(n_real/B)`` optimizer steps as
-a Python loop: no phantom step ever decays the Adam moments. The returned
-loss vector is ``nb_max`` long (the padded batch count) with zeros in the
-skipped tail, the same vector the JAX scan returns.
+ahead of the padding and runs exactly ``ceil(n_real/B)`` optimizer steps:
+no phantom step ever decays the Adam moments. The returned loss vector is
+``nb_max`` long (the padded batch count) with zeros in the skipped tail,
+the same vector the JAX scan returns. Eagerly the loop runs the real
+batches; inside a program (``slots=``) every one of the ``nb_max`` step
+slots is a ``graphs.step_if`` on a device predicate, as the JAX scan's
+``lax.cond``, so one CUDA graph serves any ``n_real``.
 
 Gradient flow, as in the JAX package:
 
@@ -24,11 +27,14 @@ Gradient flow, as in the JAX package:
 
 Parameters and moments are updated in place. Random draws (negative
 columns, shuffles, sampled negatives) come from one ``torch.Generator`` on
-the device, in a fixed order; replay mode draws nothing. No step reads a
-value back to the host (the step count is ``ceil(n_real/B)`` from the host
-int ``n_real``), so a CUDA graph can capture whole epochs; the inner and
-outer epochs then write their losses into a buffer they are given
-(``losses=``) rather than a new one.
+the device, in a fixed order; replay mode draws nothing. A replay advances
+a CUDA generator past every step slot, the skipped ones too (as the JAX
+package splits ``nb_max`` keys), so an eager epoch on a CUDA generator
+skips the Philox offset of each step it does not run: the eager and the
+replayed epochs draw alike. No step reads a value back to the host, so a
+CUDA graph can capture whole epochs; the epochs then write their losses
+into a buffer they are given (``losses=``) rather than a new one, and
+:class:`PlainEpochProgram` runs the plain MF epoch as such a program.
 
 Under a mesh (``layout``, a :class:`~sml_tpu_torch.parallel.sharding.
 TableLayout`) the inner and outer epochs write out what GSPMD inserts in
@@ -52,7 +58,8 @@ Without ``layout`` the code path is the single-rank one.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,22 +68,37 @@ from sml_tpu_torch.models.mf import (MFParams, score_pairs,
                                      score_pairs_biased)
 from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
                                            theta_leaves)
-from sml_tpu_torch.ops.batching import num_batches, shuffle_real_first
+from sml_tpu_torch.ops import sampling
+from sml_tpu_torch.ops.batching import (PaddedRows, num_batches,
+                                        shuffle_real_first)
 from sml_tpu_torch.ops.losses import (bce_pair_loss, bpr_loss,
                                       l2_embedding_penalty)
 from sml_tpu_torch.ops.sampling import PeriodIndex, sample_negatives
-from sml_tpu_torch.train.optim import (AdamState, TableGrad, adam_update,
-                                       sparse_dense_adam_update)
+from sml_tpu_torch.train import graphs
+from sml_tpu_torch.train.optim import (AdamState, BiasTable, TableGrad,
+                                       adam_update, sparse_dense_adam_update)
 
 
 def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
                generator: torch.Generator, batch_size: int, step_fn,
-               shuffle: bool = True, losses: torch.Tensor = None):
+               shuffle: bool = True, losses: torch.Tensor = None,
+               slots: Optional[graphs.SlotTable] = None,
+               step_draws: Optional[Tuple[int, int]] = None):
     """Shuffle, then ``ceil(n_real/B)`` calls of ``step_fn(carry, rows_b,
     mask_b, generator) -> (carry, loss)``. Returns ``(carry, losses)`` with
     ``losses`` (nb_max,) f32 on the rows' device, 0 for skipped batches;
     ``losses`` given, the epoch zeroes and fills that buffer.
-    ``shuffle=False`` (replay mode) keeps the given order."""
+    ``shuffle=False`` (replay mode) keeps the given order.
+
+    ``slots`` (inside a program, ``train/graphs.py``): every one of the
+    ``nb_max`` slots is a step under :func:`graphs.step_if`, which the
+    slot table's taken slots run (``n_real`` is then not read); captured,
+    each is an IF node, the counterpart of the JAX package's ``lax.cond``.
+    ``step_draws``: the ``(rows, tries)`` of the sampler draw each step
+    makes, or None. A replay advances a CUDA generator past every slot, so
+    an eager epoch on a CUDA generator skips the Philox offset of each
+    step it does not run (as the JAX package splits ``nb_max`` keys
+    whether or not the batches run); on the CPU nothing is skipped."""
     if shuffle:
         rows, mask = shuffle_real_first(generator, rows, mask)
     nb_max = rows.shape[0] // batch_size
@@ -87,10 +109,30 @@ def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
                          f"{tuple(losses.shape)}")
     else:
         losses.zero_()
-    for b in range(min(num_batches(n_real, batch_size), nb_max)):
-        sl = slice(b * batch_size, (b + 1) * batch_size)
-        carry, loss = step_fn(carry, rows[sl], mask[sl], generator)
-        losses[b] = loss.detach()
+    eager_cuda = (generator.device.type == "cuda"
+                  and not torch.cuda.is_current_stream_capturing())
+    per_step = (sampling.draw_offset(*step_draws, generator.device)
+                if eager_cuda and step_draws is not None else 0)
+    nb_real = num_batches(n_real, batch_size)
+    ran = 0
+    for b in range(nb_max):
+        gate = (graphs.step_if(slots, b) if slots is not None
+                else contextlib.nullcontext(b < nb_real))
+        with gate as run:
+            if not run:
+                continue
+            sl = slice(b * batch_size, (b + 1) * batch_size)
+            start = generator.get_offset() if eager_cuda else 0
+            carry, loss = step_fn(carry, rows[sl], mask[sl], generator)
+            losses[b] = loss.detach()
+            ran += 1
+            if eager_cuda and generator.get_offset() - start != per_step:
+                raise RuntimeError(
+                    f"a step reserved {generator.get_offset() - start} "
+                    f"Philox offsets, the skip-ahead assumes {per_step}")
+    if eager_cuda and per_step and ran < nb_max:
+        generator.set_offset(generator.get_offset()
+                             + (nb_max - ran) * per_step)
     return carry, losses
 
 
@@ -200,10 +242,12 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
                           lr=cfg.mf_lr)
         return opt, loss
 
+    draws = None if mode in ("all", "replay") else (batch, cfg.neg_tries)
+
     def epoch(mf: MFParams, opt: AdamState, theta: TransferParams,
               last_u, last_i, rows, mask, n_real: int,
               generator: torch.Generator,
-              index: Optional[PeriodIndex] = None, losses=None):
+              index: Optional[PeriodIndex] = None, losses=None, slots=None):
         rows = _epoch_triples(rows, generator, mode)
 
         def step(opt, r, m, gen):
@@ -237,7 +281,8 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
 
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
                                  step, shuffle=mode != "replay",
-                                 losses=losses)
+                                 losses=losses, slots=slots,
+                                 step_draws=draws)
         return mf, opt, losses
 
     return epoch
@@ -263,9 +308,11 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
     batch = cfg.tr_batch_size
     mode = "replay" if cfg.replay_mode else cfg.tr_sample_type
 
+    draws = None if mode in ("all", "replay") else (batch, cfg.neg_tries)
+
     def epoch(theta: TransferParams, opt: AdamState, last_u, last_i, hat_u,
               hat_i, rows, mask, n_real: int, generator: torch.Generator,
-              index: Optional[PeriodIndex] = None, losses=None):
+              index: Optional[PeriodIndex] = None, losses=None, slots=None):
         rows = _epoch_triples(rows, generator, mode)
         leaves = theta_leaves(theta)
 
@@ -301,7 +348,8 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
 
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
                                  step, shuffle=mode != "replay",
-                                 losses=losses)
+                                 losses=losses, slots=slots,
+                                 step_draws=draws)
         return theta, opt, losses
 
     return epoch
@@ -340,7 +388,8 @@ def make_plain_mf_epoch(batch_size: int, l2_user: float, l2_item: float,
                 + l2_item * l2_embedding_penalty(m, xi, xj))
 
     def epoch(mf: MFParams, opt: AdamState, rows, mask, n_real: int,
-              generator: torch.Generator, index: PeriodIndex):
+              generator: torch.Generator, index: PeriodIndex, losses=None,
+              slots=None):
         def step(opt, r, m, gen):
             u, i = r[:, 0].long(), r[:, 1].long()
             j = sample_negatives(index, u, gen, neg_tries)
@@ -366,7 +415,62 @@ def make_plain_mf_epoch(batch_size: int, l2_user: float, l2_item: float,
             return opt, loss
 
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator,
-                                 batch_size, step)
+                                 batch_size, step, losses=losses, slots=slots,
+                                 step_draws=(batch_size, neg_tries))
         return mf, opt, losses
 
     return epoch
+
+
+class PlainEpochProgram(graphs.Program):
+    """One plain MF epoch (:func:`make_plain_mf_epoch`'s ``epoch``) as a
+    program on fixed buffers, the counterpart of the JAX package's jitted
+    epoch: the pretrainer's and the full-retrain / fine-tune baselines'.
+    It holds its own tables and moments (shaped like the first run's) and
+    input buffers at the padded shape; :meth:`run` copies the run's state
+    and inputs in, marks the real batches' slots and fills the bias
+    corrections, runs the epoch (eagerly on the CPU; on the card the site's
+    warm-up, then one capture, then replays) and returns ``(mf, opt,
+    losses)``, ``mf`` and the moments the program's own buffers (the next
+    run overwrites them), ``losses`` a copy."""
+
+    def __init__(self, epoch, site: graphs.GraphSite, mf: MFParams,
+                 opt: AdamState, padded: PaddedRows, index: PeriodIndex,
+                 batch_size: int):
+        super().__init__(site)
+        self.epoch = epoch
+        self.mf = MFParams(*(t.detach().clone() for t in mf))
+        self.mu = {k: v.clone() for k, v in opt.mu.items()}
+        self.nu = {k: v.clone() for k, v in opt.nu.items()}
+        self.rows, self.mask = padded.rows.clone(), padded.mask.clone()
+        self.index = PeriodIndex(*(t.clone() for t in index))
+        nb_max = self.rows.shape[0] // batch_size
+        self.batch_size = batch_size
+        self.slots = graphs.SlotTable(nb_max, site.device)
+        self.bias = BiasTable(nb_max, site.device)
+        self.losses = torch.zeros(nb_max, dtype=torch.float32,
+                                  device=site.device)
+        self.n_real = 0
+
+    def body(self, gen: torch.Generator) -> None:
+        opt = AdamState(self.bias.epoch_count(0), self.mu, self.nu,
+                        self.bias)
+        self.epoch(self.mf, opt, self.rows, self.mask, self.n_real, gen,
+                   self.index, self.losses, self.slots)
+
+    def run(self, mf: MFParams, opt: AdamState, padded: PaddedRows,
+            gen: torch.Generator, index: PeriodIndex):
+        graphs.load_into(
+            [*self.mf, *self.mu.values(), *self.nu.values(), self.rows,
+             self.mask, *self.index],
+            [*mf, *(opt.mu[k] for k in self.mu),
+             *(opt.nu[k] for k in self.nu), padded.rows, padded.mask,
+             *index])
+        self.n_real = padded.n_real
+        taken = min(num_batches(padded.n_real, self.batch_size),
+                    self.slots.host.shape[0])
+        self.slots.fill(taken)
+        self.bias.fill(opt.count, taken)
+        self.launch(gen)
+        return (self.mf, AdamState(opt.count + taken, self.mu, self.nu),
+                self.losses.clone())

@@ -38,6 +38,7 @@ def maybe_trace(trace_dir: Optional[str],
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+        cupti_teardown()
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"trace_{time.time_ns()}.json")
     global _open_traces
@@ -50,6 +51,16 @@ def maybe_trace(trace_dir: Optional[str],
         finally:
             _open_traces -= 1
     prof.export_chrome_trace(path)
+
+
+def cupti_teardown() -> None:
+    """Have the profiler tear CUPTI down at the end of each trace (the
+    ``TEARDOWN_CUPTI`` setting of PyTorch's Kineto): a CUDA graph with
+    conditional nodes (the fused programs, ``train/graphs.py``) captured
+    while an earlier trace's CUPTI stays attached crashes the process when
+    a later trace sees it launched (torch 2.11, CUDA 12.8 on an H100).
+    A value the caller set stays."""
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 
 def annotate(name: str):

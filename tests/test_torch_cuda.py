@@ -25,6 +25,12 @@ bit-equal to their plain versions and fresh outputs. The edge-case rows:
 no bit set, every item set, one 16-byte chunk of the mask, its last chunk
 (K2, P3); no bit, one bit, one full 4096-item mask block, every item (P1).
 P1 also at widths that are not multiples of 16 (zero-padded, exact).
+The one-program run: steps under CUDA-graph IF nodes, taken and skipped,
+bit-equal to the same steps run eagerly; eager epochs that skip the
+Philox offsets of the slots they do not run, equal to replayed ones;
+one capture for a sweep of periods of different row counts, bit-equal
+to the unfused sweep; a fused program replayed inside a trace after an
+earlier trace.
 """
 
 import json
@@ -884,3 +890,243 @@ def test_transfer_kernel_writes_into_out(card):
         TK.fused_table_transfer(th.user, last, hat, out=last)
     with pytest.raises(ValueError, match="contiguous"):
         TK.fused_table_transfer(th.user, last, hat, out=out.t())
+
+
+def test_if_node_step_with_autograd_taken_and_skipped(card):
+    """Four step slots under ``graphs.step_if`` captured once (each step a
+    backward through a small tower, an update in place and a draw from the
+    registered generator), replayed with 4 and with 2 slots taken, against
+    the same steps run eagerly (which skip a skipped slot's offset):
+    parameters, losses and the generator's offset equal, skipped slots'
+    losses 0."""
+    from sml_tpu_torch.train import graphs
+
+    g = torch.Generator().manual_seed(31)
+    w0 = torch.randn(16, 8, generator=g).to(card)
+    x = torch.randn(4, 32, 16, generator=g).to(card)
+
+    scratch = torch.Generator(device=card)
+    torch.rand(32, 8, generator=scratch, device=card)
+    per_step = scratch.get_offset()
+
+    def steps(w, losses, slots, gen):
+        losses.zero_()
+        for b in range(4):
+            with graphs.step_if(slots, b) as run:
+                if not run:
+                    # eagerly, skip the offsets a replay reserves here
+                    gen.set_offset(gen.get_offset() + per_step)
+                    continue
+                noise = torch.rand(32, 8, generator=gen, device=card)
+                wv = w.detach().requires_grad_()
+                with torch.enable_grad():
+                    loss = ((torch.tanh(x[b] @ wv) - noise) ** 2).mean()
+                    (grad,) = torch.autograd.grad(loss, [wv])
+                with torch.no_grad():
+                    w.sub_(0.1 * grad / (grad.abs().max() + 1e-6))
+                losses[b] = loss.detach()
+
+    site = graphs.GraphSite(card)
+    w, losses = w0.clone(), torch.zeros(4, device=card)
+    slots = graphs.SlotTable(4, card)
+    own = torch.Generator(device=card)
+    slots.fill(4)
+    gen = torch.Generator(device=card).manual_seed(5)
+    graphs.run_on(site.stream(), lambda: steps(w, losses, slots, gen))
+    call = graphs.CapturedCall(lambda: steps(w, losses, slots, own),
+                               site.stream(), generators=(own,))
+    ref_w, ref_l = w0.clone(), torch.zeros(4, device=card)
+    ref_slots = graphs.SlotTable(4, card)
+    ref_gen = torch.Generator(device=card).manual_seed(5)
+    ref_slots.fill(4)
+    steps(ref_w, ref_l, ref_slots, ref_gen)
+    for taken in (4, 2, 4):
+        w.copy_(ref_w)
+        slots.fill(taken)
+        call.replay(sources=(gen,))
+        ref_slots.fill(taken)
+        steps(ref_w, ref_l, ref_slots, ref_gen)
+        torch.cuda.synchronize()
+        assert torch.equal(w, ref_w) and torch.equal(losses, ref_l)
+        assert (losses[taken:] == 0).all() and (losses[:taken] > 0).all()
+    assert gen.get_offset() == ref_gen.get_offset() == 16 * per_step
+
+
+def _tiny_mf(card, n_u=300, n_i=200, d=16):
+    from sml_tpu_torch.models.mf import init_mf
+    return init_mf(torch.Generator().manual_seed(3), n_u, n_i, d,
+                   device=card)
+
+
+def test_generator_skip_ahead_matches_replays(card):
+    """Plain MF epochs with fewer real batches than slots (the rows padded
+    to a larger bound), three through a ``PlainEpochProgram`` (the warm-up,
+    a capture, replays) and three called eagerly: tables, moments, the
+    generator's offset and the next draw equal, so an eager epoch skips as
+    far as a replay advances."""
+    from sml_tpu_torch.ops.batching import pad_rows
+    from sml_tpu_torch.ops.sampling import build_period_index
+    from sml_tpu_torch.train import graphs
+    from sml_tpu_torch.train.optim import adam_init
+    from sml_tpu_torch.train.steps import (PlainEpochProgram,
+                                           make_plain_mf_epoch)
+    rng = np.random.default_rng(8)
+    rows = np.stack([rng.integers(0, 300, 700), rng.integers(0, 200, 700)],
+                    1)
+    padded = pad_rows(rows, 64, pad_to=1500, device=card)
+    index = build_period_index(rows, 200, min_rows=1500, device=card)
+    assert padded.rows.shape[0] // 64 > -(-700 // 64)
+    for fast in (None, 0.01):
+        epoch = make_plain_mf_epoch(64, 1e-3, 1e-3, 0.01, fast_lr=fast)
+        runs = []
+        for programmed in (True, False):
+            mf = _tiny_mf(card)
+            opt = adam_init(mf._asdict())
+            gen = torch.Generator(device=card).manual_seed(9)
+            site = graphs.GraphSite(card)
+            prog = PlainEpochProgram(epoch, site, mf, opt, padded, index, 64)
+            for _ in range(3):
+                if programmed:
+                    mf, opt, _ = prog.run(mf, opt, padded, gen, index)
+                else:
+                    mf, opt, _ = epoch(mf, opt, padded.rows, padded.mask,
+                                       padded.n_real, gen, index)
+            torch.cuda.synchronize()
+            runs.append((mf, opt, gen, dict(site.stats)))
+        (pm, po, pg, ps), (em, eo, eg, _) = runs
+        assert [ps[k] for k in ("warmups", "captures", "replays")] == \
+            [1, 1, 2]
+        assert po.count == eo.count == 3 * -(-700 // 64)
+        assert all(torch.equal(a, b) for a, b in zip(pm, em))
+        for part in ("mu", "nu"):
+            for k, t in getattr(po, part).items():
+                assert torch.equal(t, getattr(eo, part)[k]), (part, k)
+        assert pg.get_offset() == eg.get_offset()
+        assert torch.equal(torch.rand(5, generator=pg, device=card),
+                           torch.rand(5, generator=eg, device=card))
+
+
+def _ragged_dataset(root):
+    """Five periods whose train and test row counts and item pools all
+    differ (the card's counterpart of ``test_torch_sweep_program.py``'s
+    dataset)."""
+    from sml_tpu_torch.config import DataSpec
+    from sml_tpu_torch.data.formats import DatasetInfo, write_dataset
+    rng = np.random.default_rng(11)
+    train_rows, test_rows = (700, 420, 910, 515, 650), (90, 61, 118, 75, 102)
+    train, test = [], {}
+    for p, (n, m) in enumerate(zip(train_rows, test_rows)):
+        lo = 7 * p
+        train.append(np.stack([rng.integers(0, 200, n),
+                               rng.integers(lo, lo + 60 + 5 * p, n)], 1))
+        negs = np.stack([rng.choice(120, 20, replace=False)
+                         for _ in range(m)])
+        test[p] = np.concatenate([rng.integers(0, 200, (m, 1)),
+                                  rng.integers(lo, lo + 60, (m, 1)), negs],
+                                 axis=1)
+    write_dataset(str(root / "synth"), train, test,
+                  DatasetInfo(sum(train_rows), 200, 120))
+    return DataSpec(root=str(root), name="synth", num_periods=5,
+                    online_train_start=1, online_test_start=3,
+                    eval_neg_num=20)
+
+
+@pytest.mark.parametrize("extra", [
+    {}, dict(eval_during_inner=True, eval_during_outer=True, log_norms=True,
+             saddle_retries=1, saddle_mode="legacy", saddle_frac=0.0,
+             saddle_check_phase=1)])
+def test_one_capture_serves_a_ragged_sweep(card, tmp_path, extra):
+    """A sweep on periods of different row counts with the default "auto"
+    (fused on the card) against the same sweep unfused: one program, one
+    capture and one warm-up for the whole sweep (the saddle retry too),
+    tables, snapshots, Θ, moments, counts and the generator bit-equal, and
+    K1/K2/K3 launches equal but for the phase the fused guard adds.""" 
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.train.driver import SMLDriver
+    spec = _ragged_dataset(tmp_path)
+    counted = (AK.decay_adam_cuda, TK.transfer_rows_cuda, E.masked_rank_cuda)
+    runs = []
+    for fuse in (dict(), dict(fuse_phases=False, fuse_period=False)):
+        cfg = SMLConfig(multi_num=3, mf_epochs=2, tr_epochs=2,
+                        mf_batch_size=64, tr_batch_size=32,
+                        eval_batch_size=64, latent_dim=16,
+                        mf_sample="alone", fast_table_adam=True,
+                        eval_scoring="masked", prefetch_periods=False,
+                        transfer=TransferConfig(latent_dim=16, fc_hidden=64),
+                        **extra, **fuse)
+        before = [w.launches for w in counted]
+        drv = SMLDriver(cfg, spec, device=card)
+        report = drv.run()
+        torch.cuda.synchronize()
+        runs.append((drv.final_state, dict(drv.engine.graph_stats), report,
+                     [w.launches - b for w, b in zip(counted, before)]))
+        drv.close()
+    (fs, stats, frep, fl), (us, _, urep, ul) = runs
+    assert [stats[k] for k in ("programs", "captures", "warmups")] == \
+        [1, 1, 1], stats
+    # the fused guard runs every phase of the stalled attempt: period 0's
+    # phase 2 beyond the unfused guard's check phase 1 (K3 2 epochs x 7
+    # steps of train/1, K1 2 per refresh x 3, K2 2 eval batches x 4 evals)
+    extra_phase = [14, 6, 8] if extra else [0, 0, 0]
+    assert [f - u for f, u in zip(fl, ul)] == extra_phase and min(ul) > 0
+    assert frep.saddle_retries_used == urep.saddle_retries_used
+    for a, b in zip(fs.mf, us.mf):
+        assert torch.equal(a, b)
+    for f in ("last_user", "last_item", "hat_user", "hat_item"):
+        assert torch.equal(getattr(fs, f), getattr(us, f))
+    ta, tb = theta_leaves(fs.theta), theta_leaves(us.theta)
+    assert all(torch.equal(ta[k], tb[k]) for k in ta)
+    for opt in ("mf_opt", "tr_opt"):
+        a, b = getattr(fs, opt), getattr(us, opt)
+        assert a.count == b.count
+        for part in ("mu", "nu"):
+            for k, t in getattr(a, part).items():
+                assert torch.equal(t, getattr(b, part)[k]), (opt, part, k)
+    assert torch.equal(fs.gen.get_state(), us.gen.get_state())
+    assert frep.per_period == urep.per_period
+
+
+def test_pool_draws_cover_the_pool_and_reserve_their_offset(card):
+    """On the card the sampler's device-bounded draw (one 32-bit value
+    below 2**32 - 1, modulo the pool size) covers every pool slot about
+    evenly, and reserves the Philox offset ``draw_offset`` gives, the one
+    ``randint(0, pool_size)`` reserves."""
+    from sml_tpu_torch.ops.sampling import (PeriodIndex, draw_offset,
+                                            pool_draws)
+    for n in (1, 37, 300):
+        index = PeriodIndex(torch.zeros(4096, dtype=torch.int64, device=card),
+                            torch.tensor(n, device=card), None, None, None)
+        gen = torch.Generator(card).manual_seed(2)
+        start = gen.get_offset()
+        draws = pool_draws(index, (1024, 16), gen)
+        assert gen.get_offset() - start == draw_offset(1024, 16, card) > 0
+        counts = torch.bincount(draws.flatten(), minlength=n).cpu()
+        assert counts.shape[0] == n and int(counts.min()) > 0
+        assert float(counts.max()) < 1.5 * 16384 / n + 20
+        ref = torch.Generator(card).manual_seed(2)
+        torch.randint(0, n, (1024, 16), device=card, generator=ref)
+        assert ref.get_offset() == gen.get_offset()
+
+
+def test_fused_replays_traced_after_an_earlier_trace(card, tmp_path):
+    """A fused program captured after an earlier trace ended, then
+    replayed inside a trace (what ``sml --profile-dir`` does for a later
+    period): the process lives on (``utils/profiling.cupti_teardown``) and
+    the trace holds the replays' K1 kernels."""
+    from sml_tpu_torch.utils.profiling import maybe_trace
+    with maybe_trace(str(tmp_path / "first"), card):
+        torch.randn(64, 64, device=card).sum().item()
+    eng = _fused_engine(card)
+    prep_t, prep_tt, val = _fused_inputs(eng)
+    state = eng.snapshot_last(eng.init_state())
+    state = eng.period_step(state, prep_t, prep_tt, 3, val)[0]
+    assert [eng.graph_stats[k] for k in ("warmups", "captures",
+                                         "replays")] == [1, 1, 2]
+    with maybe_trace(str(tmp_path / "second"), card) as path:
+        state = eng.period_step(state, prep_t, prep_tt, 2, val)[0]
+    assert eng.graph_stats["replays"] == 4
+    with open(path) as fh:
+        trace = json.load(fh)
+    k1 = [e for e in trace["traceEvents"]
+          if "transfer_rows_kernel" in e.get("name", "")]
+    assert len(k1) == 2 * 6

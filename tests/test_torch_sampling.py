@@ -89,7 +89,8 @@ def test_sampler_contract(rng):
     # same generator state -> the same draws, and the pick is the first
     # candidate the bloom does not flag, else the last draw
     gen2 = torch.Generator().manual_seed(0)
-    draws = torch.randint(0, idx.pool_size, (2000, 16), generator=gen2)
+    draws = torch.randint(0, 2**32 - 1, (2000, 16), generator=gen2) \
+        % idx.pool_size
     cands = idx.item_pool[draws]
     flagged = S.maybe_positive(idx, users[:, None], cands)
     for r in range(2000):
@@ -103,8 +104,8 @@ def test_sampler_contract(rng):
     fidx = S.build_period_index(full, n_items, device="cpu")
     z = torch.zeros(64, dtype=torch.int64)
     g3 = torch.Generator().manual_seed(3)
-    last = fidx.item_pool[torch.randint(0, fidx.pool_size, (64, 4),
-                                        generator=g3)][:, -1]
+    last = fidx.item_pool[torch.randint(0, 2**32 - 1, (64, 4), generator=g3)
+                          % fidx.pool_size][:, -1]
     got = S.sample_negatives(fidx, z, torch.Generator().manual_seed(3), 4)
     assert torch.equal(got, last)
 
