@@ -112,6 +112,23 @@ Phases, one JSON line each:
             ran (the fused guard runs the stalled attempt's every phase),
             and each ``period_step`` call's launches against its warm-up
             and replays.
+9d. mesh-fused  the fused programs under a mesh: a world of one rank
+            in this process, its mesh groups over NCCL (the card its
+            own), on the sweep dataset's first ``MESH_PERIODS`` periods
+            with ``log_norms`` and ``MESH_MULTI_NUM`` phases a period (the
+            sweep's 10 cut for time): the state born row-sharded on a (1, 1)
+            mesh, the sweep unfused, then with the default ``"auto"``,
+            which captures the program with its collectives (local on
+            one rank; on several cards, where NCCL inside the step
+            slots' IF nodes ends the capture, ``"auto"`` stays unfused, as
+            ``scripts/multicard_check.py`` shows). The fused run against
+            the unfused
+            one: state within ``FUSED_ATOL`` (bit equality expected),
+            counts and generators equal, every phase and test record
+            within ``LOSS_RTOL``, launches equal to each other and to
+            those derived from the data; one program, one capture and one
+            warm-up, a replay for every other fused phase. Then the
+            process group is destroyed.
 10. P1      every instantiation of the dense ``masked_rank_kernel`` that
             the eval-design probe ``eval_kernel_probe`` runs (rows per
             block 64 or 128, grid order ij or ji, f32 on the CUDA cores or
@@ -173,12 +190,15 @@ Phases, one JSON line each:
             after the pretrain period, from the pretrained tables: two
             attributed ``baseline_test`` records each (the dataset ships
             new-entity ids), metrics in [0, 1], full retrain above random
-            by ``BASE_RECALL_Z`` standard errors; full and fine through one
-            epoch program each (spmf stays eager), their counts printed.
-            Then full and fine over ``BASE_GRAPH_EPOCHS`` epochs a period,
-            through the program and with the epochs called eagerly: tables,
-            recalls and generators equal, one capture for the run, both
-            walls.
+            by ``BASE_RECALL_Z`` standard errors; each method through one
+            epoch program (spmf's: its pool and draw distribution as
+            buffers, ``round(N/B)`` of its step slots taken), one warm-up
+            and one capture each, their counts printed, and the ms of
+            spmf's draw distribution scanned on the host before each epoch
+            (``baselines.draw_cdf``, timed alone). Then each method
+            over ``BASE_GRAPH_EPOCHS`` epochs a period, through the program
+            and with the epochs called eagerly: tables, moments, recalls
+            and generators equal, one capture for the run, both walls.
 16. transfer-kinds  each of the seven transfer kinds at the Yelp widths
             (H = 1024 for conv_com_root, 512 otherwise, as the ``sml``
             CLI sets it): one full-table refresh of 100,000 + 20,000 rows
@@ -229,17 +249,23 @@ Phases, one JSON line each:
             runs all-reduce, all-gather and broadcast on CUDA tensors over
             gloo and checks their values (the port hands gloo its CUDA
             tensors as they are; gloo stages them through pinned host
-            memory inside itself). Then ``python -m sml_tpu_torch
+            memory inside itself). On those ranks the driver's fusion
+            rule keeps ``"auto"`` unfused and ``fuse_period=True`` raises,
+            naming gloo and the way out (``fuse_period=False``); on R=1
+            ``"auto"`` fuses. Then
+            ``python -m sml_tpu_torch
             --coordinator ... sml`` and ``rank --shard`` as two processes
             on the card against one process, started together
             (``PAR_CLI_DATA``; ``scripts/multicard_check.py``'s
             ``cli_against_one_process``: tables, each test's hits, the
             served rows).
 18b. fused-trace  last, since its ~1M kernel events make the script's
-            largest trace, and in a fresh process of this script (after
-            the ingest-sweep phase in the same process, a traced replay
-            of a fused program dies in ``cudaGraphLaunch``; ``PERF.md``
-            §7): a fused run of the sweep's first two periods
+            largest trace, in this process after every other phase that
+            traces (``utils/profiling.maybe_trace`` waits for the card
+            before its profiler starts: a trace that started over work
+            still running crashed the later traced replay of a program
+            with IF nodes; ROADMAP §3, fault 8): a fused run of the
+            sweep's first two periods
             with period 1 traced (phase 0 and the test unfused, then nine
             replays of the program period 0 captured): the device's busy
             share over the traced and
@@ -253,8 +279,8 @@ Phases, one JSON line each:
             launches derived from the data times the replays.
 19. the card's name and power limit as nvidia-smi prints them, the
    ``kernels`` line (launches from each kernel's own path: the train
-   sweep, the fused sweep, both fused-evals runs and the parallel
-   phase's ranks for K1-K3, the probes for P1-P3),
+   sweep, the fused sweep, both fused-evals runs, both mesh-fused runs
+   and the parallel phase's ranks for K1-K3, the probes for P1-P3),
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -325,6 +351,9 @@ INNER_ROWS, OUTER_ROWS = 8192, 4096
 SWEEP_PERIODS = 4
 SWEEP_TRAIN_ROWS = (65_536, 57_344, 49_400, 61_440)
 SWEEP_TEST_ROWS = (16_384, 12_800, 14_848, 11_264)
+# mesh-fused: the sweep's first periods (a warm-up and a test period) on
+# a (1, 1) mesh over NCCL, unfused and fused, at a cut depth of phases
+MESH_PERIODS, MESH_MULTI_NUM = 2, 4
 # eval-design probes: P1 at its probe's shape; the probe mains' repeats
 PROBE_ROWS, PROBE_ITEMS = 16_384, 20_480
 PROBE_TRIALS, PROBE_ROUNDS = 3, 3
@@ -1176,16 +1205,18 @@ def sweep_cfg(**kw):
                               **kw)
 
 
-def sweep_driver(torch, root: str, cfg, log_name: str):
-    """An ``SMLDriver`` on the sweep dataset with a jsonl logger, and the
-    launches derived from the data for ``cfg``."""
+def sweep_driver(torch, root: str, cfg, log_name: str,
+                 num_periods: int = SWEEP_PERIODS):
+    """An ``SMLDriver`` on the first ``num_periods`` periods of the sweep
+    dataset with a jsonl logger, and the launches derived from the data
+    for ``cfg``."""
     from sml_tpu_torch.config import DataSpec
     from sml_tpu_torch.data.formats import row_count
     from sml_tpu_torch.ops.batching import bucket_rows
     from sml_tpu_torch.train.driver import SMLDriver
     from sml_tpu_torch.utils.logging import MetricsLogger
 
-    spec = DataSpec(root=root, name="synth", num_periods=SWEEP_PERIODS,
+    spec = DataSpec(root=root, name="synth", num_periods=num_periods,
                     online_train_start=0, online_test_start=2)
     logger = MetricsLogger(os.path.join(root, log_name))
     driver = SMLDriver(cfg, spec, logger=logger, device="cuda")
@@ -1575,6 +1606,124 @@ def phase_fused_evals(torch, root: str):
             for k in per_phase}
 
 
+def record_kinds(path: str, kinds) -> list:
+    """The records of ``kinds`` of a jsonl log, without their wall-clock
+    fields."""
+    with open(path) as fh:
+        return [{k: v for k, v in r.items()
+                 if k not in ("ts", "seconds", "total_seconds")}
+                for r in map(json.loads, fh) if r["kind"] in kinds]
+
+
+def phase_mesh_fused(torch, root: str) -> dict:
+    """The fused programs under a mesh: a world of one rank in this
+    process (its mesh groups over NCCL, the card its own), the sweep
+    dataset's first ``MESH_PERIODS`` periods at the Yelp widths with
+    ``log_norms`` and ``MESH_MULTI_NUM`` phases a period, on a (1, 1) mesh
+    unfused, then with the default
+    ``"auto"``, which captures the program with its collectives (local on
+    one rank). Held to the unfused run: state, counts, generators, every
+    phase and test record, launches; one program, one capture and one
+    warm-up, a replay for every other fused phase. The process group is
+    destroyed after, so that the parallel phase's worlds start clean.
+    Returns the launches of both runs."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.multihost import init_distributed
+    from sml_tpu_torch.parallel.sharding import make_mesh
+    from sml_tpu_torch.train.driver import fusion_route
+
+    t_phase = time.perf_counter()
+    saved = dict(collective.WORLD)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    runs, total = {}, {}
+    try:
+        mesh = make_mesh(1, 1)
+        for name, kw in (("unfused", dict(fuse_phases=False,
+                                          fuse_period=False)),
+                         ("fused", {})):
+            cfg = sweep_cfg(log_norms=True, multi_num=MESH_MULTI_NUM, **kw)
+            log = f"mesh_{name}.jsonl"
+            driver, logger, want = sweep_driver(torch, root, cfg, log,
+                                                MESH_PERIODS + 1)
+            eng = driver.engine
+            state = eng.init_state_sharded(
+                mesh, pretrained_mf=random_tables(torch, SEED + 81))
+            fused = fusion_route(driver.cfg, eng)
+            zero_counts(ak, tk, ek)
+            t0 = time.perf_counter()
+            report = driver.run(state)
+            torch.cuda.synchronize()
+            runs[name] = {"wall_s": time.perf_counter() - t0,
+                          "period_s": report.period_seconds,
+                          "fused": fused, "graphs": dict(eng.graph_stats),
+                          "launches": kernel_counts(ak, tk, ek),
+                          "derived_launches": want,
+                          "state": driver.final_state,
+                          "records": record_kinds(os.path.join(root, log),
+                                                  ("phase", "test"))}
+            driver.close()
+            logger.close()
+        transport = {a: collective.transport(mesh.group(a))
+                     for a in ("data", "model")}
+        backend = mesh.transport
+    finally:
+        dist.destroy_process_group()
+        collective.WORLD.clear()
+        collective.WORLD.update(saved)
+    u, f = runs["unfused"], runs["fused"]
+    errs = state_errors(torch, f["state"], u["state"])
+    # branch A fuses its period whole, branch C all but its phase 0
+    fused_phases = (MESH_MULTI_NUM
+                    + (MESH_PERIODS - 1) * (MESH_MULTI_NUM - 1))
+    check(backend == "nccl" and not u["fused"] and f["fused"],
+          f"the mesh runs over {backend}; fused routes {u['fused']}, "
+          f"{f['fused']}")
+    check(max(errs[k] for k in ("tables", "snapshots", "theta",
+                                "moments")) <= FUSED_ATOL
+          and errs["counts_equal"] and errs["generator_equal"],
+          f"the fused sweep on the mesh differs from the unfused one: "
+          f"{errs}")
+    diff = record_differences(f["records"], u["records"], 1)
+    check(diff["rel"] <= LOSS_RTOL
+          and sum(r["kind"] == "test" for r in u["records"])
+          == MESH_PERIODS - 1,
+          f"the fused sweep's phase and test records on the mesh differ "
+          f"from the unfused one's: {diff}")
+    check(f["launches"] == u["launches"] == u["derived_launches"],
+          f"mesh launches: fused {f['launches']}, unfused "
+          f"{u['launches']}, derived {u['derived_launches']}")
+    check([f["graphs"][k] for k in ("programs", "captures", "warmups",
+                                    "replays")]
+          == [1, 1, 1, fused_phases - 1],
+          f"mesh programs/captures/warm-ups/replays: {f['graphs']} for "
+          f"{fused_phases} fused phases")
+    for k in f["launches"]:
+        total[k] = f["launches"][k] + u["launches"][k]
+    emit({"phase": "mesh-fused", "users": N_USERS, "items": N_ITEMS,
+          "periods": MESH_PERIODS, "mesh": mesh.shape, "backend": backend,
+          "transport": transport, "graphs": f["graphs"],
+          "fused_phases": fused_phases, "sweep_s": f["wall_s"],
+          "unfused_sweep_s": u["wall_s"], "period_s": f["period_s"],
+          "unfused_period_s": u["period_s"],
+          "max_abs_err_vs_unfused": errs,
+          "records": len(f["records"]),
+          "records_equal": f["records"] == u["records"],
+          "record_rel_err": diff["rel"], "launches": f["launches"],
+          "derived_launches": u["derived_launches"],
+          "phase_s": time.perf_counter() - t_phase})
+    return total
+
+
 def phase_fused_trace(torch, root: str, untraced_s: float,
                       untraced_call: dict):
     """One traced fused period: a fused run of the sweep's first two
@@ -1659,23 +1808,6 @@ def phase_fused_trace(torch, root: str, untraced_s: float,
           "device_busy_share_of_untraced": tr["busy_ms"] / (untraced_s * 1e3),
           "trace_bytes": trace_bytes, "read_s": read_s, **tr,
           "phase_s": time.perf_counter() - t_phase})
-
-
-def fused_trace_in_child(root: str, untraced_s: float,
-                         untraced_call: dict) -> None:
-    """:func:`phase_fused_trace` in a fresh process of this script (its
-    line goes to the same standard output). In this process, after the
-    ingest-sweep phase, a replay of a fused program under
-    ``torch.profiler`` dies of a segmentation fault inside
-    ``cudaGraphLaunch`` (torch 2.11, CUDA 12.8; ``PERF.md`` §7, ROADMAP
-    §3); in a process that has traced nothing before it, the same phase
-    passes."""
-    rc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--fused-trace", root,
-         json.dumps({"untraced_s": untraced_s,
-                     "untraced_call": untraced_call})],
-        cwd=os.path.dirname(os.path.abspath(__file__))).returncode
-    check(rc == 0, f"the fused-trace process exited {rc}")
 
 
 def quiet_main(main, argv):
@@ -2153,9 +2285,9 @@ class Records:
 
 
 class EagerEpochs:
-    """The plain MF epochs called one by one, as the loops ran them before
-    their epoch program (``PlainEpochProgram``'s interface): what a
-    graphed run is held to."""
+    """The MF epochs called one by one, as the loops ran them before their
+    epoch programs (``PlainEpochProgram``'s and ``EpochProgram``'s
+    interfaces): what a graphed run is held to."""
 
     def __init__(self, epoch, *_):
         self.epoch = epoch
@@ -2163,6 +2295,9 @@ class EagerEpochs:
     def run(self, mf, opt, padded, gen, index):
         return self.epoch(mf, opt, padded.rows, padded.mask, padded.n_real,
                           gen, index)
+
+    def run_taken(self, mf, opt, inputs, index, taken, gen):
+        return self.epoch(mf, opt, *inputs, taken, gen, index)
 
 
 def same_tables(torch, a, b) -> bool:
@@ -2296,31 +2431,54 @@ def phase_baselines(torch, spec, pretrained):
     out = {"phase": "baselines", "periods": [PRE_TEST + 1, PRE_TEST + 2],
            "epochs": BASE_EPOCHS, "batch": PRE_BATCH, "methods": {},
            "graphed_against_eager": {}}
+    draw_cdf, cdf_s = baselines.draw_cdf, []
+
+    def timed_cdf(probs):
+        # spmf's draw distribution, scanned on the host before every epoch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cdf = draw_cdf(probs)
+        torch.cuda.synchronize()
+        cdf_s.append(time.perf_counter() - t0)
+        return cdf
     for method in ("full", "fine", "spmf"):
-        driver, summary, logger, wall = run(method, BASE_EPOCHS)
+        baselines.draw_cdf = timed_cdf if method == "spmf" else draw_cdf
+        try:
+            driver, summary, logger, wall = run(method, BASE_EPOCHS)
+        finally:
+            baselines.draw_cdf = draw_cdf
         out["methods"][method] = {
             "wall_s": wall, "summary": summary,
             "graphs": dict(driver.graph_stats),
             "records": [{k: v for k, v in r.items() if k != "ts"}
                         for r in logger.records]}
-    # full and fine over BASE_GRAPH_EPOCHS epochs a period: the epoch
+    # the host scan's share of spmf's wall: its calls (one an epoch) and
+    # their mean and total milliseconds
+    out["methods"]["spmf"]["host_cdf"] = {
+        "calls": len(cdf_s), "mean_ms": 1e3 * sum(cdf_s) / len(cdf_s),
+        "total_ms": 1e3 * sum(cdf_s)}
+    # each method over BASE_GRAPH_EPOCHS epochs a period: the epoch
     # program (one capture for the run) against the epochs called eagerly
-    for method in ("full", "fine"):
+    for method in ("full", "fine", "spmf"):
         runs = {}
         for route in ("graph", "eager"):
+            saved = (baselines.PlainEpochProgram, baselines.EpochProgram)
             if route == "eager":
-                baselines.PlainEpochProgram, saved = (
-                    EagerEpochs, baselines.PlainEpochProgram)
+                baselines.PlainEpochProgram = EagerEpochs
+                baselines.EpochProgram = EagerEpochs
             try:
                 runs[route] = run(method, BASE_GRAPH_EPOCHS)
             finally:
-                if route == "eager":
-                    baselines.PlainEpochProgram = saved
+                baselines.PlainEpochProgram, baselines.EpochProgram = saved
         (gd, gsum, _, gwall), (ed, esum, _, ewall) = (runs["graph"],
                                                       runs["eager"])
         res = {"graph_wall_s": gwall, "eager_wall_s": ewall,
                "graphs": dict(gd.graph_stats),
                "tables_equal": same_tables(torch, gd.mf, ed.mf),
+               "moments_equal": all(
+                   torch.equal(getattr(gd.opt, part)[k],
+                               getattr(ed.opt, part)[k])
+                   for part in ("mu", "nu") for k in gd.opt.mu),
                "recall_equal": gd.recall == ed.recall,
                "generators_equal": bool(torch.equal(gd.gen.get_state(),
                                                     ed.gen.get_state()))}
@@ -2329,7 +2487,8 @@ def phase_baselines(torch, spec, pretrained):
         check([res["graphs"][k] for k in ("programs", "warmups", "captures",
                                           "replays")]
               == [1, 1, 1, runs_n - 1] and res["tables_equal"]
-              and res["recall_equal"] and res["generators_equal"],
+              and res["moments_equal"] and res["recall_equal"]
+              and res["generators_equal"],
               f"{method}: the graphed epochs against the eager ones: {res}")
     out["recall@20_floor"] = recall_floor(BASE_RECALL_Z)
     emit(out)
@@ -2348,10 +2507,10 @@ def phase_baselines(torch, spec, pretrained):
                   f"{method}: metrics out of [0, 1]: {r}")
         check(all(0.0 <= v <= 1.0 for v in res["summary"].values()),
               f"{method}: summary out of [0, 1]: {res['summary']}")
-        # full and fine: one program, the first epoch its warm-up, the
-        # second its capture; spmf's epochs stay eager
-        want = (0 if method == "spmf" else 1)
-        check(res["graphs"]["programs"] == want,
+        # one program a method, the first epoch its warm-up, the second
+        # its capture (spmf's too since its epoch became a program)
+        check([res["graphs"][k] for k in ("programs", "warmups",
+                                          "captures")] == [1, 1, 1],
               f"{method}: epoch programs {res['graphs']}")
     full = out["methods"]["full"]["records"]
     check(min(r["recall@20"] for r in full) >= out["recall@20_floor"],
@@ -2919,6 +3078,22 @@ def phase_parallel(torch) -> dict:
                 checked[0]["errors"]),
             "gloo_cuda": "staged through pinned host memory inside "
                          "ProcessGroupGloo; the port stages nothing itself"}
+        # the fused programs on ranks sharing the card: gloo cannot be
+        # captured, so "auto" stays unfused and fuse_period=True raises,
+        # naming the reason and the ways out
+        for name, _, _ in PAR_WORLDS[1:]:
+            for r in worlds[name]:
+                rule = r["fusion"]
+                check(rule["auto"] is False
+                      and isinstance(rule["True"], str)
+                      and "gloo" in rule["True"]
+                      and "fuse_period=False" in rule["True"],
+                      f"{name}: the fusion rule over gloo on the card: "
+                      f"{rule}")
+        check(worlds["R1"][0]["fusion"]["auto"] is True,
+              f"R=1: 'auto' does not fuse: {worlds['R1'][0]['fusion']}")
+        out["fusion_rule"] = {name: worlds[name][0]["fusion"]
+                              for name, _, _ in PAR_WORLDS}
         t0 = time.perf_counter()
         out["cli"] = phase_parallel_cli(os.path.join(root, "cli"))
         out["cli"]["wall_s"] = time.perf_counter() - t0
@@ -2944,13 +3119,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    if sys.argv[1:2] == ["--fused-trace"]:
-        # the traced fused period alone (fused_trace_in_child)
-        args = json.loads(sys.argv[3])
-        phase_fused_trace(torch, sys.argv[2], args["untraced_s"],
-                          args["untraced_call"])
-        return 0
-
     smi_line = phase_env(torch)
     phase_build()
     k1 = phase_k1(torch)
@@ -2973,6 +3141,8 @@ def main() -> int:
             launches[k] += v
         for k, v in phase_fused_evals(torch, sweep_root).items():
             launches[k] += v
+        for k, v in phase_mesh_fused(torch, sweep_root).items():
+            launches[k] += v
         p1 = phase_p1(torch)
         probe_rows = probe_eval_rows(torch)
         p3, p3_l2_rate = phase_p3(torch, probe_rows)
@@ -2992,7 +3162,7 @@ def main() -> int:
         par_launches = phase_parallel(torch)
         for k, v in par_launches.items():
             launches[k] += v
-        fused_trace_in_child(sweep_root, fused_period1_s, fused_call1)
+        phase_fused_trace(torch, sweep_root, fused_period1_s, fused_call1)
     finally:
         shutil.rmtree(sweep_root, ignore_errors=True)
 

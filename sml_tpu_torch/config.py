@@ -110,17 +110,20 @@ class SMLConfig:
     upload_dedup: bool = True
     # the fused phase and period programs (SMLEngine.phase_step /
     # period_step): each phase the unfused path's calls on fixed buffers,
-    # on the card one CUDA graph per period, captured once and replayed;
-    # the same numbers, draws and records as the unfused path.
-    # fuse_phases=False turns every fused route off. fuse_period: True
-    # fuses whole periods (on the CPU the phase function runs eagerly:
-    # its plain version; under a mesh it raises, since gloo's collectives
-    # cannot be captured); False fuses phases one by one (when
-    # fuse_phases and no in-training evals); "auto" (default) fuses on a
-    # CUDA engine and runs the eager per-phase path on the CPU and under a
-    # mesh (SMLEngine.fused_program_warm says which). No marker file: in
-    # JAX "auto" waited for a first XLA compile of minutes; a capture
-    # costs about one eager phase.
+    # on the card one CUDA graph per run, captured once and replayed; the
+    # same numbers, draws and records as the unfused path, under a mesh
+    # too. fuse_phases=False turns every fused route off. fuse_period:
+    # True fuses whole periods (on the CPU the phase function runs
+    # eagerly: its plain version; on a card under a mesh of several ranks
+    # it raises, since the programs' collectives across ranks are not
+    # captured: SMLEngine.capture_refusal);
+    # False fuses phases one by one (when fuse_phases and no in-training
+    # evals; unfused on a card under a mesh of several ranks); "auto"
+    # (default) fuses on a CUDA engine with no mesh or a mesh of one rank
+    # and runs the eager per-phase path on the CPU and on a card under a
+    # mesh of several ranks (SMLEngine.fused_program_warm says which). No
+    # marker file: in JAX "auto" waited for a first XLA compile of
+    # minutes; a capture costs about one eager phase.
     fuse_phases: bool = True
     fuse_period: bool | str = "auto"
     refresh_after_outer_epoch: bool = True

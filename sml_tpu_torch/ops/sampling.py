@@ -188,15 +188,31 @@ _DRAW_OFFSETS: Dict[Tuple, int] = {}
 
 def draw_offset(rows: int, tries: int, device) -> int:
     """The Philox offset that one :func:`sample_negatives` call on ``rows``
-    users reserves on a CUDA generator of ``device`` (measured once on a
-    scratch generator; it depends on the shape alone)."""
+    users reserves on a CUDA generator of ``device`` (it depends on the
+    shape alone)."""
+    return _reserved_offset(
+        ("draw", rows, tries), device,
+        lambda gen, dev: torch.randint(0, _DRAW_HIGH, (rows, tries),
+                                       generator=gen, device=dev))
+
+
+def rand_offset(n: int, device) -> int:
+    """The Philox offset that ``torch.rand(n)`` reserves on a CUDA
+    generator of ``device``."""
+    return _reserved_offset(
+        ("rand", n), device,
+        lambda gen, dev: torch.rand(n, generator=gen, device=dev))
+
+
+def _reserved_offset(key: tuple, device, draw) -> int:
+    """The Philox offset ``draw(generator, device)`` reserves, measured
+    once per device on a scratch generator."""
     device = torch.device(device)
-    key = (device.index, rows, tries)
+    key = (device.index, *key)
     if key not in _DRAW_OFFSETS:
         gen = torch.Generator(device=device).manual_seed(0)
         start = gen.get_offset()
-        torch.randint(0, _DRAW_HIGH, (rows, tries), generator=gen,
-                      device=device)
+        draw(gen, device)
         _DRAW_OFFSETS[key] = gen.get_offset() - start
     return _DRAW_OFFSETS[key]
 

@@ -14,6 +14,16 @@ stages CUDA tensors through pinned host buffers and reduces them on the
 CPU inside itself, so a gloo collective of CUDA tensors still crosses host
 memory. A collective that fails or outlives the group's timeout raises.
 
+Inside a CUDA graph (``train/graphs.py``) a group of one rank makes no
+collective, so a graph on a mesh of one rank is captured like any other.
+A gloo collective cannot be captured, and one on a capturing stream
+raises. An NCCL collective across ranks inside the body of a CUDA-graph
+IF node (``graphs.step_if``) makes the CUDA runtime end the capture with
+``cudaErrorInvalidValue`` (two ranks on two H100s, torch 2.11, CUDA 12.8,
+NCCL 2.28: ``python -m sml_tpu_torch.scripts.nccl_capture_probe``).
+:func:`capture_refusal` names these reasons. On the CPU nothing is
+captured: a program runs eagerly, with its collectives, on any mesh.
+
 The lookup. Every rank holds a contiguous row block of a table (block
 ``r`` of the group's ``M`` ranks: rows ``[r·n/M, (r+1)·n/M)``). A batch of
 global ids, the same on every rank of the group, is resolved by each rank
@@ -50,6 +60,46 @@ def backend_for(device: torch.device, local_world: int) -> str:
     return "gloo"
 
 
+def capture_refusal(groups, device, conditional: bool = False
+                    ) -> Optional[str]:
+    """Why a CUDA graph on ``device`` cannot hold collectives over
+    ``groups`` (inside IF-node bodies where ``conditional``), or None
+    where it can: on the CPU nothing is captured, a group of one rank makes
+    no collective; otherwise the module note's two cases."""
+    if torch.device(device).type != "cuda":
+        return None
+    for g in groups:
+        if group_size(g) == 1:
+            continue
+        if dist.get_backend(g) != "nccl":
+            return (f"a {dist.get_backend(g)} collective cannot be captured "
+                    "in a CUDA graph (the ranks share a card, so the mesh "
+                    "runs over gloo)")
+        if conditional:
+            return ("an NCCL collective across ranks inside a CUDA-graph "
+                    "IF node ends the capture with cudaErrorInvalidValue")
+    return None
+
+
+def check_same(value, what: str) -> None:
+    """Raise on every rank unless every rank of the world passed an equal
+    ``value`` (a host object; one ``all_gather_object`` over the world's
+    group). A no-op outside a world of several ranks."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, value)
+    if any(v != got[0] for v in got):
+        raise ValueError(f"the ranks disagree on {what}: {got} (by rank)")
+
+
+def _check_capture(t: torch.Tensor, group) -> None:
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        why = capture_refusal([group], t.device)
+        if why is not None:
+            raise RuntimeError(why)
+
+
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
@@ -71,6 +121,7 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over ``group`` (in place; returns ``t``)."""
     if group_size(group) == 1:
         return t
+    _check_capture(t, group)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -80,6 +131,7 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     rank's ``t`` has the same shape)."""
     if group_size(group) == 1:
         return t
+    _check_capture(t, group)
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(group_size(group))]
     dist.all_gather(out, t, group=group)
@@ -90,6 +142,7 @@ def broadcast(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     """``t`` of the group's rank ``src`` on every rank (in place)."""
     if group_size(group) == 1:
         return t
+    _check_capture(t, group)
     dist.broadcast(t, group=group, group_src=src)
     return t
 

@@ -14,8 +14,11 @@ one world over a local TCP port, with one timeout for them all.
 
 :func:`dryrun_multichip` holds one full step on an R-rank mesh to the same
 step on one rank, in three sample modes (the JAX dry run's 'alone' mode,
-replay and 'all', in place of its fused programs), and sharded serving to
-dense serving on the same tables.
+replay and 'all'), the JAX dry run's fused parts (c) (``phase_step`` with
+``mf_sample="all"``) and (d) (``period_step`` of two phases with the
+in-training evals inside) on the mesh against one rank
+(:func:`fused_parts`), and sharded serving to dense serving on the same
+tables.
 """
 
 from __future__ import annotations
@@ -196,9 +199,10 @@ def _kernel_modules():
 def full_step(device: str, spec: StepSpec) -> dict:
     """One full SML step, a test and top-K serving on this rank; see the
     module note. Returns this rank's launches per kernel, wall seconds and
-    transport, on a mesh also :func:`check_transport`'s answers (run before
-    the step), and (rank 0) the whole tables, Θ, the losses, the test's hit
-    and NDCG sums and the served scores and ids."""
+    transport, the driver's fusion rule for this engine
+    (:func:`_fusion_rule`), on a mesh also :func:`check_transport`'s
+    answers (run before the step), and (rank 0) the whole tables, Θ, the
+    losses, the test's hit and NDCG sums and the served scores and ids."""
     import torch
 
     from sml_tpu_torch.models.mf import MFParams
@@ -253,7 +257,7 @@ def full_step(device: str, spec: StepSpec) -> dict:
            "transport": ("local" if mesh is None
                          else {a: collective.transport(mesh.group(a))
                                for a in ("data", "model")}),
-           "collectives": checked}
+           "collectives": checked, "fusion": _fusion_rule(spec.cfg, eng)}
     whole = eng.whole_state(state)
     if process_index() == 0:
         out.update(
@@ -264,6 +268,22 @@ def full_step(device: str, spec: StepSpec) -> dict:
             inner_losses=il.cpu().numpy(), outer_losses=ol.cpu().numpy(),
             eval={k: (float(h), float(nd)) for k, (h, nd) in sums.items()},
             served=served, serve_users=data["serve_users"])
+    return out
+
+
+def _fusion_rule(cfg, eng) -> dict:
+    """What the driver's fusion rule makes of this engine: why its
+    programs cannot be captured (None where they can), and the route
+    ``fuse_period="auto"`` and ``True`` take (True raises where the
+    programs cannot be captured: its message)."""
+    from sml_tpu_torch.train.driver import fusion_route
+    out = {"refusal": eng.capture_refusal()}
+    for fuse in ("auto", True):
+        try:
+            out[str(fuse)] = fusion_route(
+                cfg.replace(fuse_phases=True, fuse_period=fuse), eng)
+        except ValueError as exc:
+            out[str(fuse)] = str(exc)
     return out
 
 
@@ -295,6 +315,183 @@ def check_transport(device: str) -> dict:
             "errors": {k: float((got[k].cpu() - want[k]).abs().max())
                        for k in got},
             "on_device": all(t.device == x.device for t in got.values())}
+
+
+def fused_parts(device: str, cfg_c, cfg_d, n_users: int, n_items: int,
+                data: str, mesh: Optional[tuple],
+                fused: bool = True) -> dict:
+    """The JAX dry run's fused parts on this rank (``mesh=None``: one rank
+    alone):
+
+    (c) ``snapshot_last`` then ``phase_step`` on the 'all'-mode rows
+        (``cfg_c``: ``mf_sample="all"``), then the test;
+    (d) ``snapshot_last``, the masked eval set of the test rows, then
+        ``period_step`` of two phases with the in-training evals inside
+        (``cfg_d``).
+
+    ``fused=False`` runs the same phases through the engine's per-epoch
+    calls instead (:func:`_unfused_phases`). On a mesh every rank then
+    runs them unfused, under ``"unfused"`` (the witness), and rank 0 fused
+    alone, under ``"one"``. Returns, per part, the whole tables and Θ, the
+    test's metrics (c) or the expanded eval records (d), and this rank's
+    launches; on cards under a mesh of several ranks, where the programs
+    cannot be captured, ``{"refused": why}`` instead."""
+    import torch
+
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.parallel.multihost import process_index
+    from sml_tpu_torch.parallel.sharding import make_mesh
+    from sml_tpu_torch.train.engine import SMLEngine
+    with np.load(data) as blob:
+        d = {k: blob[k] for k in blob.files}
+    out = {}
+    grid = None if mesh is None else make_mesh(*mesh)
+    counters = _kernel_modules()
+    for part, cfg in (("c", cfg_c), ("d", cfg_d)):
+        eng = SMLEngine(cfg, n_users, n_items, device=device)
+        state = (eng.init_state() if grid is None
+                 else eng.init_state_sharded(grid))
+        why = eng.capture_refusal() if fused else None
+        if why is not None:
+            out[part] = {"refused": why}
+            continue
+        state = eng.snapshot_last(state)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        val = (None if part == "c"
+               else eng.make_eval_set(d["test_rows"], build_mask=True))
+        prep_t = eng.prep_inner(d["all_inner" if part == "c"
+                                  else "inner_rows"])
+        prep_tt = eng.prep_outer(d["outer_rows"])
+        n_phases = 1 if part == "c" else 2
+        if not fused:
+            state, records = _unfused_phases(eng, state, prep_t, prep_tt,
+                                             n_phases, val)
+        elif part == "c":
+            state, il, ol = eng.phase_step(state, prep_t, prep_tt)
+            if not (torch.isfinite(il).all() and torch.isfinite(ol).all()):
+                raise AssertionError("fused part (c): a loss is not finite")
+        else:
+            state, evals, _, _ = eng.period_step(state, prep_t, prep_tt,
+                                                 n_phases, val)
+            records = eng.resolve_stacked_evals(
+                [(evals, d["test_rows"].shape[0])])[0]
+        res = ({"metrics": eng.evaluate(state.mf, d["test_rows"])}
+               if part == "c" else {"records": records})
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        res["wall_s"] = time.perf_counter() - t0
+        res["launches"] = {k: c.launches for k, c in counters.items()}
+        res["graphs"] = dict(eng.graph_stats)
+        whole = eng.whole_state(state)
+        res["user_emb"] = whole.mf.user_emb.detach().cpu().numpy()
+        res["item_emb"] = whole.mf.item_emb.detach().cpu().numpy()
+        res["theta"] = {k: p.detach().cpu().numpy().copy()
+                        for k, p in theta_leaves(whole.theta).items()}
+        eng.release_programs()
+        out[part] = res
+    if mesh is not None and fused and "refused" not in out["c"]:
+        out["unfused"] = fused_parts(device, cfg_c, cfg_d, n_users, n_items,
+                                     data, mesh, fused=False)
+        if process_index() == 0:
+            out["one"] = fused_parts(device, cfg_c, cfg_d, n_users, n_items,
+                                     data, None)
+    return out
+
+
+def _unfused_phases(eng, state, prep_t, prep_tt, n_phases: int, val):
+    """``n_phases`` SML phases through the engine's per-epoch calls, as the
+    driver's unfused phase makes them (``SMLDriver._one_phase``), with the
+    in-training evals of ``val`` (None: none). Returns the state and the
+    eval records in the order ``resolve_stacked_evals`` expands a fused
+    period's."""
+    cfg = eng.cfg
+    keys, sums = [], []
+
+    def evaluate(kind, epoch, mf):
+        if val is not None and (cfg.eval_during_inner if kind == "inner_eval"
+                                else cfg.eval_during_outer):
+            keys.append((kind, epoch))
+            sums.append(eng.evaluate_deferred(mf, val))
+    for _ in range(n_phases):
+        for e in range(cfg.mf_epochs):
+            state, _ = eng.inner_epoch(state, *prep_t)
+            evaluate("inner_eval", e, state.mf)
+        state = eng.refresh(eng.snapshot_hat(state))
+        for e in range(cfg.tr_epochs):
+            state, _ = eng.outer_epoch(state, *prep_tt)
+            if cfg.refresh_after_outer_epoch:
+                state = eng.refresh(state)
+                evaluate("outer_eval", e, state.mf)
+        if cfg.load_w_hat:
+            state = eng.load_hat_into_mf(state)
+    return state, [(k, e, m) for (k, e), m in zip(keys,
+                                                   eng.resolve_evals(sums))]
+
+
+def _metric_gap(a: dict, b: dict, n_test: int) -> tuple:
+    """Part (c)'s test metrics or part (d)'s eval records of two runs:
+    ``(hits, ndcg)``, the largest difference in hits of ``n_test`` rows
+    and in NDCG over every K (and record); raises where (d)'s records
+    differ in kind or epoch."""
+    if "metrics" in a:
+        pairs = [(a["metrics"], b["metrics"])]
+    else:
+        ra, rb = a["records"], b["records"]
+        if len(ra) != len(rb) or not ra or any(
+                (k1, e1) != (k2, e2)
+                for (k1, e1, _), (k2, e2, _) in zip(ra, rb)):
+            raise AssertionError(f"fused part (d): records {ra} vs {rb}")
+        pairs = [(m1, m2) for (_, _, m1), (_, _, m2) in zip(ra, rb)]
+    hits = max(abs(m1[k]["recall"] - m2[k]["recall"]) * n_test
+               for m1, m2 in pairs for k in m1)
+    ndcg = max(abs(m1[k]["ndcg"] - m2[k]["ndcg"])
+               for m1, m2 in pairs for k in m1)
+    return round(hits, 6), ndcg
+
+
+def check_fused_parts(result: dict, n_test: int, n_data: int) -> dict:
+    """Part (c) and (d) of a mesh (:func:`fused_parts` of its rank 0) held
+    to the same phases unfused on the mesh (the witness): tables and Θ
+    bit-equal, equal hits, NDCG within 1e-6; and to one rank: tables and Θ
+    within 1e-4 and, on a mesh of one 'data' rank, equal hits and NDCG
+    within 1e-6, as the JAX dry run holds them. A 'data' axis of several
+    ranks sums Θ's gradients in another order than one rank, so there the
+    hits against one rank are reported (``vs_one``) and held only through
+    the witness, which the unfused modes hold to one rank with equal hits.
+    Returns the largest differences; raises on a disagreement. A part the
+    mesh refused (cards under several ranks) reports its reason and is
+    not compared."""
+    refused = {p: result[p]["refused"] for p in ("c", "d")
+               if "refused" in result[p]}
+    if refused:
+        return {p: {"refused": why} for p, why in refused.items()}
+    report = {}
+    for part in ("c", "d"):
+        got = result[part]
+        wit, one = result["unfused"][part], result["one"][part]
+        delta, wit_delta = max_delta(got, one), max_delta(got, wit)
+        if max(delta.values()) >= 1e-4 or max(wit_delta.values()) != 0.0:
+            raise AssertionError(
+                f"fused part ({part}): divergence from one rank {delta}, "
+                f"from the unfused mesh {wit_delta}")
+        vs_wit, vs_one = (_metric_gap(got, wit, n_test),
+                          _metric_gap(got, one, n_test))
+        held = [("the unfused mesh", vs_wit)]
+        if n_data == 1:
+            held.append(("one rank", vs_one))
+        for who, (hits, ndcg) in held:
+            if hits != 0 or ndcg > 1e-6:
+                raise AssertionError(
+                    f"fused part ({part}): hits differ by {hits}, NDCG by "
+                    f"{ndcg} from {who}'s")
+        report[part] = {"max_delta": delta, "wall_s": got["wall_s"],
+                        "graphs": got["graphs"],
+                        "vs_one": {"hits": vs_one[0], "ndcg": vs_one[1]}}
+    report["c"]["recall@20"] = result["c"]["metrics"][20]["recall"]
+    report["d"]["records"] = len(result["d"]["records"])
+    return report
 
 
 def tiny_config(n_model: int, **kw):
@@ -372,7 +569,9 @@ def dryrun_multichip(n: int, device: str = "cuda",
     """One full step on an ``n``-rank mesh (``(2, n/2)`` for an even
     ``n >= 4``, else ``(1, n)``) against one rank, for 'alone' sampling,
     replay and 'all' mode: tables and Θ within 1e-4, equal recall at 999
-    negatives and NDCG within 1e-6; then sharded top-K serving against
+    negatives and NDCG within 1e-6; the fused parts (c) and (d) against
+    the same phases unfused on the mesh and against one rank
+    (:func:`check_fused_parts`); then sharded top-K serving against
     dense serving on the same tables (``exact`` and ``exact_bucket``):
     equal id sets per row, scores within 1e-5. Prints a line per part and
     returns the numbers; raises on any disagreement, and raises for
@@ -399,6 +598,13 @@ def dryrun_multichip(n: int, device: str = "cuda",
                                   topk_methods=("exact", "exact_bucket")))
         ranks = run_world(f"{__name__}:step_against_one_rank", n, device,
                           (specs,), timeout_s)
+        cfg_c, _, _ = tiny_config(n_model, mf_sample="all")
+        cfg_d, _, _ = tiny_config(n_model, multi_num=2,
+                                  eval_during_inner=True,
+                                  eval_during_outer=True)
+        fused = run_world(f"{__name__}:fused_parts", n, device,
+                          (cfg_c, cfg_d, n_users, n_items, base,
+                           (n_data, n_model)), timeout_s)
         for k, mode in enumerate(modes):
             got, one = ranks[0][k]
             delta = max_delta(got, one)
@@ -417,6 +623,22 @@ def dryrun_multichip(n: int, device: str = "cuda",
                   "sharded==single OK", flush=True)
             report[mode] = {"max_delta": delta, "recall@20": recall,
                             "launches": [r[k][0]["launches"] for r in ranks]}
+        report["fused"] = check_fused_parts(fused[0], 64, n_data)
+        if "refused" in report["fused"]["c"]:
+            print(f"dryrun_multichip({n}) fused parts not run on this "
+                  f"mesh: {report['fused']['c']['refused']}", flush=True)
+        else:
+            report["fused"]["launches"] = [
+                {p: r[p]["launches"] for p in ("c", "d")} for r in fused]
+            fz = report["fused"]
+            print(f"dryrun_multichip({n}) fused phase_step + 'all' mode: "
+                  f"recall@20={fz['c']['recall@20']:.3f} "
+                  f"max_delta={fz['c']['max_delta']} vs one rank "
+                  f"{fz['c']['vs_one']} fused==unfused OK", flush=True)
+            print(f"dryrun_multichip({n}) fused period_step (evals "
+                  f"in-program): {fz['d']['records']} eval records, "
+                  f"max_delta={fz['d']['max_delta']} vs one rank "
+                  f"{fz['d']['vs_one']} fused==unfused OK", flush=True)
         # (e) sharded serving against dense serving on the same tables
         report["serving"] = _serving_parity(ranks[0][0][0])
         print(f"dryrun_multichip({n}) sharded full-catalog top-8 serving: "

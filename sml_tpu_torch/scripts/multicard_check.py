@@ -7,8 +7,21 @@ cards (NCCL), or sharing cards or the CPU (gloo):
 1. every collective of ``parallel.collective`` on the ranks' devices,
    against the values it must give, with the transport it used;
 2. ``dryrun_multichip(R)``: one full step on an R-rank mesh against one
-   rank, and sharded serving against dense serving;
-3. ``python -m sml_tpu_torch sml`` as R processes against one process on a
+   rank, the fused parts (c) ``phase_step`` and (d) ``period_step`` with
+   in-program evals against one rank, and sharded serving against dense
+   serving;
+3. the fused sweep (:func:`fused_sweep_part`): ``SMLDriver`` on a
+   synthetic dataset, on cards at the Yelp widths and table sizes
+   (100,000 x 20,000, d=64, C1=10, C2=5, H=512; on the CPU at a tiny
+   size), on an R-rank ``(1, R)`` mesh unfused and fused
+   (``fuse_period="auto"``, which stays unfused on cards under a mesh of
+   several ranks, where the programs are not captured; ``True`` on the
+   CPU, where a program runs eagerly on the mesh), then fused on rank 0
+   alone (one card: captured): the
+   mesh's second sweep bit-equal to its first, and within the CLI part's
+   limits of one rank; wall per period of each run on every rank, the
+   route "auto" took and why, the graphs' counts and the transport;
+4. ``python -m sml_tpu_torch sml`` as R processes against one process on a
    seeded synthetic dataset (the final tables and each test's hits), and
    ``rank --shard`` as R processes against ``rank`` as one (the printed
    rows): :func:`cli_against_one_process`.
@@ -38,6 +51,21 @@ DATA = dict(n_users=2000, n_items=1000, n_periods=6,
 SML = ["--num-periods", "6", "--online-train-start", "2",
        "--online-test-start", "4", "--multi-num", "1", "--mf-sample",
        "alone", "--saddle-retries", "0", "--eval-scoring", "masked"]
+# the fused sweep's dataset and depth: the Yelp widths and tables (both
+# divide by 2 and 4), cut to four periods (two warm-up, two tests) of
+# 40,000 interactions and three phases a period; "tiny" for the CPU
+SWEEPS = {
+    "yelp": dict(data=dict(n_users=100_000, n_items=20_000, n_periods=4,
+                           interactions_per_period=40_000,
+                           first_test_period=2, neg_num=999, seed=3),
+                 cfg=dict(latent_dim=64, fc_hidden=512, multi_num=3)),
+    "tiny": dict(data=dict(n_users=400, n_items=200, n_periods=4,
+                           interactions_per_period=800, first_test_period=2,
+                           neg_num=49, seed=3),
+                 cfg=dict(latent_dim=16, fc_hidden=64, multi_num=3,
+                          mf_batch_size=128, tr_batch_size=64,
+                          eval_batch_size=64)),
+}
 RANK_USERS = "0,1,2,3,999,1998,1999"
 RANK_K = 20
 # R processes against one: the final tables within TABLE_ATOL; each test's
@@ -145,6 +173,140 @@ def cli_against_one_process(root: str, n: int, device: str,
     return report, failed
 
 
+def sweep_config(sweep: str):
+    """The fused sweep's configuration: ``yelp_sml()`` with the row-sparse
+    table Adam (K3), masked scoring and sampled negatives (the dataset has
+    no presampled training rows), at the sweep's widths and depth."""
+    from sml_tpu_torch.config import TransferConfig, yelp_sml
+    kw = dict(SWEEPS[sweep]["cfg"])
+    d, h = kw.pop("latent_dim"), kw.pop("fc_hidden")
+    return yelp_sml().replace(
+        latent_dim=d, transfer=TransferConfig(latent_dim=d, fc_hidden=h),
+        fast_table_adam=True, eval_scoring="masked", mf_sample="alone",
+        prefetch_periods=False, saddle_retries=0, **kw)
+
+
+def sweep_rank(device: str, cfg, spec, fused) -> dict:
+    """One rank of the fused sweep part: the sweep on the world's ``(1,
+    R)`` mesh unfused, then with ``fuse_period=fused``, then (rank 0)
+    fused on this rank alone. Per run: the wall of each period, the route
+    taken, the graphs' counts and the launches per kernel; rank 0 also
+    the whole final tables and the tests' recalls; and why the mesh's
+    programs cannot be captured here (None where they can)."""
+    import torch
+
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.dryrun import _kernel_modules
+    from sml_tpu_torch.parallel.multihost import (make_global_mesh,
+                                                  process_index)
+    from sml_tpu_torch.train.driver import SMLDriver, fusion_route
+    from sml_tpu_torch.utils.logging import MetricsLogger
+    mesh = make_global_mesh()
+    counters = _kernel_modules()
+
+    def sweep(mesh, fuse):
+        drv = SMLDriver(cfg.replace(fuse_period=fuse,
+                                    fuse_phases=fuse is not False),
+                        spec, logger=MetricsLogger(None), device=device)
+        eng = drv.engine
+        state = (eng.init_state() if mesh is None
+                 else eng.init_state_sharded(mesh))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        report = drv.run(state)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        out = {"wall_s": time.perf_counter() - t0,
+               "period_s": report.period_seconds,
+               "fused": fusion_route(drv.cfg, eng),
+               "graphs": dict(eng.graph_stats),
+               "launches": {k: c.launches for k, c in counters.items()}}
+        whole = eng.whole_state(drv.final_state)
+        drv.close()
+        if process_index() == 0:
+            out["tables"] = {f: getattr(whole.mf, f).cpu().numpy()
+                             for f in ("user_emb", "item_emb")}
+            out["tests"] = {"counts": report.test_counts,
+                            "recall": report.per_period}
+        return out
+    out = {"transport": {a: collective.transport(mesh.group(a))
+                         for a in ("data", "model")},
+           "refusal": collective.capture_refusal(
+               [mesh.group(a) for a in ("data", "model")], device,
+               conditional=True),
+           "unfused": sweep(mesh, False), "fused": sweep(mesh, fused)}
+    if process_index() == 0:
+        out["one"] = sweep(None, fused)
+    return out
+
+
+def fused_sweep_part(root: str, n: int, device: str,
+                     timeout_s: float = TIMEOUT_S) -> tuple:
+    """Part 3 (module note): ``(report, failed)``; the Yelp sizes on
+    cards, the tiny ones on the CPU."""
+    import numpy as np
+
+    from sml_tpu_torch.config import DataSpec
+    from sml_tpu_torch.data.synthetic import (SyntheticSpec,
+                                              generate_synthetic_dataset)
+    from sml_tpu_torch.parallel.dryrun import run_world
+    sweep = "yelp" if device == "cuda" else "tiny"
+    data = SWEEPS[sweep]["data"]
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(os.path.join(root, "sweep"),
+                               SyntheticSpec(**data))
+    spec = DataSpec(root=root, name="sweep", num_periods=data["n_periods"],
+                    online_train_start=0,
+                    online_test_start=data["first_test_period"],
+                    eval_neg_num=data["neg_num"])
+    data_s = time.perf_counter() - t0
+    fused = "auto" if device == "cuda" else True
+    t0 = time.perf_counter()
+    ranks = run_world(f"{__name__}:sweep_rank", n, device,
+                      (sweep_config(sweep), spec, fused), timeout_s)
+    r0 = ranks[0]
+
+    def tables_err(a, b):
+        return max(float(np.abs(a["tables"][f] - b["tables"][f]).max())
+                   for f in a["tables"])
+
+    def hit_diff(a, b):
+        t = a["tests"]
+        return max((abs(x - y) * c for k in t["recall"]
+                    for x, y, c in zip(t["recall"][k], b["tests"]["recall"][k],
+                                       t["counts"])), default=0.0)
+    rep = {"sweep": sweep, "users": data["n_users"], "items": data["n_items"],
+           "data_s": data_s, "world_s": time.perf_counter() - t0,
+           "transport": r0["transport"], "fused_route": r0["fused"]["fused"],
+           "refusal": r0["refusal"], "graphs": r0["fused"]["graphs"],
+           "one_graphs": r0["one"]["graphs"],
+           "period_s": {run: [r[run]["period_s"] for r in ranks]
+                        for run in ("unfused", "fused")},
+           "one_period_s": r0["one"]["period_s"],
+           "launches": {run: [r[run]["launches"] for r in ranks]
+                        for run in ("unfused", "fused")},
+           "fused_vs_unfused_table_err": tables_err(r0["fused"],
+                                                    r0["unfused"]),
+           "fused_vs_unfused_hit_diff": hit_diff(r0["fused"], r0["unfused"]),
+           "fused_vs_one_table_err": tables_err(r0["fused"], r0["one"]),
+           "fused_vs_one_hit_diff": hit_diff(r0["fused"], r0["one"]),
+           "tests": len(r0["fused"]["tests"]["counts"])}
+    # the programs run on the mesh eagerly on the CPU; on cards a mesh of
+    # several ranks keeps "auto" unfused, and rank 0 alone captures one
+    want_fused = device != "cuda" or n == 1
+    one_graphs = r0["one"]["graphs"]
+    failed = []
+    if (rep["fused_vs_unfused_table_err"] != 0.0
+            or rep["fused_vs_unfused_hit_diff"] != 0.0
+            or rep["fused_vs_one_table_err"] > TABLE_ATOL
+            or rep["fused_vs_one_hit_diff"] > HIT_TOL or rep["tests"] < 1
+            or rep["fused_route"] != want_fused
+            or (device == "cuda" and one_graphs["captures"] != 1)):
+        failed.append("fused_sweep")
+    return rep, failed
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("multicard_check")
     p.add_argument("--ranks", type=int, default=2)
@@ -176,6 +338,7 @@ def main(argv=None) -> int:
             "mesh": dry["mesh"], "serving_score_err": dry["serving"],
             "max_delta": {m: dry[m]["max_delta"]
                           for m in ("alone", "replay", "all")},
+            "fused": dry["fused"],
             "launches_per_rank": dry["alone"]["launches"]}
     except AssertionError as exc:
         report["dryrun"] = {"error": str(exc)}
@@ -183,6 +346,9 @@ def main(argv=None) -> int:
     report["dryrun"]["wall_s"] = time.perf_counter() - t0
     root = tempfile.mkdtemp(prefix="sml_multicard_")
     try:
+        report["fused_sweep"], sweep_failed = fused_sweep_part(
+            root, n, args.device)
+        failed += sweep_failed
         report["cli"], cli_failed = cli_against_one_process(root, n,
                                                             args.device)
         failed += cli_failed

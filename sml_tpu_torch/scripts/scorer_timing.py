@@ -74,8 +74,8 @@ def device_kernels(fn, calls: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sml_tpu_torch.utils.profiling import cupti_teardown
-    cupti_teardown()
+    from sml_tpu_torch.utils.profiling import cupti_settings
+    cupti_settings()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

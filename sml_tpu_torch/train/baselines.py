@@ -12,12 +12,15 @@ the stream bookkeeping are host-side numpy (stream logic, not compute); the
 training and evaluation run on the device. As in the JAX package, padded
 shapes are sweep-wide, per-period metrics are deferred and resolved in
 :meth:`BaselineDriver.finalize`, and a dataset that ships new-entity id
-files is evaluated with hit attribution. The full and fine epochs run
-through one :class:`~sml_tpu_torch.train.steps.PlainEpochProgram` per
-padded shape (one per run: the shapes are sweep-wide): on the card one
-capture, replayed in every epoch of every period. SPMF's epoch, whose
-batch count and draw distribution are host values per period, stays
-eager.
+files is evaluated with hit attribution. Every epoch runs through one
+program per padded shape (one per run: the shapes are sweep-wide), on the
+card one capture replayed in every epoch of every period: the full and
+fine epochs through a :class:`~sml_tpu_torch.train.steps.PlainEpochProgram`,
+SPMF's through an :class:`~sml_tpu_torch.train.steps.EpochProgram` whose
+inputs are the padded pool and its draw distribution (``cdf``, made
+eagerly from the tables before each epoch) and whose step slots cover
+``round(n_pad/B)``, the batches of the largest pool; a period's
+``round(N/B)`` batches take the first slots.
 """
 
 from __future__ import annotations
@@ -39,11 +42,14 @@ from sml_tpu_torch.ops.batching import pad_rows
 from sml_tpu_torch.ops.losses import bce_pair_loss, l2_embedding_penalty
 from sml_tpu_torch.ops.metrics import weighted_period_average
 from sml_tpu_torch.ops.sampling import (PeriodIndex, build_period_index,
+                                        draw_offset, rand_offset,
                                         sample_negatives)
 from sml_tpu_torch.train.engine import derive_seed
 from sml_tpu_torch.train.graphs import GraphSite, shape_key
 from sml_tpu_torch.train.optim import AdamState, adam_init, adam_update
-from sml_tpu_torch.train.steps import PlainEpochProgram, make_plain_mf_epoch
+from sml_tpu_torch.train.steps import (EpochProgram, PlainEpochProgram,
+                                       loss_buffer, make_plain_mf_epoch,
+                                       run_slots)
 from sml_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -115,6 +121,21 @@ def rank_sampling_probs(mf: MFParams, pairs: torch.Tensor,
     return w / torch.sum(w)
 
 
+def draw_cdf(probs: torch.Tensor) -> torch.Tensor:
+    """The cumulative distribution SPMF draws from, on ``probs``' device:
+    the scan runs on the host, in order. On the card ``torch.cumsum`` of a
+    pool-long f32 vector groups its partial sums by timing (a decoupled
+    look-back scan), so two identical runs would draw differently."""
+    return torch.cumsum(probs.cpu(), 0).to(probs.device)
+
+
+def spmf_slots(n_pad: int, batch_size: int) -> int:
+    """SPMF's step slots for a pool padded to ``n_pad`` rows: the
+    reference's ``round(N/B)`` batches (at least one) of the largest pool
+    the padding holds."""
+    return max(1, round(n_pad / batch_size))
+
+
 def spmf_draw(cdf: torch.Tensor, u01: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse-CDF draw: the first index whose cumulative weight reaches
     ``u01`` (``searchsorted`` on the left side, as ``jnp.searchsorted``),
@@ -128,8 +149,16 @@ def _make_spmf_epoch(batch_size: int, l2_u: float, l2_i: float, lr: float,
     drawn from the pool by :func:`spmf_draw` over the rank-softmax
     probabilities; negatives are rejection-sampled against the cumulative
     user history. ``epoch(mf, opt, pairs, cdf, n_batches, generator,
-    hist_index) -> (mf, opt, losses)`` in place; ``epoch.step(mf, opt, u, i,
-    j) -> (opt, loss)`` is one dense Adam step on a given triple batch."""
+    hist_index, losses=None, slots=None) -> (mf, opt, losses)`` in place;
+    ``epoch.step(mf, opt, u, i, j) -> (opt, loss)`` is one dense Adam step
+    on a given triple batch.
+
+    The epoch has ``round(P/B)`` step slots for a ``P``-row padded pool
+    (``losses`` is that long, 0 past the run's batches): eagerly the first
+    ``n_batches`` run, inside an :class:`EpochProgram` (``slots=``) the
+    slots it marks, and eager epochs on a CUDA generator skip the Philox
+    offsets of the slots they do not run (``steps.run_slots``), so the
+    eager and the replayed epochs draw alike."""
 
     def loss_fn(mfp: MFParams, u, i, j):
         pos = score_pairs(mfp, u, i)
@@ -149,13 +178,19 @@ def _make_spmf_epoch(batch_size: int, l2_u: float, l2_i: float, lr: float,
                 loss, list(tabs.values()))))
         return adam_update(mf._asdict(), grads, opt, lr=lr), loss
 
+    def per_step(device):
+        return (rand_offset(batch_size, device)
+                + draw_offset(batch_size, neg_tries, device))
+
     def epoch(mf: MFParams, opt: AdamState, pairs: torch.Tensor,
               cdf: torch.Tensor, n_batches: int, generator: torch.Generator,
-              hist_index: PeriodIndex):
+              hist_index: PeriodIndex, losses=None, slots=None):
         pairs = pairs.long()
-        losses = torch.zeros(n_batches, dtype=torch.float32,
-                             device=pairs.device)
-        for b in range(n_batches):
+        nb_max = spmf_slots(pairs.shape[0], batch_size)
+        losses = loss_buffer(losses, nb_max, pairs.device)
+
+        def one(b):
+            nonlocal opt
             u01 = torch.rand(batch_size, generator=generator,
                              device=pairs.device)
             idx = spmf_draw(cdf, u01, pairs.shape[0])
@@ -163,6 +198,8 @@ def _make_spmf_epoch(batch_size: int, l2_u: float, l2_i: float, lr: float,
             j = sample_negatives(hist_index, u, generator, neg_tries)
             opt, loss = step(mf, opt, u, i, j)
             losses[b] = loss.detach()
+        run_slots(nb_max, min(n_batches, nb_max), generator, slots, one,
+                  per_step)
         return mf, opt, losses
 
     epoch.step = step
@@ -220,7 +257,7 @@ class BaselineDriver:
         # the full / fine epoch programs by input shape, and their site
         self.site = GraphSite(self.device)
         self.graph_stats = self.site.stats
-        self._programs: Dict[tuple, PlainEpochProgram] = {}
+        self._programs: Dict[tuple, EpochProgram] = {}
 
         # cumulative user history for SPMF's negative sampler
         self._hist_pairs: List[np.ndarray] = []
@@ -361,14 +398,21 @@ class BaselineDriver:
         pairs = torch.from_numpy(pool_padded.astype(np.int64)).to(self.device)
         valid = torch.arange(n_pad, device=self.device) < n_real
         n_batches = max(1, round(n_real / self.cfg.batch_size))
+        key = ("spmf", shape_key(pairs, *hist_index))
         best20, not_chang = 0.0, 0
         for _ in range(self.cfg.epochs):
             with torch.no_grad():
-                cdf = torch.cumsum(
-                    rank_sampling_probs(self.mf, pairs, valid, n_real), 0)
-            self.mf, self.opt, _ = self._spmf_epoch(
-                self.mf, self.opt, pairs, cdf, n_batches, self.gen,
-                hist_index)
+                cdf = draw_cdf(
+                    rank_sampling_probs(self.mf, pairs, valid, n_real))
+            program = self._programs.get(key)
+            if program is None:
+                program = self._programs[key] = EpochProgram(
+                    self._spmf_epoch, self.site, self.mf, self.opt,
+                    (pairs, cdf), hist_index,
+                    spmf_slots(n_pad, self.cfg.batch_size))
+            self.mf, self.opt, _ = program.run_taken(
+                self.mf, self.opt, (pairs, cdf), hist_index, n_batches,
+                self.gen)
             if self._early_stop and test is not None:
                 not_chang += 1
                 r20 = self._recall_at_maxk(test)

@@ -33,10 +33,14 @@ whole, branch C after its unfused phase 0 (the test must score the
 post-refresh tables before the outer epochs refresh them again); the
 saddle guard replays its rule on the returned outer-loss stack, and the
 in-program evals are logged as the records the unfused path logs, in its
-order. ``fuse_period="auto"`` fuses on a CUDA engine and runs the unfused
-path on the CPU and under a mesh (``SMLEngine.fused_program_warm``);
-``True`` under a mesh raises. Every route gives the unfused path's
-numbers, draws and records. One phase program serves the whole run (on
+order. ``fuse_period="auto"`` fuses on a CUDA engine that can capture its
+programs (no mesh, or a mesh of one rank) and runs the unfused path on the
+CPU and on a card under a mesh of several ranks
+(``SMLEngine.fused_program_warm``); there ``True`` raises with the
+engine's reason (``SMLEngine.capture_refusal``), and ``False`` runs
+unfused. Under a mesh the fused programs run on the rank's row blocks, as
+the JAX package's do: on the CPU eagerly, on any mesh. Every route gives
+the unfused path's numbers, draws and records. One phase program serves the whole run (on
 the card one capture, replayed in every period; the saddle retry's new
 buffers and generator are copied into it); :meth:`SMLDriver.run` and
 :meth:`SMLDriver.close` drop it.
@@ -222,38 +226,18 @@ class SMLDriver:
             ev.record()
             self._pending_evals_done = ev
 
-    def _fusion(self) -> bool:
-        """Whether the fused programs may run: ``fuse_phases``, and
-        ``fuse_period`` True, False (phases may still fuse one by one) or
-        "auto" (the engine's route). Under a mesh only "auto" and False
-        are taken, both unfused; True raises."""
-        cfg = self.cfg
-        if not cfg.fuse_phases:
-            return False
-        if isinstance(cfg.fuse_period, str):
-            return self.engine.fused_program_warm()
-        if self.engine.mesh is not None:
-            if cfg.fuse_period:
-                raise ValueError(
-                    "fuse_period=True needs the fused period under a mesh, "
-                    "which the port does not have yet (gloo's collectives "
-                    "cannot be captured; ROADMAP §2, fused periods over "
-                    "NCCL): use fuse_period='auto' or False")
-            return False
-        return True
-
     def _can_fuse(self, val) -> bool:
         """One fused program per phase, unless in-training evals need the
         intermediate states."""
-        return self._fusion() and not (
+        return fusion_route(self.cfg, self.engine) and not (
             val is not None and (self.cfg.eval_during_inner
                                  or self.cfg.eval_during_outer))
 
     def _can_fuse_period(self, prep_tt) -> bool:
         """One fused program per period (``SMLEngine.period_step``):
         in-training evals and diagnostics ride inside it."""
-        return bool(self._fusion() and self.cfg.fuse_period
-                    and prep_tt is not None)
+        return bool(fusion_route(self.cfg, self.engine)
+                    and self.cfg.fuse_period and prep_tt is not None)
 
     def _fused_period(self, state: SMLState, prep_t, prep_tt, val,
                       n_phases: int, d_time: int = 0, start_phase: int = 0,
@@ -592,6 +576,27 @@ class SMLDriver:
         self.engine.release_programs()
         if hasattr(self.feeder, "close"):
             self.feeder.close()
+
+
+def fusion_route(cfg: SMLConfig, engine: SMLEngine) -> bool:
+    """Whether the fused programs may run: ``fuse_phases``, and
+    ``fuse_period`` True, False (phases may still fuse one by one) or
+    "auto" (the engine's route). Where the engine cannot capture its
+    programs (a card under a mesh of several ranks) False and "auto" run
+    unfused and True raises."""
+    if not cfg.fuse_phases:
+        return False
+    if isinstance(cfg.fuse_period, str):
+        return engine.fused_program_warm()
+    why = engine.capture_refusal()
+    if why is None:
+        return True
+    if cfg.fuse_period:
+        raise ValueError(
+            f"fuse_period=True cannot be run here: {why}. Set "
+            "fuse_period=False (the unfused path, the same numbers), or "
+            "run on one rank")
+    return False
 
 
 def _mean_loss(losses, n_real: int, batch_size: int) -> float:

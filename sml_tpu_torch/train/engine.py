@@ -24,7 +24,14 @@ step slots run from device tables). As the JAX package compiles its period
 program once, one phase program serves a sweep: on the card it is captured
 once as a CUDA graph and replayed in every period, whatever the period's
 row counts (``train/graphs.py``); on the CPU it runs eagerly, which is its
-plain version. No mesh: gloo's collectives cannot be captured.
+plain version. Under a mesh the program holds the rank's row blocks and
+the whole padded batch, as the unfused sharded epochs take them, with its
+collectives inside: on the CPU it runs eagerly on any mesh; on the card it
+is captured on a mesh of one rank (its collectives are local). On a card
+under a mesh of several ranks the programs refuse to run and ``"auto"``
+stays unfused: their step slots' collectives would run over gloo, which
+cannot be captured, or over NCCL inside IF nodes, which ends the capture
+(``parallel/collective.py``).
 
 Under a mesh (:meth:`SMLEngine.set_mesh`, the ``placement`` property or
 :meth:`SMLEngine.init_state_sharded`) each rank holds its row blocks of the
@@ -60,6 +67,7 @@ from sml_tpu_torch.parallel.sharding import (TableLayout, shard_rows,
                                              state_shardings)
 from sml_tpu_torch.ops.sampling import (PeriodIndex, build_period_index,
                                         sampler_stats)
+from sml_tpu_torch.parallel import collective
 from sml_tpu_torch.train import graphs
 from sml_tpu_torch.train.optim import (AdamState, BiasTable, adam_init,
                                        adam_update, copy_opt_state)
@@ -461,13 +469,29 @@ class SMLEngine:
         return state._replace(theta=theta, tr_opt=opt), losses
 
     # ---------------------------------------------------- fused programs
+    def capture_refusal(self) -> Optional[str]:
+        """Why this engine's fused programs cannot be captured, or None:
+        on the card under a mesh of several ranks, where the programs'
+        collectives run over gloo (ranks sharing a card) or over NCCL
+        inside the step slots' IF nodes. On the CPU a program runs
+        eagerly, so nothing refuses."""
+        if self.layout is None:
+            return None
+        why = collective.capture_refusal(
+            [self.layout.data_group, self.layout.model_group], self.device,
+            conditional=True)
+        return (None if why is None else
+                f"the fused programs cannot be captured on this mesh: {why}")
+
     def fused_program_warm(self) -> bool:
         """The route ``fuse_period="auto"`` takes: True (fused: each phase
-        a CUDA-graph replay) on a CUDA engine, False (the eager per-phase
-        path) on the CPU and under a mesh. The JAX package's marker file
-        avoided a first XLA compile of minutes; a capture costs about one
-        eager phase, so the port needs none."""
-        return self.device.type == "cuda" and self.mesh is None
+        a CUDA-graph replay) on a CUDA engine that can capture its
+        programs (no mesh, or a mesh of one rank), False (the eager
+        per-phase path) on the CPU and on a card under a mesh of several
+        ranks. The JAX package's marker file avoided a first XLA compile of
+        minutes; a capture costs about one eager phase, so the port needs
+        none."""
+        return self.device.type == "cuda" and self.capture_refusal() is None
 
     def _program(self, state: SMLState, prep_t, prep_tt, ev,
                  want_diag: bool) -> "_PhaseProgram":
@@ -477,11 +501,10 @@ class SMLEngine:
         ``uniform_shapes`` gives every period one shape, so a sweep makes
         one (replay mode, whose shapes differ by period, one per
         shape)."""
-        if self.mesh is not None:
+        why = self.capture_refusal()
+        if why is not None:
             raise ValueError(
-                "the fused phase and period programs do not run under a "
-                "mesh: gloo's collectives cannot be captured (ROADMAP §2, "
-                "fused periods over NCCL); use fuse_period=False")
+                f"{why}. Run unfused (fuse_period=False), or on one rank")
         key = (want_diag, ev is not None,
                graphs.shape_key(*_prep_tensors(prep_t),
                                 *_prep_tensors(prep_tt), *(ev or ())))
@@ -714,13 +737,14 @@ class SMLEngine:
             self._cache_upload(key, padded)
         return padded
 
-    def _eval_inputs(self, mf: MFParams, padded: PaddedRows):
-        """``(mf, user_rows)`` for the evaluators: single-rank, the tables
-        as they are; under a mesh the item table all-gathered over 'model'
-        and the rows' user rows read once through the collective lookup."""
+    def _eval_inputs(self, mf: MFParams, rows: torch.Tensor):
+        """``(mf, user_rows)`` for the evaluators of eval-format ``rows``:
+        single-rank, the tables as they are; under a mesh the item table
+        all-gathered over 'model' and the rows' user rows read once
+        through the collective lookup."""
         if self.layout is None:
             return mf, None
-        users = self._table_rows(mf.user_emb, padded.rows[:, 0], "user")
+        users = self._table_rows(mf.user_emb, rows[:, 0], "user")
         return (mf._replace(item_emb=self.layout.whole(mf.item_emb, "item")),
                 users)
 
@@ -771,7 +795,7 @@ class SMLEngine:
         already summed over 'data')."""
         padded = (test_rows if isinstance(test_rows, PaddedRows)
                   else self.make_eval_set(test_rows))
-        mf, users = self._eval_inputs(mf, padded)
+        mf, users = self._eval_inputs(mf, padded.rows)
         sums = self._eval(mf, padded.rows, padded.mask, padded.cand_mask,
                           user_rows=users)
         return self._sum_data(sums), max(padded.n_real, 1)
@@ -798,7 +822,7 @@ class SMLEngine:
         (I,) are 0/1 f32 tensors on the engine's device."""
         padded = (test_rows if isinstance(test_rows, PaddedRows)
                   else self.make_eval_set(test_rows))
-        mf, users = self._eval_inputs(mf, padded)
+        mf, users = self._eval_inputs(mf, padded.rows)
         out = self._eval_attr(mf, padded.rows, padded.mask, is_new_user,
                               is_new_item, padded.cand_mask,
                               user_rows=users)
@@ -921,7 +945,18 @@ class _PhaseProgram(graphs.Program):
 
     So one capture serves every period of a sweep: on the card the run
     after the engine's warm-up captures the phase, and every run from then
-    on is a replay; on the CPU it runs eagerly."""
+    on is a replay; on the CPU it runs eagerly.
+
+    Under a mesh the slot holds the rank's row blocks and the input
+    buffers the whole padded batch (every rank makes the whole batch's
+    draws and keeps its block, as the unfused sharded epochs do), the val
+    set is the rank's block over 'data', and the collectives (the
+    lookups, the sums over 'data', the evals' all-gather and sums, the
+    norms' sums) run inside the program: eagerly on the CPU, and on the
+    card on a mesh of one rank, where they are local and the program is
+    captured. Every rank must take the same step slots, or one would wait
+    in a collective another skips: :meth:`load_inputs` checks that on the
+    host before a run."""
 
     def __init__(self, eng: SMLEngine, state: SMLState, prep_t, prep_tt,
                  ev, want_diag: bool):
@@ -955,7 +990,11 @@ class _PhaseProgram(graphs.Program):
 
     def load_inputs(self, prep_t, prep_tt, ev) -> None:
         """Copy a period's prepared inputs into the program's buffers and
-        mark each epoch's real batches (``ceil(n_real/B)``) taken."""
+        mark each epoch's real batches (``ceil(n_real/B)``) taken. Under a
+        mesh every rank holds the whole batch, so the slots come from the
+        global counts; the ranks' slot counts are compared on the host
+        first, since a rank that skipped a step slot another rank takes
+        would leave that rank waiting in the step's collectives."""
         dst = [x for x in (*_prep_tensors(self.t), *_prep_tensors(self.tt),
                            *(self.ev or ())) if x is not None]
         src = [x for x in (*_prep_tensors(prep_t), *_prep_tensors(prep_tt),
@@ -967,12 +1006,20 @@ class _PhaseProgram(graphs.Program):
                 self.t_slots.host.shape[0]),
             min(num_batches(prep_tt[0].n_real, cfg.tr_batch_size),
                 self.tt_slots.host.shape[0]))
+        if self.eng.mesh is not None:
+            collective.check_same(
+                self.taken, "the step slots a phase takes (inner, outer)")
         self.t_slots.fill(self.taken[0])
         self.tt_slots.fill(self.taken[1])
 
     def _eval_into(self, buf: torch.Tensor, mf: MFParams) -> None:
+        """The val eval's sums, as ``evaluate_deferred`` makes them (under
+        a mesh: this rank's block of the set, summed over 'data')."""
+        eng = self.eng
         rows, mask, cand_mask = self.ev
-        sums = self.eng._eval(mf, rows, mask, cand_mask)
+        mf, users = eng._eval_inputs(mf, rows)
+        sums = eng._sum_data(eng._eval(mf, rows, mask, cand_mask,
+                                       user_rows=users))
         buf.copy_(torch.stack([torch.stack(sums[k]) for k in self.cfg.topk]))
 
     def _refresh(self, state: SMLState) -> None:

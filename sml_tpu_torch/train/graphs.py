@@ -49,6 +49,9 @@ The rules it keeps:
   defined), those inside each IF node apart, and takes them back; a
   replay adds the launches outside the IF nodes and those of each IF node
   whose slot the host marked taken.
+* A program under a mesh (``train/engine.py``) is captured only where
+  its collectives are local (a mesh of one rank); a gloo collective on a
+  capturing stream raises (``parallel/collective.py``).
 * A capture that fails, or a torch without IF nodes, raises; nothing runs
   the body eagerly instead.
 """

@@ -224,7 +224,12 @@ def sparse_dense_adam_update(params, state: AdamState,
     to the ``RowBlock`` its local table holds: ``sparse`` then carries the
     whole batch's global ids (every data rank's), duplicates are summed
     over all of them, and only the owned ids are fixed up, at their local
-    rows."""
+    rows. The owned ids are not cut out (a count the host would have to
+    read, which a CUDA graph cannot capture): every id keeps its place and
+    an id of another rank writes, at the first owned id's row, that row's
+    own fix-up (or, where the batch owns none, row 0's decayed value back
+    into row 0), so the tables come out as if only the owned ids were
+    written."""
     count = state.count + 1
     leaves = {name: (getattr(params, name), state.mu[name], state.nu[name])
               for name in params._fields}
@@ -236,23 +241,47 @@ def sparse_dense_adam_update(params, state: AdamState,
             p, mu, nu = leaves[name]
             g_sum = _collapse_duplicates(idx, g_rows)
             block = None if blocks is None else blocks.get(name)
+            own = None
             if block is not None:
                 local = idx - block.offset
                 own = (local >= 0) & (local < block.local)
-                idx, g_sum = local[own], g_sum[own]
-            fixes.append((leaves[name], idx, g_sum, p[idx], mu[idx],
+                idx = torch.clamp(local, 0, block.local - 1)
+            fixes.append((leaves[name], idx, own, g_sum, p[idx], mu[idx],
                           nu[idx]))
         fused_decay_adam_multi(leaves.values(), bc1, bc2, lr=lr, b1=b1,
                                b2=b2, eps=eps)
-        for (p, mu, nu), idx, g_sum, p_rows, mu_rows, nu_rows in fixes:
+        for (p, mu, nu), idx, own, g_sum, p_rows, mu_rows, nu_rows in fixes:
             mu_f = g_sum * (1 - b1) + mu_rows * b1
             nu_f = (g_sum * g_sum) * (1 - b2) + nu_rows * b2
             p_f = p_rows + (mu_f / bc1) / (
                 torch.sqrt(nu_f / bc2) + eps) * (-lr)
+            if own is not None:
+                idx, (mu_f, nu_f, p_f) = _owned_writes(
+                    own, idx, (mu_f, nu_f, p_f), (mu, nu, p))
             mu[idx] = mu_f
             nu[idx] = nu_f
             p[idx] = p_f
     return state._replace(count=count)
+
+
+def _owned_writes(own: torch.Tensor, idx: torch.Tensor, fixed, tables):
+    """The fix-up writes of a row block with every id kept in place:
+    ``(idx, values)`` where an id the block does not own (``own`` False)
+    is sent to the first owned id's row with that row's values, or, when
+    the block owns none of the ids, to row 0 with row 0's current (decayed)
+    values; duplicate writes then carry identical values."""
+    # (1,)-shaped picks: indexing by a 0-d device tensor would read it on
+    # the host, which a CUDA graph cannot capture
+    first = torch.argmax(own.to(torch.int32)).reshape(1)
+    any_own = own.any()
+    pick = idx.index_select(0, first)
+    out_idx = torch.where(own, idx,
+                          torch.where(any_own, pick, torch.zeros_like(pick)))
+    vals = []
+    for f, table in zip(fixed, tables):
+        other = torch.where(any_own, f.index_select(0, first), table[:1])
+        vals.append(torch.where(own[:, None], f, other))
+    return out_idx, vals
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, object]:

@@ -102,18 +102,48 @@ def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
     if shuffle:
         rows, mask = shuffle_real_first(generator, rows, mask)
     nb_max = rows.shape[0] // batch_size
+    losses = loss_buffer(losses, nb_max, rows.device)
+    per_step = None
+    if step_draws is not None:
+        def per_step(device):
+            return sampling.draw_offset(*step_draws, device)
+
+    def one(b):
+        nonlocal carry
+        sl = slice(b * batch_size, (b + 1) * batch_size)
+        carry, loss = step_fn(carry, rows[sl], mask[sl], generator)
+        losses[b] = loss.detach()
+    run_slots(nb_max, num_batches(n_real, batch_size), generator, slots,
+              one, per_step)
+    return carry, losses
+
+
+def loss_buffer(losses: Optional[torch.Tensor], nb_max: int, device):
+    """A zeroed ``(nb_max,)`` f32 loss vector: ``losses`` itself when
+    given (it must have that shape), else a new one."""
     if losses is None:
-        losses = torch.zeros(nb_max, dtype=torch.float32, device=rows.device)
-    elif losses.shape != (nb_max,):
+        return torch.zeros(nb_max, dtype=torch.float32, device=device)
+    if losses.shape != (nb_max,):
         raise ValueError(f"losses must be ({nb_max},), got "
                          f"{tuple(losses.shape)}")
-    else:
-        losses.zero_()
+    return losses.zero_()
+
+
+def run_slots(nb_max: int, nb_real: int, generator: torch.Generator,
+              slots: Optional[graphs.SlotTable], step, per_step=None) -> None:
+    """``step(b)`` for each of an epoch's ``nb_max`` step slots that runs:
+    under ``slots`` (inside a program) each slot is a
+    :func:`graphs.step_if`, taken where the slot table says; without, the
+    first ``nb_real``. ``per_step(device)``: the Philox offset each step
+    reserves on a CUDA generator (None: steps draw nothing). Run eagerly
+    on a CUDA generator, every step is checked to reserve exactly that and
+    the skipped slots' offsets are skipped, as a replay advances past
+    every slot (the JAX package splits ``nb_max`` keys whether or not the
+    batches run); on the CPU nothing is skipped."""
     eager_cuda = (generator.device.type == "cuda"
                   and not torch.cuda.is_current_stream_capturing())
-    per_step = (sampling.draw_offset(*step_draws, generator.device)
-                if eager_cuda and step_draws is not None else 0)
-    nb_real = num_batches(n_real, batch_size)
+    offset = (per_step(generator.device)
+              if eager_cuda and per_step is not None else 0)
     ran = 0
     for b in range(nb_max):
         gate = (graphs.step_if(slots, b) if slots is not None
@@ -121,19 +151,16 @@ def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
         with gate as run:
             if not run:
                 continue
-            sl = slice(b * batch_size, (b + 1) * batch_size)
             start = generator.get_offset() if eager_cuda else 0
-            carry, loss = step_fn(carry, rows[sl], mask[sl], generator)
-            losses[b] = loss.detach()
+            step(b)
             ran += 1
-            if eager_cuda and generator.get_offset() - start != per_step:
+            if eager_cuda and generator.get_offset() - start != offset:
                 raise RuntimeError(
                     f"a step reserved {generator.get_offset() - start} "
-                    f"Philox offsets, the skip-ahead assumes {per_step}")
-    if eager_cuda and per_step and ran < nb_max:
+                    f"Philox offsets, the skip-ahead assumes {offset}")
+    if eager_cuda and offset and ran < nb_max:
         generator.set_offset(generator.get_offset()
-                             + (nb_max - ran) * per_step)
-    return carry, losses
+                             + (nb_max - ran) * offset)
 
 
 def transferred_pair_loss(theta: TransferParams, tcfg: TransferConfig,
@@ -422,55 +449,72 @@ def make_plain_mf_epoch(batch_size: int, l2_user: float, l2_item: float,
     return epoch
 
 
-class PlainEpochProgram(graphs.Program):
-    """One plain MF epoch (:func:`make_plain_mf_epoch`'s ``epoch``) as a
-    program on fixed buffers, the counterpart of the JAX package's jitted
-    epoch: the pretrainer's and the full-retrain / fine-tune baselines'.
-    It holds its own tables and moments (shaped like the first run's) and
-    input buffers at the padded shape; :meth:`run` copies the run's state
-    and inputs in, marks the real batches' slots and fills the bias
-    corrections, runs the epoch (eagerly on the CPU; on the card the site's
-    warm-up, then one capture, then replays) and returns ``(mf, opt,
-    losses)``, ``mf`` and the moments the program's own buffers (the next
-    run overwrites them), ``losses`` a copy."""
+class EpochProgram(graphs.Program):
+    """An MF epoch ``epoch(mf, opt, *inputs, n, generator, index, losses,
+    slots)`` as a program on fixed buffers, the counterpart of the JAX
+    package's jitted epoch. It holds its own tables and moments (shaped
+    like the first run's), input buffers at the padded shapes, and a
+    :class:`~sml_tpu_torch.train.graphs.SlotTable` and
+    :class:`~sml_tpu_torch.train.optim.BiasTable` of ``slots`` step slots;
+    :meth:`run_taken` copies the run's state and inputs in, marks the
+    first ``taken`` slots and fills their bias corrections, runs the epoch
+    (eagerly on the CPU; on the card the site's warm-up, then one capture,
+    then replays) and returns ``(mf, opt, losses)``, ``mf`` and the
+    moments the program's own buffers (the next run overwrites them),
+    ``losses`` a copy. Inside the program the epoch reads its step count
+    from the slots (``n`` is 0)."""
 
     def __init__(self, epoch, site: graphs.GraphSite, mf: MFParams,
-                 opt: AdamState, padded: PaddedRows, index: PeriodIndex,
-                 batch_size: int):
+                 opt: AdamState, inputs, index: PeriodIndex, slots: int):
         super().__init__(site)
         self.epoch = epoch
         self.mf = MFParams(*(t.detach().clone() for t in mf))
         self.mu = {k: v.clone() for k, v in opt.mu.items()}
         self.nu = {k: v.clone() for k, v in opt.nu.items()}
-        self.rows, self.mask = padded.rows.clone(), padded.mask.clone()
+        self.inputs = tuple(t.clone() for t in inputs)
         self.index = PeriodIndex(*(t.clone() for t in index))
-        nb_max = self.rows.shape[0] // batch_size
-        self.batch_size = batch_size
-        self.slots = graphs.SlotTable(nb_max, site.device)
-        self.bias = BiasTable(nb_max, site.device)
-        self.losses = torch.zeros(nb_max, dtype=torch.float32,
+        self.slots = graphs.SlotTable(slots, site.device)
+        self.bias = BiasTable(slots, site.device)
+        self.losses = torch.zeros(slots, dtype=torch.float32,
                                   device=site.device)
-        self.n_real = 0
 
     def body(self, gen: torch.Generator) -> None:
         opt = AdamState(self.bias.epoch_count(0), self.mu, self.nu,
                         self.bias)
-        self.epoch(self.mf, opt, self.rows, self.mask, self.n_real, gen,
-                   self.index, self.losses, self.slots)
+        self.epoch(self.mf, opt, *self.inputs, 0, gen, self.index,
+                   self.losses, self.slots)
 
-    def run(self, mf: MFParams, opt: AdamState, padded: PaddedRows,
-            gen: torch.Generator, index: PeriodIndex):
+    def run_taken(self, mf: MFParams, opt: AdamState, inputs,
+                  index: PeriodIndex, taken: int, gen: torch.Generator):
         graphs.load_into(
-            [*self.mf, *self.mu.values(), *self.nu.values(), self.rows,
-             self.mask, *self.index],
+            [*self.mf, *self.mu.values(), *self.nu.values(), *self.inputs,
+             *self.index],
             [*mf, *(opt.mu[k] for k in self.mu),
-             *(opt.nu[k] for k in self.nu), padded.rows, padded.mask,
-             *index])
-        self.n_real = padded.n_real
-        taken = min(num_batches(padded.n_real, self.batch_size),
-                    self.slots.host.shape[0])
+             *(opt.nu[k] for k in self.nu), *inputs, *index])
+        taken = min(taken, self.slots.host.shape[0])
         self.slots.fill(taken)
         self.bias.fill(opt.count, taken)
         self.launch(gen)
         return (self.mf, AdamState(opt.count + taken, self.mu, self.nu),
                 self.losses.clone())
+
+
+class PlainEpochProgram(EpochProgram):
+    """One plain MF epoch (:func:`make_plain_mf_epoch`'s ``epoch``) as an
+    :class:`EpochProgram`: the pretrainer's and the full-retrain /
+    fine-tune baselines'. Its inputs are the padded rows and mask, its
+    slots the padded batch count; :meth:`run` takes the run's
+    ``ceil(n_real/B)`` batches."""
+
+    def __init__(self, epoch, site: graphs.GraphSite, mf: MFParams,
+                 opt: AdamState, padded: PaddedRows, index: PeriodIndex,
+                 batch_size: int):
+        super().__init__(epoch, site, mf, opt, (padded.rows, padded.mask),
+                         index, padded.rows.shape[0] // batch_size)
+        self.batch_size = batch_size
+
+    def run(self, mf: MFParams, opt: AdamState, padded: PaddedRows,
+            gen: torch.Generator, index: PeriodIndex):
+        return self.run_taken(mf, opt, (padded.rows, padded.mask), index,
+                              num_batches(padded.n_real, self.batch_size),
+                              gen)

@@ -38,7 +38,10 @@ def maybe_trace(trace_dir: Optional[str],
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-        cupti_teardown()
+        cupti_settings()
+        # CUPTI must not start over work still running on the card (see
+        # cupti_settings)
+        torch.cuda.synchronize(dev)
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"trace_{time.time_ns()}.json")
     global _open_traces
@@ -53,14 +56,29 @@ def maybe_trace(trace_dir: Optional[str],
     prof.export_chrome_trace(path)
 
 
-def cupti_teardown() -> None:
-    """Have the profiler tear CUPTI down at the end of each trace (the
-    ``TEARDOWN_CUPTI`` setting of PyTorch's Kineto): a CUDA graph with
-    conditional nodes (the fused programs, ``train/graphs.py``) captured
-    while an earlier trace's CUPTI stays attached crashes the process when
-    a later trace sees it launched (torch 2.11, CUDA 12.8 on an H100).
-    A value the caller set stays."""
-    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+def cupti_settings() -> None:
+    """The CUPTI settings of PyTorch's Kineto that a trace of the card
+    needs here: CUPTI torn down at the end of each trace
+    (``TEARDOWN_CUPTI=1``) and re-initialised lazily at the next
+    (``DISABLE_CUPTI_LAZY_REINIT`` unset); :func:`maybe_trace` also waits
+    for the card before its profiler starts.
+
+    Why (torch 2.11, CUDA 12.8, an H100): a replay of a CUDA graph with
+    conditional (IF) nodes, the fused programs of ``train/graphs.py``,
+    inside a trace died of a segmentation fault in ``cudaGraphLaunch``
+    when earlier traces had run in the process. The smallest sequence
+    that crashed: two traced blocks with work on the card (an eval set
+    made, then an attributed evaluation), a fused program captured and
+    replayed untraced, then replayed in a third trace entered while those
+    replays still ran. It crashed with every setting of the two variables
+    (teardown on or off, lazy re-initialisation on or off) as long as the
+    trace started over running work; waiting for the card first cured it
+    with teardown on, and with teardown off (CUPTI left attached while the
+    program is captured) or lazy re-initialisation off it still crashed.
+    The traces keep every kernel, those of the graph's IF-node bodies
+    too."""
+    os.environ["TEARDOWN_CUPTI"] = "1"
+    os.environ.pop("DISABLE_CUPTI_LAZY_REINIT", None)
 
 
 def annotate(name: str):

@@ -30,7 +30,9 @@ bit-equal to the same steps run eagerly; eager epochs that skip the
 Philox offsets of the slots they do not run, equal to replayed ones;
 one capture for a sweep of periods of different row counts, bit-equal
 to the unfused sweep; a fused program replayed inside a trace after an
-earlier trace.
+earlier trace, and after two (fault 8's reproducer). A fused phase
+captured on a one-rank NCCL mesh, bit-equal to its calls on the same
+mesh; SPMF's graphed epochs equal to its eager ones.
 """
 
 import json
@@ -1111,7 +1113,7 @@ def test_pool_draws_cover_the_pool_and_reserve_their_offset(card):
 def test_fused_replays_traced_after_an_earlier_trace(card, tmp_path):
     """A fused program captured after an earlier trace ended, then
     replayed inside a trace (what ``sml --profile-dir`` does for a later
-    period): the process lives on (``utils/profiling.cupti_teardown``) and
+    period): the process lives on (``utils/profiling.cupti_settings``) and
     the trace holds the replays' K1 kernels."""
     from sml_tpu_torch.utils.profiling import maybe_trace
     with maybe_trace(str(tmp_path / "first"), card):
@@ -1130,3 +1132,160 @@ def test_fused_replays_traced_after_an_earlier_trace(card, tmp_path):
     k1 = [e for e in trace["traceEvents"]
           if "transfer_rows_kernel" in e.get("name", "")]
     assert len(k1) == 2 * 6
+
+
+def test_traced_replay_after_two_traces(card, tmp_path):
+    """Fault 8's reproducer: two traced blocks with work on the card (an
+    eval set made and an attributed evaluation, as ``chip_smoke.py``'s
+    ``split_eval``), then a program with IF nodes captured and replayed
+    untraced, then replayed inside a third trace entered while those
+    replays may still run. The process lives on, every trace holds its
+    kernels (K2 in the second, the replays' K1 in the third)."""
+    from sml_tpu_torch.utils.profiling import maybe_trace
+    eng = _fused_engine(card)
+    prep_t, prep_tt, val = _fused_inputs(eng)
+    state = eng.snapshot_last(eng.init_state())
+    masks = eng.new_entity_masks(np.arange(0, 500, 7), np.arange(0, 300, 5))
+    rows = val.rows.cpu().numpy()[:100]
+    paths = []
+    with maybe_trace(str(tmp_path / "first"), card) as path:
+        padded = eng.make_eval_set(rows + 0, build_mask=True)
+        paths.append(path)
+    with maybe_trace(str(tmp_path / "second"), card) as path:
+        eng.evaluate_attributed(state.mf, padded, *masks)
+        paths.append(path)
+    state = eng.period_step(state, prep_t, prep_tt, 3, val)[0]
+    assert [eng.graph_stats[k] for k in ("warmups", "captures",
+                                         "replays")] == [1, 1, 2]
+    with maybe_trace(str(tmp_path / "third"), card) as path:
+        state = eng.period_step(state, prep_t, prep_tt, 2, val)[0]
+        paths.append(path)
+    assert eng.graph_stats["replays"] == 4
+
+    def kernels(p, name):
+        with open(p) as fh:
+            return sum(1 for e in json.load(fh)["traceEvents"]
+                       if e.get("cat") == "kernel" and name in e["name"])
+    assert kernels(paths[1], "masked_rank_gather_kernel") > 0
+    assert kernels(paths[2], "transfer_rows_kernel") == 2 * 6
+
+
+def test_captured_phase_on_an_nccl_mesh_of_one_rank(card):
+    """A world of one rank in this process, its mesh groups over NCCL: the
+    state born row-sharded on a (1, 1) mesh, three fused phases
+    (``phase_step``: the warm-up, a capture, a replay) against the same
+    phases call by call on the same mesh, from one state and generator
+    seed: tables, snapshots, Θ, moments, counts, the generator and the
+    losses bit-equal, one capture."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sml_tpu_torch.models.transfer import theta_leaves
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.multihost import init_distributed
+    from sml_tpu_torch.parallel.sharding import make_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    saved = dict(collective.WORLD)
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(1, 1)
+        assert mesh.transport == "nccl"
+        runs = []
+        for fused in (True, False):
+            eng = _fused_engine(card, eval_during_inner=False,
+                                eval_during_outer=False)
+            state = eng.init_state_sharded(mesh)
+            assert eng.fused_program_warm() and eng.capture_refusal() is None
+            prep_t, prep_tt, _ = _fused_inputs(eng)
+            losses = []
+            for _ in range(3):
+                state = eng.snapshot_last(state)
+                if fused:
+                    state, il, ol = eng.phase_step(state, prep_t, prep_tt)
+                else:
+                    for _ in range(eng.cfg.mf_epochs):
+                        state, il = eng.inner_epoch(state, *prep_t)
+                    state = eng.refresh(eng.snapshot_hat(state))
+                    for _ in range(eng.cfg.tr_epochs):
+                        state, ol = eng.outer_epoch(state, *prep_tt)
+                        state = eng.refresh(state)
+                losses.append((il.clone(), ol.clone()))
+            torch.cuda.synchronize()
+            runs.append((state, losses, dict(eng.graph_stats)))
+    finally:
+        dist.destroy_process_group()
+        collective.WORLD.clear()
+        collective.WORLD.update(saved)
+    (fs, fl, stats), (us, ul, _) = runs
+    assert [stats[k] for k in ("programs", "warmups", "captures",
+                               "replays")] == [1, 1, 1, 2]
+    for a, b in zip(fs.mf, us.mf):
+        assert torch.equal(a, b)
+    for f in ("last_user", "last_item", "hat_user", "hat_item"):
+        assert torch.equal(getattr(fs, f), getattr(us, f))
+    ta, tb = theta_leaves(fs.theta), theta_leaves(us.theta)
+    assert all(torch.equal(ta[k], tb[k]) for k in ta)
+    for opt in ("mf_opt", "tr_opt"):
+        a, b = getattr(fs, opt), getattr(us, opt)
+        assert a.count == b.count
+        for part in ("mu", "nu"):
+            for k, t in getattr(a, part).items():
+                assert torch.equal(t, getattr(b, part)[k]), (opt, part, k)
+    assert torch.equal(fs.gen.get_state(), us.gen.get_state())
+    for (fi, fo), (ui, uo) in zip(fl, ul):
+        assert torch.equal(fi, ui) and torch.equal(fo, uo)
+
+
+def test_graphed_spmf_matches_eager(card, tmp_path, monkeypatch):
+    """SPMF over three periods through its epoch program (one warm-up, one
+    capture, replays) against its epochs called eagerly: tables, moments,
+    the generator and the recalls equal."""
+    from sml_tpu_torch.config import BaselineConfig
+    from sml_tpu_torch.train import baselines
+    spec = _ragged_dataset(tmp_path)
+
+    class Eager:
+        def __init__(self, epoch, *_):
+            self.epoch = epoch
+
+        def run_taken(self, mf, opt, inputs, index, taken, gen):
+            return self.epoch(mf, opt, *inputs, taken, gen, index)
+    cfg = BaselineConfig(method="spmf", epochs=2, batch_size=64,
+                         latent_dim=16, pool_size=300,
+                         start_period=spec.online_test_start)
+    runs = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(baselines, "EpochProgram", Eager)
+        drv = baselines.BaselineDriver(cfg, spec, device=card)
+        drv.run()
+        torch.cuda.synchronize()
+        runs.append(drv)
+    g, e = runs
+    assert [g.graph_stats[k] for k in ("programs", "warmups",
+                                       "captures")] == [1, 1, 1]
+    assert g.graph_stats["replays"] >= 2
+    assert all(torch.equal(a, b) for a, b in zip(g.mf, e.mf))
+    assert g.opt.count == e.opt.count
+    for part in ("mu", "nu"):
+        for k, t in getattr(g.opt, part).items():
+            assert torch.equal(t, getattr(e.opt, part)[k]), (part, k)
+    assert torch.equal(g.gen.get_state(), e.gen.get_state())
+    assert g.recall == e.recall
+
+
+def test_spmf_draw_cdf_is_the_same_every_run(card):
+    """SPMF's draw distribution over a pool-long vector: the same bits on
+    every call, the CPU's in-order scan (``torch.cumsum`` of such a vector
+    on the card varies from run to run)."""
+    from sml_tpu_torch.train.baselines import draw_cdf
+    p = torch.rand(300_000, generator=torch.Generator(card).manual_seed(1),
+                   device=card)
+    p = p / p.sum()
+    first = draw_cdf(p)
+    assert first.device == p.device
+    assert all(torch.equal(first, draw_cdf(p)) for _ in range(5))
+    assert torch.equal(first.cpu(), torch.cumsum(p.cpu(), 0))

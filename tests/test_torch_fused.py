@@ -16,8 +16,8 @@ runs eagerly: its plain version.
   differ in the last bits); and both drivers' fused sweeps log the same
   record kinds in the same order.
 * ``resolve_stacked_evals`` with ``keep``; the ``"auto"`` rule (a CPU
-  engine and a mesh run unfused, ``fuse_period=True`` under a mesh
-  raises); resume with fused periods.
+  engine runs unfused, under a gloo mesh too, where ``fuse_period=True``
+  and ``False`` fuse); resume with fused periods.
 """
 
 import jax
@@ -32,7 +32,7 @@ from sml_tpu.train.driver import SMLDriver as JaxDriver
 from sml_tpu.train.engine import SMLEngine as JaxEngine
 from sml_tpu_torch.config import SMLConfig, TransferConfig
 from sml_tpu_torch.models.transfer import theta_leaves
-from sml_tpu_torch.train.driver import SMLDriver
+from sml_tpu_torch.train.driver import SMLDriver, fusion_route
 from sml_tpu_torch.train.engine import SMLEngine
 from sml_tpu_torch.utils import checkpoint as ckpt
 
@@ -162,7 +162,8 @@ def test_fused_routes_are_taken(synthetic_dataset, monkeypatch):
     assert calls["period_step"] == 2
     assert calls["phase_step"] == 3 + 2
     drv = SMLDriver(_cfg(), dspec, device="cpu")
-    assert not drv.engine.fused_program_warm() and not drv._fusion()
+    assert not drv.engine.fused_program_warm()
+    assert not fusion_route(drv.cfg, drv.engine)
 
 
 def _jax_cfgs(**kw):
@@ -273,29 +274,38 @@ def test_auto_rule_and_mesh(synthetic_dataset, tmp_path):
     dspec, _, _ = synthetic_dataset
     auto = SMLDriver(_cfg(), dspec, device="cpu")
     assert not auto.engine.fused_program_warm()
-    assert not auto._fusion() and not auto._can_fuse(None)
+    assert not fusion_route(auto.cfg, auto.engine)
+    assert not auto._can_fuse(None)
     forced = SMLDriver(_cfg(fuse_period=True), dspec, device="cpu")
-    assert forced._fusion() and forced._can_fuse_period(object())
+    assert fusion_route(forced.cfg, forced.engine)
+    assert forced._can_fuse_period(object())
     off = SMLDriver(_cfg(fuse_phases=False, fuse_period=True), dspec,
                     device="cpu")
-    assert not off._fusion()
+    assert not fusion_route(off.cfg, off.engine)
     from sml_tpu_torch.parallel.sharding import make_mesh
     state = forced.engine.init_state()
-    prep = forced.engine.prep_inner(np.zeros((4, 2), np.int64))
+    rows = np.zeros((4, 2), np.int64)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1)
     try:
         mesh = make_mesh(1, 1)
         for drv in (auto, forced):
             drv.engine.set_mesh(mesh)
-        assert not auto.engine.fused_program_warm() and not auto._fusion()
-        with pytest.raises(ValueError, match="NCCL"):
-            forced._can_fuse_period(object())
+        # under a gloo mesh on the CPU: "auto" stays unfused, True and
+        # False fuse (a program runs eagerly, its plain version)
+        assert not auto.engine.fused_program_warm()
+        assert not fusion_route(auto.cfg, auto.engine)
+        assert forced.engine.capture_refusal() is None
+        assert forced._can_fuse_period(object())
         unfused = SMLDriver(_cfg(fuse_period=False), dspec, device="cpu")
         unfused.engine.set_mesh(mesh)
-        assert not unfused._can_fuse(None)
-        with pytest.raises(ValueError, match="mesh"):
-            forced.engine.phase_step(state, prep, prep)
+        assert unfused._can_fuse(None) and not unfused._can_fuse_period(
+            object())
+        eng = forced.engine
+        _, il, ol = eng.phase_step(state, eng.prep_inner(rows),
+                                   eng.prep_outer(rows))
+        assert torch.isfinite(il).all() and torch.isfinite(ol).all()
+        assert eng.graph_stats["programs"] == 1
     finally:
         dist.destroy_process_group()
 

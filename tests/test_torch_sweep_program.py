@@ -13,9 +13,9 @@ eagerly: its plain version.
   losses as the JAX package's ``scan_epoch`` leaves them, in replay mode
   (rtol 1e-5, ``tests/test_torch_train.py``'s tolerance).
 * The sampler's per-period values are 0-d device tensors equal to JAX's.
-* The pretrainer and the full / fine baselines through their epoch program
-  against the same epochs called one by one: bit-equal, one program per
-  run.
+* The pretrainer and the full / fine / SPMF baselines through their epoch
+  program against the same epochs called one by one: bit-equal, one
+  program per run.
 """
 
 import numpy as np
@@ -275,6 +275,48 @@ def test_offline_baseline_program_matches_the_epoch_loop(synthetic_dataset,
     for a, b in zip(prog.mf, loop.mf):
         assert torch.equal(a, b)
     assert prog.opt.count == loop.opt.count
+    for part in ("mu", "nu"):
+        for k, t in getattr(prog.opt, part).items():
+            assert torch.equal(t, getattr(loop.opt, part)[k]), (part, k)
+    assert torch.equal(prog.gen.get_state(), loop.gen.get_state())
+
+
+class _DirectEpochs:
+    """SPMF's epochs called one by one, as the loop ran them before its
+    program: ``EpochProgram``'s interface over the bare epoch."""
+
+    def __init__(self, epoch, site, mf, opt, inputs, index, slots):
+        self.epoch = epoch
+
+    def run_taken(self, mf, opt, inputs, index, taken, gen):
+        return self.epoch(mf, opt, *inputs, taken, gen, index)
+
+
+def test_spmf_baseline_program_matches_the_epoch_loop(synthetic_dataset,
+                                                      monkeypatch):
+    """SPMF over three periods (its pool grows, so each period takes
+    another ``round(N/B)`` of the program's step slots), with the early
+    stop's evaluations: the program against the epochs called one by one,
+    bit-equal, one program for the run."""
+    dspec, _, _ = synthetic_dataset
+    cfg = BaselineConfig(method="spmf", epochs=2, batch_size=128,
+                         latent_dim=8, pool_size=400,
+                         start_period=dspec.online_test_start,
+                         early_stop=True)
+    runs = []
+    for direct in (False, True):
+        if direct:
+            monkeypatch.setattr(tbase, "EpochProgram", _DirectEpochs)
+        drv = tbase.BaselineDriver(cfg, dspec, device="cpu")
+        summary = drv.run(max_periods=3)
+        runs.append((drv, summary))
+    (prog, ps), (loop, ls) = runs
+    assert prog.graph_stats["programs"] == 1
+    assert loop.graph_stats["programs"] == 0
+    assert ps == ls and prog.recall == loop.recall
+    for a, b in zip(prog.mf, loop.mf):
+        assert torch.equal(a, b)
+    assert prog.opt.count == loop.opt.count > 0
     for part in ("mu", "nu"):
         for k, t in getattr(prog.opt, part).items():
             assert torch.equal(t, getattr(loop.opt, part)[k]), (part, k)

@@ -237,3 +237,131 @@ def sharded_topk(device, user_rows, items, k, methods, n_model):
     out["recommend"] = tuple(t.numpy() for t in recommend(
         mf, torch.arange(rows.shape[0]), k, mesh=mesh))
     return out
+
+
+class _Records:
+    """A driver logger keeping its records in memory, without their
+    wall-clock fields."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, **record):
+        for k in ("ts", "seconds", "total_seconds"):
+            record.pop(k, None)
+        self.records.append(record)
+
+    def close(self):
+        pass
+
+
+def _state_arrays(eng, state):
+    """Every leaf of the whole state as a numpy array by path (snapshots
+    upcast, exactly), the step counts and the generator's state."""
+    from sml_tpu_torch.models.transfer import theta_leaves
+    w = eng.whole_state(state)
+    out = {f"mf/{f}": t for f, t in w.mf._asdict().items()}
+    for f in ("last_user", "last_item", "hat_user", "hat_item"):
+        out[f] = getattr(w, f)
+    out.update({f"theta/{k}": p for k, p in theta_leaves(w.theta).items()})
+    for name in ("mf_opt", "tr_opt"):
+        opt = getattr(w, name)
+        for part in ("mu", "nu"):
+            out.update({f"{name}/{part}/{k}": v
+                        for k, v in getattr(opt, part).items()})
+    arr = {k: v.detach().float().cpu().numpy().copy()
+           for k, v in out.items()}
+    arr["counts"] = np.array([w.mf_opt.count, w.tr_opt.count])
+    arr["gen"] = w.gen.get_state().numpy()
+    return arr
+
+
+def _differences(a, b):
+    """The largest absolute difference of each leaf of two
+    :func:`_state_arrays` results (0.0 where they are bit-equal)."""
+    return {k: float(np.max(np.abs(a[k].astype(np.float64)
+                                   - b[k].astype(np.float64)), initial=0.0))
+            for k in a}
+
+
+def fused_drivers(device, cases, dspec, n_users, n_items, mesh_shape):
+    """For each ``(name, cfg_unfused, cfg_fused)`` of ``cases``: the
+    driver's sweep on the mesh unfused, then fused, each from a state born
+    sharded: the differences of the final whole states, whether the
+    records are equal, the retries, and the fused programs' calls."""
+    from sml_tpu_torch.train.driver import SMLDriver
+    mesh = _mesh(mesh_shape)
+    out = {}
+    for name, cfg_u, cfg_f in cases:
+        runs = []
+        for cfg in (cfg_u, cfg_f):
+            logger = _Records()
+            drv = SMLDriver(cfg, dspec, logger=logger, device=device)
+            eng = drv.engine
+            calls = {"period_step": 0, "phase_step": 0}
+            for fn in calls:
+                def counted(*a, _fn=getattr(eng, fn), _name=fn, **k):
+                    calls[_name] += 1
+                    return _fn(*a, **k)
+                setattr(eng, fn, counted)
+            report = drv.run(eng.init_state_sharded(mesh))
+            drv.close()
+            runs.append((_state_arrays(eng, drv.final_state),
+                         logger.records, report.saddle_retries_used, calls,
+                         report.per_period))
+        (su, ru, nu, cu, pu), (sf, rf, nf, cf, pf) = runs
+        out[name] = {"diff": _differences(su, sf),
+                     "records_equal": ru == rf, "records": len(rf),
+                     "kinds": sorted({r["kind"] for r in rf}),
+                     "retries": (nu, nf), "unfused_calls": cu,
+                     "fused_calls": cf, "metrics_equal": pu == pf}
+    return out
+
+
+def period_on_mesh(device, cfg, n_users, n_items, state_path, inner, outer,
+                   val_rows, mesh_shape, phases):
+    """``period_step`` from the carried state on a mesh for each count of
+    ``phases`` in turn (in-program evals of ``val_rows``, diagnostics):
+    the whole state, the loss stacks, the eval records and the norms."""
+    from sml_tpu_torch.parallel.sharding import shard_state
+    from sml_tpu_torch.train.engine import SMLEngine
+    eng = SMLEngine(cfg, n_users, n_items, device=device)
+    mesh = _mesh(mesh_shape)
+    eng.set_mesh(mesh)
+    state = shard_state(_load_state(state_path, device), mesh, n_users,
+                        n_items)
+    val = eng.make_eval_set(val_rows)
+    out = []
+    for n_phases in phases:
+        state, evals, (il, ol), diags = eng.period_step(
+            state, eng.prep_inner(inner), eng.prep_outer(outer), n_phases,
+            val, want_diag=True)
+        keep = n_phases if n_phases < cfg.multi_num else None
+        out.append({"state": _state_arrays(eng, state), "il": il.numpy(),
+                    "ol": ol.numpy(),
+                    "records": eng.resolve_stacked_evals(
+                        [(evals, val_rows.shape[0], keep)])[0],
+                    "diags": [d.numpy() for d in diags]})
+    return out
+
+
+def unequal_slots(device, cfg, n_users, n_items, rows):
+    """A fused phase whose ranks hold inputs of one padded shape but
+    different row counts (rank ``r`` the first ``rows[r]`` rows): the
+    error each rank raises, or None."""
+    from sml_tpu_torch.train.engine import SMLEngine
+    import torch.distributed as dist
+    eng = SMLEngine(cfg, n_users, n_items, device=device)
+    state = eng.init_state_sharded(_mesh((dist.get_world_size(), 1)))
+    eng.shape_targets = {"set_t": max(rows), "set_tt": max(rows)}
+    mine = rows[dist.get_rank()]
+    rng = np.random.default_rng(0)
+    pairs = np.stack([rng.integers(0, n_users, max(rows)),
+                      rng.integers(0, n_items, max(rows))], 1)[:mine]
+    try:
+        eng.phase_step(eng.snapshot_last(state), eng.prep_inner(pairs),
+                       eng.prep_outer(pairs))
+    except ValueError as exc:
+        return str(exc)
+    return None
+
