@@ -118,17 +118,19 @@ Phases, one JSON line each:
             with ``log_norms`` and ``MESH_MULTI_NUM`` phases a period (the
             sweep's 10 cut for time): the state born row-sharded on a (1, 1)
             mesh, the sweep unfused, then with the default ``"auto"``,
-            which captures the program with its collectives (local on
-            one rank; on several cards, where NCCL inside the step
-            slots' IF nodes ends the capture, ``"auto"`` stays unfused, as
-            ``scripts/multicard_check.py`` shows). The fused run against
-            the unfused
+            which captures the program with its collectives in the
+            structure a mesh of several cards captures
+            (``scripts/multicard_check.py`` runs those): each step slot
+            split at its collectives into three IF nodes, the
+            collectives (local on one rank) between them. The fused run
+            against the unfused
             one: state within ``FUSED_ATOL`` (bit equality expected),
             counts and generators equal, every phase and test record
             within ``LOSS_RTOL``, launches equal to each other and to
             those derived from the data; one program, one capture and one
-            warm-up, a replay for every other fused phase. Then the
-            process group is destroyed.
+            warm-up, a replay for every other fused phase, three IF nodes
+            per step slot (printed, with the capture's seconds). Then
+            the graphs are released and the process group destroyed.
 10. P1      every instantiation of the dense ``masked_rank_kernel`` that
             the eval-design probe ``eval_kernel_probe`` runs (rows per
             block 64 or 128, grid order ij or ji, f32 on the CUDA cores or
@@ -1620,11 +1622,12 @@ def phase_mesh_fused(torch, root: str) -> dict:
     process (its mesh groups over NCCL, the card its own), the sweep
     dataset's first ``MESH_PERIODS`` periods at the Yelp widths with
     ``log_norms`` and ``MESH_MULTI_NUM`` phases a period, on a (1, 1) mesh
-    unfused, then with the default
-    ``"auto"``, which captures the program with its collectives (local on
-    one rank). Held to the unfused run: state, counts, generators, every
-    phase and test record, launches; one program, one capture and one
-    warm-up, a replay for every other fused phase. The process group is
+    unfused, then with the default ``"auto"``, which captures the program
+    with its step slots split at their collectives (three IF nodes a
+    slot, the collectives, local on one rank, between them). Held to the
+    unfused run: state, counts, generators, every phase and test record,
+    launches; one program, one capture and one warm-up, a replay for every
+    other fused phase. The graphs are released and the process group is
     destroyed after, so that the parallel phase's worlds start clean.
     Returns the launches of both runs."""
     import socket
@@ -1637,6 +1640,7 @@ def phase_mesh_fused(torch, root: str) -> dict:
     from sml_tpu_torch.parallel import collective
     from sml_tpu_torch.parallel.multihost import init_distributed
     from sml_tpu_torch.parallel.sharding import make_mesh
+    from sml_tpu_torch.train import graphs
     from sml_tpu_torch.train.driver import fusion_route
 
     t_phase = time.perf_counter()
@@ -1677,10 +1681,13 @@ def phase_mesh_fused(torch, root: str) -> dict:
                      for a in ("data", "model")}
         backend = mesh.transport
     finally:
+        graphs.release_all()
         dist.destroy_process_group()
         collective.WORLD.clear()
         collective.WORLD.update(saved)
     u, f = runs["unfused"], runs["fused"]
+    if_nodes_per_slot = f["graphs"]["if_nodes"] / max(
+        f["graphs"]["step_slots"], 1)
     errs = state_errors(torch, f["state"], u["state"])
     # branch A fuses its period whole, branch C all but its phase 0
     fused_phases = (MESH_MULTI_NUM
@@ -1707,12 +1714,17 @@ def phase_mesh_fused(torch, root: str) -> dict:
           == [1, 1, 1, fused_phases - 1],
           f"mesh programs/captures/warm-ups/replays: {f['graphs']} for "
           f"{fused_phases} fused phases")
+    check(if_nodes_per_slot == 3,
+          f"the mesh's step slots are not split at their two cuts: "
+          f"{if_nodes_per_slot} IF nodes per slot ({f['graphs']})")
     for k in f["launches"]:
         total[k] = f["launches"][k] + u["launches"][k]
     emit({"phase": "mesh-fused", "users": N_USERS, "items": N_ITEMS,
           "periods": MESH_PERIODS, "mesh": mesh.shape, "backend": backend,
           "transport": transport, "graphs": f["graphs"],
-          "fused_phases": fused_phases, "sweep_s": f["wall_s"],
+          "fused_phases": fused_phases,
+          "if_nodes_per_slot": if_nodes_per_slot,
+          "capture_s": f["graphs"]["capture_s"], "sweep_s": f["wall_s"],
           "unfused_sweep_s": u["wall_s"], "period_s": f["period_s"],
           "unfused_period_s": u["period_s"],
           "max_abs_err_vs_unfused": errs,

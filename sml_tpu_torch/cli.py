@@ -505,10 +505,16 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from sml_tpu_torch.parallel.multihost import init_distributed
+    from sml_tpu_torch.train import graphs
     args.device = str(init_distributed(args.coordinator, args.num_processes,
                                        args.process_id, device=args.device))
     try:
-        rc = args.fn(args)
+        try:
+            rc = args.fn(args)
+        finally:
+            # the barrier and the teardown hang while a CUDA graph that
+            # holds NCCL collectives is alive
+            graphs.release_all()
         # no process leaves while a peer may still be connecting to it
         dist.barrier()
         return rc

@@ -114,14 +114,14 @@ class SMLConfig:
     # same numbers, draws and records as the unfused path, under a mesh
     # too. fuse_phases=False turns every fused route off. fuse_period:
     # True fuses whole periods (on the CPU the phase function runs
-    # eagerly: its plain version; on a card under a mesh of several ranks
-    # it raises, since the programs' collectives across ranks are not
-    # captured: SMLEngine.capture_refusal);
+    # eagerly: its plain version; it raises on a card shared by a mesh's
+    # ranks, whose gloo collectives are not captured:
+    # SMLEngine.capture_refusal);
     # False fuses phases one by one (when fuse_phases and no in-training
-    # evals; unfused on a card under a mesh of several ranks); "auto"
-    # (default) fuses on a CUDA engine with no mesh or a mesh of one rank
-    # and runs the eager per-phase path on the CPU and on a card under a
-    # mesh of several ranks (SMLEngine.fused_program_warm says which). No
+    # evals; unfused on a card under a mesh of ranks sharing it); "auto"
+    # (default) fuses on a CUDA engine with no mesh or an NCCL mesh (a
+    # card per rank) and runs the eager per-phase path on the CPU and on
+    # a card shared by the mesh's ranks (SMLEngine.fused_program_warm). No
     # marker file: in JAX "auto" waited for a first XLA compile of
     # minutes; a capture costs about one eager phase.
     fuse_phases: bool = True

@@ -17,27 +17,38 @@ memory. A collective that fails or outlives the group's timeout raises.
 Inside a CUDA graph (``train/graphs.py``) a group of one rank makes no
 collective, so a graph on a mesh of one rank is captured like any other.
 A gloo collective cannot be captured, and one on a capturing stream
-raises. An NCCL collective across ranks inside the body of a CUDA-graph
-IF node (``graphs.step_if``) makes the CUDA runtime end the capture with
+raises. An NCCL collective across ranks is captured where it sits in the
+graph's own stream order, between the IF nodes of a step slot split at
+its collectives (``train/steps.py`` ``run_slots``); inside the body of an
+IF node (``graphs.step_if``) it ends the capture with
 ``cudaErrorInvalidValue`` (two ranks on two H100s, torch 2.11, CUDA 12.8,
-NCCL 2.28: ``python -m sml_tpu_torch.scripts.nccl_capture_probe``).
-:func:`capture_refusal` names these reasons. On the CPU nothing is
-captured: a program runs eagerly, with its collectives, on any mesh.
+NCCL 2.28: ``python -m sml_tpu_torch.scripts.nccl_capture_probe``). So a
+step slot's segments run under :func:`segment`, and a collective called
+inside one raises, naming it, on every device and every group size.
+:func:`capture_refusal` refuses gloo across ranks (ranks sharing a card),
+and nothing else: the fused programs' ``"auto"`` fuses on NCCL meshes
+across cards, and only ranks that share a card stay unfused. On the CPU
+nothing is captured: a program runs eagerly, with its collectives, on any
+mesh.
 
 The lookup. Every rank holds a contiguous row block of a table (block
 ``r`` of the group's ``M`` ranks: rows ``[r·n/M, (r+1)·n/M)``). A batch of
 global ids, the same on every rank of the group, is resolved by each rank
-gathering the ids it owns, zeroing the rest and summing the ``(B, d)`` rows
-over the group: one all-reduce of the activation rows instead of moving
-table rows. The gradient is the exact transpose, a local scatter-add of the
-incoming gradient into the owned rows **with no collective**: the incoming
-gradient is already the whole loss's on every rank of the group (they all
-compute the same loss), so a second reduction would count it once per
-shard.
+gathering the ids it owns, zeroing the rest (:func:`owned_rows`) and
+summing the ``(B, d)`` rows over the group: one all-reduce of the
+activation rows instead of moving table rows. The gradient is the exact
+transpose (:func:`lookup_rows`), a local scatter-add of the incoming
+gradient into the owned rows **with no collective**: the incoming gradient
+is already the whole loss's on every rank of the group (they all compute
+the same loss), so a second reduction would count it once per shard. A
+split step takes the two halves apart: the owned rows before its cut, the
+summed rows after it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -60,24 +71,18 @@ def backend_for(device: torch.device, local_world: int) -> str:
     return "gloo"
 
 
-def capture_refusal(groups, device, conditional: bool = False
-                    ) -> Optional[str]:
+def capture_refusal(groups, device) -> Optional[str]:
     """Why a CUDA graph on ``device`` cannot hold collectives over
-    ``groups`` (inside IF-node bodies where ``conditional``), or None
-    where it can: on the CPU nothing is captured, a group of one rank makes
-    no collective; otherwise the module note's two cases."""
+    ``groups``, or None where it can: on the CPU nothing is captured, a
+    group of one rank makes no collective, and an NCCL collective across
+    ranks is captured between IF nodes; a gloo one is not captured."""
     if torch.device(device).type != "cuda":
         return None
     for g in groups:
-        if group_size(g) == 1:
-            continue
-        if dist.get_backend(g) != "nccl":
+        if group_size(g) > 1 and dist.get_backend(g) != "nccl":
             return (f"a {dist.get_backend(g)} collective cannot be captured "
                     "in a CUDA graph (the ranks share a card, so the mesh "
                     "runs over gloo)")
-        if conditional:
-            return ("an NCCL collective across ranks inside a CUDA-graph "
-                    "IF node ends the capture with cudaErrorInvalidValue")
     return None
 
 
@@ -93,11 +98,39 @@ def check_same(value, what: str) -> None:
         raise ValueError(f"the ranks disagree on {what}: {got} (by rank)")
 
 
-def _check_capture(t: torch.Tensor, group) -> None:
+# the step-slot segment this thread is running (see :func:`segment`)
+_SEGMENT = threading.local()
+
+
+@contextlib.contextmanager
+def segment(name: str):
+    """Mark the body of a split step slot's segment (``train/steps.py``
+    ``run_slots``; captured, an IF node's body): a collective called
+    inside it raises, naming it."""
+    outer = getattr(_SEGMENT, "name", None)
+    _SEGMENT.name = name
+    try:
+        yield
+    finally:
+        _SEGMENT.name = outer
+
+
+def _runs(op: str, t: torch.Tensor, group) -> bool:
+    """Whether collective ``op`` of ``t`` over ``group`` has work to do
+    (False for a group of one rank); raises inside a step slot's segment,
+    and on a capturing stream where :func:`capture_refusal` refuses."""
+    inside = getattr(_SEGMENT, "name", None)
+    if inside is not None:
+        raise RuntimeError(
+            f"{op} called inside {inside}: a step slot's collectives run at "
+            "its cuts, between its IF nodes (train/steps.py run_slots)")
+    if group_size(group) == 1:
+        return False
     if t.is_cuda and torch.cuda.is_current_stream_capturing():
         why = capture_refusal([group], t.device)
         if why is not None:
             raise RuntimeError(why)
+    return True
 
 
 def group_size(group) -> int:
@@ -119,9 +152,8 @@ def transport(group) -> str:
 
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over ``group`` (in place; returns ``t``)."""
-    if group_size(group) == 1:
+    if not _runs("all_reduce", t, group):
         return t
-    _check_capture(t, group)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -129,9 +161,8 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """The group ranks' ``t`` concatenated along dim 0, in rank order (every
     rank's ``t`` has the same shape)."""
-    if group_size(group) == 1:
+    if not _runs("all_gather", t, group):
         return t
-    _check_capture(t, group)
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(group_size(group))]
     dist.all_gather(out, t, group=group)
@@ -140,33 +171,34 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
 
 def broadcast(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     """``t`` of the group's rank ``src`` on every rank (in place)."""
-    if group_size(group) == 1:
+    if not _runs("broadcast", t, group):
         return t
-    _check_capture(t, group)
     dist.broadcast(t, group=group, group_src=src)
     return t
 
 
-def _owned_rows(table_shard, idx, group, dtype):
-    """``(rows, safe, in_range)``: the rows of ``idx`` this rank holds, 0
-    for the others, before the sum over ``group``."""
-    rows_per = table_shard.shape[0]
-    local = idx.long() - group_rank(group) * rows_per
-    in_range = (local >= 0) & (local < rows_per)
-    safe = torch.clamp(local, 0, rows_per - 1)
-    rows = torch.where(in_range[:, None], table_shard[safe].to(dtype),
-                       torch.zeros((), dtype=dtype, device=table_shard.device))
+def owned_rows(table_shard, idx, group, dtype):
+    """``(rows, safe, in_range)``: the rows of ``idx`` this rank holds in
+    ``dtype``, 0 for the others (the lookup's contribution to its sum over
+    ``group``), and where they sit in ``table_shard``. No gradient."""
+    with torch.no_grad():
+        rows_per = table_shard.shape[0]
+        local = idx.long() - group_rank(group) * rows_per
+        in_range = (local >= 0) & (local < rows_per)
+        safe = torch.clamp(local, 0, rows_per - 1)
+        rows = torch.where(in_range[:, None], table_shard[safe].to(dtype),
+                           torch.zeros((), dtype=dtype,
+                                       device=table_shard.device))
     return rows, safe, in_range
 
 
-class _CollectiveGather(torch.autograd.Function):
+class _LookupRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table_shard, idx, group, dtype):
-        rows, safe, in_range = _owned_rows(table_shard, idx, group, dtype)
+    def forward(ctx, table_shard, summed, safe, in_range):
         ctx.save_for_backward(safe, in_range)
         ctx.shape = table_shard.shape
         ctx.table_dtype = table_shard.dtype
-        return all_reduce(rows, group)
+        return summed
 
     @staticmethod
     def backward(ctx, grad_rows):
@@ -180,6 +212,14 @@ class _CollectiveGather(torch.autograd.Function):
         return grad.to(ctx.table_dtype), None, None, None
 
 
+def lookup_rows(table_shard: torch.Tensor, summed: torch.Tensor,
+                safe: torch.Tensor, in_range: torch.Tensor) -> torch.Tensor:
+    """The lookup's rows, ``summed`` (its :func:`owned_rows` summed over
+    the group), differentiable in ``table_shard``: the gradient is the
+    local scatter-add into the owned rows, with no collective."""
+    return _LookupRows.apply(table_shard, summed, safe, in_range)
+
+
 def collective_gather(table_shard: torch.Tensor, idx: torch.Tensor, group,
                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Rows ``idx`` (global ids, the same on every rank of ``group``) of a
@@ -190,18 +230,8 @@ def collective_gather(table_shard: torch.Tensor, idx: torch.Tensor, group,
     Differentiable in ``table_shard``: the gradient is the local scatter-add
     of the owned rows, with no collective."""
     dtype = table_shard.dtype if dtype is None else dtype
-    return _CollectiveGather.apply(table_shard, idx, group, dtype)
-
-
-def collective_gather_many(lookups, group,
-                           dtype: torch.dtype) -> list:
-    """:func:`collective_gather` of several ``(table_shard, idx)`` lookups
-    (no gradient) with one all-reduce for all of them: the owned rows of
-    every lookup are summed over ``group`` as one ``(sum B, d)`` tensor."""
-    with torch.no_grad():
-        parts = [_owned_rows(t, idx, group, dtype)[0] for t, idx in lookups]
-        summed = all_reduce(torch.cat(parts), group)
-    return list(summed.split([p.shape[0] for p in parts]))
+    rows, safe, in_range = owned_rows(table_shard, idx, group, dtype)
+    return lookup_rows(table_shard, all_reduce(rows, group), safe, in_range)
 
 
 def make_sharded_mf_train_step(mesh, lr: float = 0.01, l2: float = 1e-5):

@@ -50,13 +50,17 @@ def _rank_main(rank: int, n: int, store: str, device: str, target: str,
     path = os.path.join(out_dir, f"rank{rank}.pkl")
     try:
         from sml_tpu_torch.parallel.multihost import init_distributed
+        from sml_tpu_torch.train import graphs
         dev = init_distributed(store, n, rank, device=device,
                                timeout_s=timeout_s)
         # one thread per rank: worlds may run beside other work
         torch.set_num_threads(1)
         mod, fn = target.split(":")
-        result = ("ok", getattr(importlib.import_module(mod), fn)(
-            str(dev), *args))
+        try:
+            result = ("ok", getattr(importlib.import_module(mod), fn)(
+                str(dev), *args))
+        finally:
+            graphs.release_all()
         # no rank leaves while a peer may still be connecting to it
         dist.barrier()
         dist.destroy_process_group()
@@ -324,7 +328,8 @@ def fused_parts(device: str, cfg_c, cfg_d, n_users: int, n_items: int,
     alone):
 
     (c) ``snapshot_last`` then ``phase_step`` on the 'all'-mode rows
-        (``cfg_c``: ``mf_sample="all"``), then the test;
+        (``cfg_c``: ``mf_sample="all"``), twice (on the card the first is
+        the program's warm-up, the second its capture), then the test;
     (d) ``snapshot_last``, the masked eval set of the test rows, then
         ``period_step`` of two phases with the in-training evals inside
         (``cfg_d``).
@@ -334,8 +339,8 @@ def fused_parts(device: str, cfg_c, cfg_d, n_users: int, n_items: int,
     runs them unfused, under ``"unfused"`` (the witness), and rank 0 fused
     alone, under ``"one"``. Returns, per part, the whole tables and Θ, the
     test's metrics (c) or the expanded eval records (d), and this rank's
-    launches; on cards under a mesh of several ranks, where the programs
-    cannot be captured, ``{"refused": why}`` instead."""
+    launches; on cards under a mesh of ranks sharing a card (gloo), where
+    the programs cannot be captured, ``{"refused": why}`` instead."""
     import torch
 
     from sml_tpu_torch.models.transfer import theta_leaves
@@ -364,14 +369,17 @@ def fused_parts(device: str, cfg_c, cfg_d, n_users: int, n_items: int,
         prep_t = eng.prep_inner(d["all_inner" if part == "c"
                                   else "inner_rows"])
         prep_tt = eng.prep_outer(d["outer_rows"])
-        n_phases = 1 if part == "c" else 2
+        n_phases = 2
         if not fused:
             state, records = _unfused_phases(eng, state, prep_t, prep_tt,
                                              n_phases, val)
         elif part == "c":
-            state, il, ol = eng.phase_step(state, prep_t, prep_tt)
-            if not (torch.isfinite(il).all() and torch.isfinite(ol).all()):
-                raise AssertionError("fused part (c): a loss is not finite")
+            for _ in range(n_phases):
+                state, il, ol = eng.phase_step(state, prep_t, prep_tt)
+                if not (torch.isfinite(il).all()
+                        and torch.isfinite(ol).all()):
+                    raise AssertionError("fused part (c): a loss is not "
+                                         "finite")
         else:
             state, evals, _, _ = eng.period_step(state, prep_t, prep_tt,
                                                  n_phases, val)
@@ -461,7 +469,7 @@ def check_fused_parts(result: dict, n_test: int, n_data: int) -> dict:
     hits against one rank are reported (``vs_one``) and held only through
     the witness, which the unfused modes hold to one rank with equal hits.
     Returns the largest differences; raises on a disagreement. A part the
-    mesh refused (cards under several ranks) reports its reason and is
+    mesh refused (ranks sharing a card) reports its reason and is
     not compared."""
     refused = {p: result[p]["refused"] for p in ("c", "d")
                if "refused" in result[p]}
@@ -624,6 +632,14 @@ def dryrun_multichip(n: int, device: str = "cuda",
             report[mode] = {"max_delta": delta, "recall@20": recall,
                             "launches": [r[k][0]["launches"] for r in ranks]}
         report["fused"] = check_fused_parts(fused[0], 64, n_data)
+        # each rank's parts: on the card captured once (after the warm-up
+        # phase), on the CPU run eagerly
+        captures = {(r, p): res[p]["graphs"]["captures"]
+                    for r, res in enumerate(fused) for p in ("c", "d")
+                    if "refused" not in res[p]}
+        if any(c != int(device == "cuda") for c in captures.values()):
+            raise AssertionError(f"fused parts' captures by (rank, part): "
+                                 f"{captures}")
         if "refused" in report["fused"]["c"]:
             print(f"dryrun_multichip({n}) fused parts not run on this "
                   f"mesh: {report['fused']['c']['refused']}", flush=True)

@@ -18,9 +18,9 @@ it. The placement rule is the JAX package's:
   ``[d·n/D, (d+1)·n/D)``.
 
 Without GSPMD the epochs cannot follow the data by themselves: what XLA
-inserts, :class:`TableLayout` writes out (lookups through
-:func:`~sml_tpu_torch.parallel.collective.collective_gather`, gradients
-and losses reduced over 'data' only, see ``train/steps.py``).
+inserts, :class:`TableLayout` writes out (lookups through the collective
+lookup of ``parallel/collective.py``, gradients and losses reduced over
+'data' only, see ``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -32,8 +32,6 @@ import torch.distributed as dist
 
 from sml_tpu_torch.models.mf import MFParams
 from sml_tpu_torch.parallel import collective
-from sml_tpu_torch.parallel.collective import (collective_gather,
-                                              collective_gather_many)
 
 AXES = ("data", "model")
 
@@ -223,31 +221,56 @@ class TableLayout:
     def data_slice(self, n: int) -> slice:
         return data_slice(n, self.mesh)
 
-    def rows(self, table: torch.Tensor, idx: torch.Tensor, side: str,
-             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """Rows ``idx`` (global ids) of a ``side`` table: through
-        :func:`collective_gather` where it is sharded, by plain indexing
-        where it is replicated; differentiable in ``table`` either way."""
-        if self.sharded(side):
-            return collective_gather(table, idx, self.model_group, dtype)
-        rows = table[idx.long()]
-        return rows if dtype is None else rows.to(dtype)
+    def owned_into(self, out: torch.Tensor, lookups) -> list:
+        """The half of a lookup before its sum over 'model': this rank's
+        rows of each sharded ``(table, idx, side)`` lookup (0 where another
+        rank owns the id) written into ``out``, one block after another.
+        Returns, per lookup, its rows' ``(safe, in_range)``, or None where
+        its side is replicated. No gradient."""
+        owned, k = [], 0
+        for table, idx, side in lookups:
+            if not self.sharded(side):
+                owned.append(None)
+                continue
+            rows, safe, in_range = collective.owned_rows(
+                table, idx, self.model_group, out.dtype)
+            out[k:k + rows.shape[0]].copy_(rows)
+            k += rows.shape[0]
+            owned.append((safe, in_range))
+        if k != out.shape[0]:
+            raise ValueError(f"{k} owned rows for a buffer of "
+                             f"{out.shape[0]}")
+        return owned
+
+    def rows_from(self, lookups, summed: torch.Tensor, owned) -> list:
+        """The half after the sum: the rows of every lookup, the sharded
+        ones from ``summed`` (:meth:`owned_into`'s buffer summed over
+        'model'; ``owned`` its result), the replicated ones by indexing,
+        in ``summed``'s dtype. A lookup whose table requires a gradient is
+        differentiable in it (for a sharded side the local scatter-add,
+        with no collective)."""
+        out, k = [], 0
+        for (table, idx, _), mine in zip(lookups, owned):
+            if mine is None:
+                out.append(table[idx.long()].to(summed.dtype))
+                continue
+            rows = summed[k:k + idx.shape[0]]
+            k += idx.shape[0]
+            out.append(collective.lookup_rows(table, rows, *mine)
+                       if table.requires_grad else rows)
+        return out
 
     def rows_many(self, lookups, dtype: torch.dtype = torch.float32):
         """Rows of several ``(table, idx, side)`` lookups in ``dtype`` (no
         gradient), the sharded ones through one all-reduce over 'model'."""
-        out = [None] * len(lookups)
-        sharded = [k for k, (_, _, side) in enumerate(lookups)
-                   if self.sharded(side)]
-        got = (collective_gather_many(
-            [lookups[k][:2] for k in sharded], self.model_group, dtype)
-            if sharded else [])
-        for k, rows in zip(sharded, got):
-            out[k] = rows
-        for k, (table, idx, side) in enumerate(lookups):
-            if out[k] is None:
-                out[k] = table[idx.long()].to(dtype)
-        return out
+        n = sum(idx.shape[0] for _, idx, side in lookups
+                if self.sharded(side))
+        buf = torch.zeros((n, lookups[0][0].shape[1]), dtype=dtype,
+                          device=lookups[0][0].device)
+        owned = self.owned_into(buf, lookups)
+        if n:
+            collective.all_reduce(buf, self.model_group)
+        return self.rows_from(lookups, buf, owned)
 
     def whole(self, table: torch.Tensor, side: str) -> torch.Tensor:
         """The whole ``side`` table on every rank (all-gathered over
@@ -259,18 +282,14 @@ class TableLayout:
     def sum_data(self, t: torch.Tensor) -> torch.Tensor:
         return collective.all_reduce(t, self.data_group)
 
-    def gather_data(self, parts) -> list:
-        """Each of ``parts`` (tensors of one dtype and trailing shape, each
-        this rank's block of a batch) as the whole batch, the data ranks'
-        blocks in order: one all-gather over 'data' for all of them."""
-        d = self.mesh.shape["data"]
-        if d == 1:
-            return list(parts)
-        sizes = [p.shape[0] for p in parts]
-        got = collective.all_gather(torch.cat(parts), self.data_group)
-        per_rank = got.split(sum(sizes))
-        return [torch.cat([r.split(sizes)[k] for r in per_rank])
-                for k in range(len(parts))]
+    def gather_data(self, flat: torch.Tensor, parts: int) -> list:
+        """``flat``, this rank's blocks of ``parts`` equal parts of a batch
+        one after another, as the whole batch's parts: one all-gather over
+        'data', each part the data ranks' blocks in order."""
+        per_rank = collective.all_gather(flat, self.data_group).chunk(
+            self.mesh.shape["data"])
+        return [torch.cat([r.chunk(parts)[k] for r in per_rank])
+                for k in range(parts)]
 
     def sum_rows(self, t: torch.Tensor, side: str) -> torch.Tensor:
         """A sum over a ``side`` leaf's local rows, summed over 'model'

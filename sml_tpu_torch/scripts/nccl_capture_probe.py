@@ -14,12 +14,14 @@ same work that sets up the communicator and its buffers:
   plain         the same through ``graphs.CapturedCall`` (thread-local
                 mode, a side stream), as the fused programs are captured;
   if            two step slots (``graphs.step_if``), each an IF node whose
-                body holds its work and its all-reduce, as a step slot of
-                the fused programs holds its collectives;
+                body holds its work and its all-reduce (the capture ends
+                with ``cudaErrorInvalidValue`` on H100s);
   split         the same two slots each split around the collective: an
                 IF node for the work before it, the all-reduce outside
                 any IF node over the slot's contribution (zero where the
-                slot is skipped), an IF node for the work after it.
+                slot is skipped), an IF node for the work after it, as the
+                fused programs split their step slots
+                (``train/steps.py`` ``run_slots``).
 
 A captured case is replayed with 1, 0, 2 and 1 of its slots taken, and
 every rank checks each replay's values against the eager version's.

@@ -34,12 +34,13 @@ post-refresh tables before the outer epochs refresh them again); the
 saddle guard replays its rule on the returned outer-loss stack, and the
 in-program evals are logged as the records the unfused path logs, in its
 order. ``fuse_period="auto"`` fuses on a CUDA engine that can capture its
-programs (no mesh, or a mesh of one rank) and runs the unfused path on the
-CPU and on a card under a mesh of several ranks
+programs (no mesh, or an NCCL mesh: a card per rank) and runs the unfused
+path on the CPU and on a card shared by a mesh's ranks
 (``SMLEngine.fused_program_warm``); there ``True`` raises with the
 engine's reason (``SMLEngine.capture_refusal``), and ``False`` runs
 unfused. Under a mesh the fused programs run on the rank's row blocks, as
-the JAX package's do: on the CPU eagerly, on any mesh. Every route gives
+the JAX package's do: on the CPU eagerly, on any mesh; on cards captured,
+each step slot split at its collectives. Every route gives
 the unfused path's numbers, draws and records. One phase program serves the whole run (on
 the card one capture, replayed in every period; the saddle retry's new
 buffers and generator are copied into it); :meth:`SMLDriver.run` and
@@ -582,7 +583,7 @@ def fusion_route(cfg: SMLConfig, engine: SMLEngine) -> bool:
     """Whether the fused programs may run: ``fuse_phases``, and
     ``fuse_period`` True, False (phases may still fuse one by one) or
     "auto" (the engine's route). Where the engine cannot capture its
-    programs (a card under a mesh of several ranks) False and "auto" run
+    programs (a card shared by a mesh's ranks) False and "auto" run
     unfused and True raises."""
     if not cfg.fuse_phases:
         return False

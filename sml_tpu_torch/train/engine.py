@@ -27,11 +27,11 @@ row counts (``train/graphs.py``); on the CPU it runs eagerly, which is its
 plain version. Under a mesh the program holds the rank's row blocks and
 the whole padded batch, as the unfused sharded epochs take them, with its
 collectives inside: on the CPU it runs eagerly on any mesh; on the card it
-is captured on a mesh of one rank (its collectives are local). On a card
-under a mesh of several ranks the programs refuse to run and ``"auto"``
-stays unfused: their step slots' collectives would run over gloo, which
-cannot be captured, or over NCCL inside IF nodes, which ends the capture
-(``parallel/collective.py``).
+is captured on an NCCL mesh (a card per rank, or one rank), each step slot
+split at its collectives (``train/steps.py`` ``run_slots``: an IF node for
+each segment, the collectives between them, in every slot). Only ranks
+that share a card refuse: their mesh runs over gloo, which cannot be
+captured, so ``"auto"`` stays unfused there (``parallel/collective.py``).
 
 Under a mesh (:meth:`SMLEngine.set_mesh`, the ``placement`` property or
 :meth:`SMLEngine.init_state_sharded`) each rank holds its row blocks of the
@@ -471,24 +471,22 @@ class SMLEngine:
     # ---------------------------------------------------- fused programs
     def capture_refusal(self) -> Optional[str]:
         """Why this engine's fused programs cannot be captured, or None:
-        on the card under a mesh of several ranks, where the programs'
-        collectives run over gloo (ranks sharing a card) or over NCCL
-        inside the step slots' IF nodes. On the CPU a program runs
+        on the card under a mesh whose ranks share a card, where the
+        programs' collectives run over gloo. On the CPU a program runs
         eagerly, so nothing refuses."""
         if self.layout is None:
             return None
         why = collective.capture_refusal(
-            [self.layout.data_group, self.layout.model_group], self.device,
-            conditional=True)
+            [self.layout.data_group, self.layout.model_group], self.device)
         return (None if why is None else
                 f"the fused programs cannot be captured on this mesh: {why}")
 
     def fused_program_warm(self) -> bool:
         """The route ``fuse_period="auto"`` takes: True (fused: each phase
         a CUDA-graph replay) on a CUDA engine that can capture its
-        programs (no mesh, or a mesh of one rank), False (the eager
-        per-phase path) on the CPU and on a card under a mesh of several
-        ranks. The JAX package's marker file avoided a first XLA compile of
+        programs (no mesh, or an NCCL mesh), False (the eager per-phase
+        path) on the CPU and on a card under a mesh of ranks sharing it.
+        The JAX package's marker file avoided a first XLA compile of
         minutes; a capture costs about one eager phase, so the port needs
         none."""
         return self.device.type == "cuda" and self.capture_refusal() is None
@@ -516,7 +514,10 @@ class SMLEngine:
         return prog
 
     def release_programs(self) -> None:
-        """Drop the phase programs (their graphs and buffers)."""
+        """Drop the phase programs, their graphs released at once
+        (``graphs.Program.release``), and their buffers."""
+        for prog in self._programs.values():
+            prog.release()
         self._programs.clear()
 
     def phase_step(self, state: SMLState, prep_t, prep_tt):
@@ -953,10 +954,10 @@ class _PhaseProgram(graphs.Program):
     set is the rank's block over 'data', and the collectives (the
     lookups, the sums over 'data', the evals' all-gather and sums, the
     norms' sums) run inside the program: eagerly on the CPU, and on the
-    card on a mesh of one rank, where they are local and the program is
-    captured. Every rank must take the same step slots, or one would wait
-    in a collective another skips: :meth:`load_inputs` checks that on the
-    host before a run."""
+    card captured over NCCL, the step slots' collectives at their cuts,
+    between the slots' IF nodes, in every slot. The ranks must still agree
+    on the slots they take: :meth:`load_inputs` checks that on the host
+    before a run."""
 
     def __init__(self, eng: SMLEngine, state: SMLState, prep_t, prep_tt,
                  ev, want_diag: bool):
@@ -994,7 +995,8 @@ class _PhaseProgram(graphs.Program):
         mesh every rank holds the whole batch, so the slots come from the
         global counts; the ranks' slot counts are compared on the host
         first, since a rank that skipped a step slot another rank takes
-        would leave that rank waiting in the step's collectives."""
+        would sum its zeros into that rank's step (and an unfused rank
+        would leave it waiting in the step's collectives)."""
         dst = [x for x in (*_prep_tensors(self.t), *_prep_tensors(self.tt),
                            *(self.ev or ())) if x is not None]
         src = [x for x in (*_prep_tensors(prep_t), *_prep_tensors(prep_tt),

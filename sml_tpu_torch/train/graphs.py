@@ -49,9 +49,14 @@ The rules it keeps:
   defined), those inside each IF node apart, and takes them back; a
   replay adds the launches outside the IF nodes and those of each IF node
   whose slot the host marked taken.
-* A program under a mesh (``train/engine.py``) is captured only where
-  its collectives are local (a mesh of one rank); a gloo collective on a
-  capturing stream raises (``parallel/collective.py``).
+* A program under a mesh (``train/engine.py``) is captured over NCCL:
+  each step slot is split at its collectives (``train/steps.py``
+  ``run_slots``), one IF node per segment on the slot's predicate and the
+  collectives between them in the graph's own stream order (an NCCL
+  collective inside an IF node's body ends the capture); a gloo
+  collective on a capturing stream raises (``parallel/collective.py``).
+  A world's barrier or teardown hangs while a graph holding NCCL
+  collectives is alive, so a process calls :func:`release_all` first.
 * A capture that fails, or a torch without IF nodes, raises; nothing runs
   the body eagerly instead.
 """
@@ -59,6 +64,7 @@ The rules it keeps:
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 import weakref
 from typing import Callable, Dict, List, Optional, Sequence
@@ -70,6 +76,8 @@ from sml_tpu_torch import _build
 
 # the captures in progress (a :class:`_Capture` each, innermost last)
 _CAPTURES: List["_Capture"] = []
+# every live program of the process, for :func:`release_all`
+_PROGRAMS: "weakref.WeakSet[Program]" = weakref.WeakSet()
 _THREAD_LOCAL = 1          # cudaStreamCaptureModeThreadLocal
 
 
@@ -77,7 +85,9 @@ class _Capture:
     """What a capture in progress keeps for its IF nodes: the stream their
     bodies are captured on, the memory pool their allocations come from
     (the graph's own pool takes the capture stream's), how often it was
-    opened, and the launches recorded inside each body with its slot."""
+    opened (one IF node each), the step slots they split (their first
+    segments), and the launches recorded inside each body with its
+    slot."""
 
     def __init__(self, device: torch.device):
         for name in ("_cuda_beginAllocateCurrentStreamToPool",
@@ -91,6 +101,7 @@ class _Capture:
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.opened = 0
+        self.step_slots = 0
         self.conditional = []
 
     def release(self) -> None:
@@ -125,14 +136,17 @@ class SlotTable:
 
 
 @contextlib.contextmanager
-def step_if(slots: SlotTable, b: int):
-    """Run a step slot's body where slot ``b`` is taken: yields whether to
-    run it. Captured (the slots on a capturing stream, inside a
+def step_if(slots: SlotTable, b: int, segment: int = 0):
+    """Run a step slot's body (its ``segment``-th, for a slot split at its
+    collectives) where slot ``b`` is taken: yields whether to run it.
+    Captured (the slots on a capturing stream, inside a
     :class:`CapturedCall`), the body is recorded on the capture's body
     stream into an IF node on ``slots.dev[b]`` (``csrc/graph_if.cu``;
     yields True) and its launches are set apart for the replays whose host
     slot is taken; eagerly, yields the host's flag. Nothing the body
-    allocates may be read after it: a skipped body writes nothing."""
+    allocates may be read after it but by a later IF node of the same slot
+    (a skipped body writes nothing), and no collective may run inside it
+    (``train/steps.py`` ``run_slots`` splits a slot at its collectives)."""
     if not (slots.dev.is_cuda and torch.cuda.is_current_stream_capturing()):
         yield bool(slots.host[b])
         return
@@ -144,6 +158,7 @@ def step_if(slots: SlotTable, b: int):
     _build.check(lib.sml_if_begin(parent.cuda_stream, cap.stream.cuda_stream,
                                   slots.dev[b].data_ptr(), _THREAD_LOCAL),
                  "sml_if_begin")
+    cap.step_slots += segment == 0
     wrappers = list(_build.COUNTED)
     before = [w.launches for w in wrappers]
     try:
@@ -208,6 +223,8 @@ class CapturedCall:
                 fn()
         finally:
             _CAPTURES.pop()
+        self.if_nodes, self.step_slots = (self.capture.opened,
+                                          self.capture.step_slots)
         # nothing ran: the launches belong to the replays
         self.launches = []
         for w, b in zip(wrappers, before):
@@ -231,14 +248,21 @@ class CapturedCall:
                 for w, n in inside:
                     w.launches += n
 
+    def release(self) -> None:
+        """Free the graph and its IF bodies' pool now, whoever still holds
+        this object; it is not replayed again."""
+        self.graph.reset()
+        self.capture.release()
 
 
 def new_stats() -> Dict[str, float]:
     """The counts a :class:`GraphSite` keeps: programs made, eager warm-up
-    runs on the capture stream, captures, replays, and the host seconds
-    spent in warm-ups and captures."""
+    runs on the capture stream, captures, replays, the host seconds spent
+    in warm-ups and captures, and the captures' IF nodes and the step
+    slots they belong to."""
     return {"programs": 0, "warmups": 0, "captures": 0, "replays": 0,
-            "warmup_s": 0.0, "capture_s": 0.0}
+            "warmup_s": 0.0, "capture_s": 0.0, "if_nodes": 0,
+            "step_slots": 0}
 
 
 class GraphSite:
@@ -271,6 +295,7 @@ class Program:
         self.own = torch.Generator(device=site.device)
         self.call: Optional[CapturedCall] = None
         site.stats["programs"] += 1
+        _PROGRAMS.add(self)
 
     def body(self, gen: torch.Generator) -> None:
         raise NotImplementedError
@@ -293,8 +318,29 @@ class Program:
                                      site.stream(), generators=(self.own,))
             stats["captures"] += 1
             stats["capture_s"] += time.perf_counter() - t0
+            stats["if_nodes"] += self.call.if_nodes
+            stats["step_slots"] += self.call.step_slots
         self.call.replay(sources=(gen,))
         stats["replays"] += 1
+
+    def release(self) -> None:
+        """Free the captured graph now (a later launch captures anew)."""
+        if self.call is not None:
+            self.call.release()
+            self.call = None
+
+
+def release_all() -> None:
+    """Free every live program's graph (:meth:`Program.release`), collect
+    the garbage and wait for the card: a process does this before its
+    world's barrier or teardown, which hang while a graph that holds NCCL
+    collectives is alive (the programs form reference cycles with their
+    engines, so dropping a reference is not enough)."""
+    for prog in list(_PROGRAMS):
+        prog.release()
+    gc.collect()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def shape_key(*tensors) -> tuple:

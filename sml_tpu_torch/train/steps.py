@@ -47,11 +47,26 @@ the JAX package:
   count; Θ's and the dense tables' gradients and the loss are summed over
   'data' only (the model ranks compute the same loss, so a sum over
   'model' would count it M times);
-* model axis: table and snapshot rows come through the collective lookup,
-  whose gradient is a local scatter-add;
+* model axis: table and snapshot rows come through the collective lookup
+  (one all-reduce for all six lookups of a step), whose gradient is a
+  local scatter-add;
 * row-sparse table Adam: the per-row gradients are all-gathered over
   'data' in the single-rank order before the duplicate sums, then each
   rank decays its own rows (K3) and fixes up the ids it owns.
+
+A sharded step is split at its collectives (:class:`Cut`): it is a
+generator that writes a cut's contribution buffers, yields the cut and
+gets the cut's result back, and :func:`run_slots` runs each segment
+between two cuts where the slot is taken (inside a program: an IF node of
+its own on the slot's predicate) and each cut's collectives in every slot,
+outside the segments (captured: in the graph's own stream order, between
+the IF nodes), a skipped slot's over its zeroed buffers. So every rank
+makes the same collectives in the same order, eagerly and replayed, and a
+CUDA graph holds NCCL collectives across ranks (none may sit inside an IF
+node's body). The cuts of a step: the rows of its six lookups, summed over
+'model'; then Θ's or the dense tables' gradients and the loss, summed over
+'data', or the row-sparse gradients, all-gathered over 'data', and the
+loss, summed over 'data'.
 
 Without ``layout`` the code path is the single-rank one.
 """
@@ -59,7 +74,8 @@ Without ``layout`` the code path is the single-rank one.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+import inspect
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,6 +90,7 @@ from sml_tpu_torch.ops.batching import (PaddedRows, num_batches,
 from sml_tpu_torch.ops.losses import (bce_pair_loss, bpr_loss,
                                       l2_embedding_penalty)
 from sml_tpu_torch.ops.sampling import PeriodIndex, sample_negatives
+from sml_tpu_torch.parallel import collective
 from sml_tpu_torch.train import graphs
 from sml_tpu_torch.train.optim import (AdamState, BiasTable, TableGrad,
                                        adam_update, sparse_dense_adam_update)
@@ -83,7 +100,8 @@ def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
                generator: torch.Generator, batch_size: int, step_fn,
                shuffle: bool = True, losses: torch.Tensor = None,
                slots: Optional[graphs.SlotTable] = None,
-               step_draws: Optional[Tuple[int, int]] = None):
+               step_draws: Optional[Tuple[int, int]] = None,
+               cuts: Sequence["Cut"] = ()):
     """Shuffle, then ``ceil(n_real/B)`` calls of ``step_fn(carry, rows_b,
     mask_b, generator) -> (carry, loss)``. Returns ``(carry, losses)`` with
     ``losses`` (nb_max,) f32 on the rows' device, 0 for skipped batches;
@@ -94,11 +112,13 @@ def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
     ``nb_max`` slots is a step under :func:`graphs.step_if`, which the
     slot table's taken slots run (``n_real`` is then not read); captured,
     each is an IF node, the counterpart of the JAX package's ``lax.cond``.
-    ``step_draws``: the ``(rows, tries)`` of the sampler draw each step
-    makes, or None. A replay advances a CUDA generator past every slot, so
-    an eager epoch on a CUDA generator skips the Philox offset of each
-    step it does not run (as the JAX package splits ``nb_max`` keys
-    whether or not the batches run); on the CPU nothing is skipped."""
+    ``cuts``: where ``step_fn`` is split (a generator yielding each of
+    them in turn, :func:`run_slots`). ``step_draws``: the ``(rows,
+    tries)`` of the sampler draw each step makes, or None. A replay
+    advances a CUDA generator past every slot, so an eager epoch on a CUDA
+    generator skips the Philox offset of each step it does not run (as
+    the JAX package splits ``nb_max`` keys whether or not the batches
+    run); on the CPU nothing is skipped."""
     if shuffle:
         rows, mask = shuffle_real_first(generator, rows, mask)
     nb_max = rows.shape[0] // batch_size
@@ -111,10 +131,13 @@ def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
     def one(b):
         nonlocal carry
         sl = slice(b * batch_size, (b + 1) * batch_size)
-        carry, loss = step_fn(carry, rows[sl], mask[sl], generator)
+        out = step_fn(carry, rows[sl], mask[sl], generator)
+        if cuts:
+            out = yield from out
+        carry, loss = out
         losses[b] = loss.detach()
     run_slots(nb_max, num_batches(n_real, batch_size), generator, slots,
-              one, per_step)
+              one, per_step, cuts)
     return carry, losses
 
 
@@ -129,35 +152,100 @@ def loss_buffer(losses: Optional[torch.Tensor], nb_max: int, device):
     return losses.zero_()
 
 
+class Cut:
+    """A collective site of a split step: the contribution buffers the
+    segment before it writes, allocated outside the step slots (so they
+    exist, zeroed, in a slot that does not run, and nothing freed inside
+    an IF node is read across it), and ``reduce(*bufs)``, its collectives,
+    whose result the segment after it reads."""
+
+    def __init__(self, name: str, bufs: Sequence[torch.Tensor],
+                 reduce: Callable):
+        self.name, self.bufs, self.reduce = name, tuple(bufs), reduce
+
+    def zero(self) -> None:
+        for buf in self.bufs:
+            buf.zero_()
+
+    def run(self):
+        return self.reduce(*self.bufs)
+
+
+def _advance(segments, value):
+    """Run a split step's next segment (``value``: the last cut's result);
+    the cut it stops at, or None at its end (``segments`` not a generator:
+    an unsplit step, which ran whole when it was called)."""
+    if not inspect.isgenerator(segments):
+        return None
+    try:
+        return segments.send(value)
+    except StopIteration:
+        return None
+
+
 def run_slots(nb_max: int, nb_real: int, generator: torch.Generator,
-              slots: Optional[graphs.SlotTable], step, per_step=None) -> None:
-    """``step(b)`` for each of an epoch's ``nb_max`` step slots that runs:
-    under ``slots`` (inside a program) each slot is a
-    :func:`graphs.step_if`, taken where the slot table says; without, the
-    first ``nb_real``. ``per_step(device)``: the Philox offset each step
-    reserves on a CUDA generator (None: steps draw nothing). Run eagerly
-    on a CUDA generator, every step is checked to reserve exactly that and
-    the skipped slots' offsets are skipped, as a replay advances past
-    every slot (the JAX package splits ``nb_max`` keys whether or not the
-    batches run); on the CPU nothing is skipped."""
+              slots: Optional[graphs.SlotTable], step, per_step=None,
+              cuts: Sequence[Cut] = ()) -> None:
+    """An epoch's step slots: ``step(b)`` runs slot ``b``; with ``cuts``
+    it returns a generator that stops at each cut in turn (yielding it,
+    and taking its result back) and then ends, which splits the slot into
+    ``len(cuts) + 1`` segments. Under
+    ``slots`` (inside a program) all ``nb_max`` slots run and each segment
+    is a :func:`graphs.step_if` on the slot (captured: an IF node of its
+    own), which the taken slots run; without, the first ``nb_real`` slots
+    run. Each cut's buffers are zeroed before the slot's first segment and
+    its collectives run after the segment before it, outside the
+    segments, in every slot that runs, taken or not: the ranks make the
+    same collectives in the same order, eagerly and replayed. A collective
+    inside a segment raises (``collective.segment``).
+
+    ``per_step(device)``: the Philox offset each step reserves on a CUDA
+    generator (None: steps draw nothing). Run eagerly on a CUDA generator,
+    every step is checked to reserve exactly that and the skipped slots'
+    offsets are skipped, as a replay advances past every slot (the JAX
+    package splits ``nb_max`` keys whether or not the batches run); on
+    the CPU nothing is skipped."""
     eager_cuda = (generator.device.type == "cuda"
                   and not torch.cuda.is_current_stream_capturing())
     offset = (per_step(generator.device)
               if eager_cuda and per_step is not None else 0)
     ran = 0
-    for b in range(nb_max):
-        gate = (graphs.step_if(slots, b) if slots is not None
-                else contextlib.nullcontext(b < nb_real))
-        with gate as run:
-            if not run:
-                continue
-            start = generator.get_offset() if eager_cuda else 0
-            step(b)
-            ran += 1
-            if eager_cuda and generator.get_offset() - start != offset:
-                raise RuntimeError(
-                    f"a step reserved {generator.get_offset() - start} "
-                    f"Philox offsets, the skip-ahead assumes {offset}")
+    for b in range(nb_max if slots is not None else min(nb_real, nb_max)):
+        for cut in cuts:
+            cut.zero()
+        started, segments, value, start = False, None, None, 0
+        for k in range(len(cuts) + 1):
+            until = cuts[k] if k < len(cuts) else None
+            where = f"step slot {b}" + (
+                f", before its cut '{until.name}'" if until is not None
+                else ", after its last cut" if cuts else "")
+            gate = (graphs.step_if(slots, b, k) if slots is not None
+                    else contextlib.nullcontext(True))
+            with gate as run:
+                if run:
+                    if k and not started:
+                        raise RuntimeError(f"{where} runs, its first "
+                                           "segment did not")
+                    with collective.segment(where):
+                        if not started:
+                            started = True
+                            start = generator.get_offset() if eager_cuda else 0
+                            segments = step(b)
+                        reached = _advance(segments, value)
+                    if reached is not until:
+                        raise RuntimeError(
+                            f"step slot {b} stopped at "
+                            f"{getattr(reached, 'name', 'its end')}, not "
+                            f"at {getattr(until, 'name', 'its end')}")
+            if until is not None:
+                value = until.run()
+        if not started:
+            continue
+        ran += 1
+        if eager_cuda and generator.get_offset() - start != offset:
+            raise RuntimeError(
+                f"a step reserved {generator.get_offset() - start} "
+                f"Philox offsets, the skip-ahead assumes {offset}")
     if eager_cuda and offset and ran < nb_max:
         generator.set_offset(generator.get_offset()
                              + (nb_max - ran) * offset)
@@ -217,6 +305,53 @@ def _block(layout, u, i, j, m):
     return u[sl], i[sl], j[sl], m[sl], denom
 
 
+# the sides of a sharded step's six lookups: (u, i, j) of two tables
+LOOKUP_SIDES = ("user", "item", "item") * 2
+
+
+def _rows_cut(layout, n: int, width: int, device) -> Cut:
+    """A sharded step's first cut: the owned rows of its sharded lookups,
+    ``n`` ids each, summed over 'model' in one all-reduce (exact: each row
+    has one owner, the other ranks add 0)."""
+    k = sum(layout.sharded(side) for side in LOOKUP_SIDES)
+    buf = torch.zeros((k * n, width), dtype=torch.float32, device=device)
+
+    def reduce(buf):
+        return collective.all_reduce(buf, layout.model_group) if k else buf
+    return Cut("rows over 'model'", (buf,), reduce)
+
+
+def _sum_cut(layout, numel: int, device) -> Cut:
+    """A dense step's second cut: its gradients and loss as one flat f32
+    buffer (:func:`_flat_into`), summed over 'data' in one all-reduce."""
+    buf = torch.zeros(numel + 1, dtype=torch.float32, device=device)
+    return Cut("gradients and loss over 'data'", (buf,), layout.sum_data)
+
+
+def _gather_cut(layout, n: int, width: int, device) -> Cut:
+    """The row-sparse step's second cut: its three ``(n, width)`` blocks
+    of row gradients, all-gathered over 'data' into the single-rank order,
+    and its loss, summed over 'data'."""
+    rows = torch.zeros((3 * n, width), dtype=torch.float32, device=device)
+    loss = torch.zeros(1, dtype=torch.float32, device=device)
+    return Cut("gradient rows and loss over 'data'", (rows, loss),
+               lambda rows, loss: (layout.gather_data(rows, 3),
+                                   layout.sum_data(loss)))
+
+
+def _flat_into(buf: torch.Tensor, grads, loss: torch.Tensor) -> None:
+    torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)],
+              out=buf)
+
+
+def _unflat(flat: torch.Tensor, grads):
+    """The gradients (shaped like ``grads``) and the loss of a flat buffer
+    that :func:`_flat_into` filled."""
+    parts = flat.split([g.numel() for g in grads] + [1])
+    return ([p.view_as(g) for p, g in zip(parts, grads)],
+            parts[-1].reshape(()))
+
+
 def make_inner_epoch(cfg: SMLConfig, layout=None):
     """Inner (MF) epoch through the frozen Θ: ``epoch(mf, opt, theta,
     last_u, last_i, rows, mask, n_real, generator, index=None,
@@ -232,19 +367,25 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
                                      cfg.use_bce, denom)
         return loss + cfg.mf_l2 * l2_embedding_penalty(m, xu, xi, xj)
 
-    def sharded_step(mf, opt, theta, last_u, last_i, u, i, j, m):
+    def sharded_step(mf, opt, theta, last_u, last_i, u, i, j, m, cuts):
         bu, bi, bj, bm, denom = _block(layout, u, i, j, m)
+        lookups = list(zip(
+            (last_u, last_i, last_i, mf.user_emb, mf.item_emb, mf.item_emb),
+            (bu, bi, bj) * 2, LOOKUP_SIDES))
+        rows_cut, last_cut = cuts
+        owned = layout.owned_into(rows_cut.bufs[0], lookups)
+        summed = yield rows_cut
         if cfg.fast_table_adam:
-            lu, li, lj, *xs = layout.rows_many(
-                [(last_u, bu, "user"), (last_i, bi, "item"),
-                 (last_i, bj, "item"), (mf.user_emb, bu, "user"),
-                 (mf.item_emb, bi, "item"), (mf.item_emb, bj, "item")])
+            lu, li, lj, *xs = layout.rows_from(lookups, summed, owned)
             xs = [x.requires_grad_() for x in xs]
             with torch.enable_grad():
                 loss = row_loss(*xs, theta, lu, li, lj, bm, denom)
                 grads = torch.autograd.grad(loss, xs)
+            grad_rows, loss_buf = last_cut.bufs
+            torch.cat(grads, out=grad_rows)
+            loss_buf.copy_(loss.detach().reshape(1))
             # the whole batch's row gradients, in the single-rank order
-            gu, gi, gj = layout.gather_data(list(grads))
+            (gu, gi, gj), loss = yield last_cut
             sparse = {"user_emb": TableGrad(u.long(), gu),
                       "item_emb": TableGrad(torch.cat([i, j]).long(),
                                             torch.cat([gi, gj], dim=0))}
@@ -252,19 +393,17 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
                 mf, opt, sparse, lr=cfg.mf_lr,
                 blocks={"user_emb": layout.blocks["user"],
                         "item_emb": layout.blocks["item"]})
-            return opt, layout.sum_data(loss.detach())
-        lu, li, lj = layout.rows_many([(last_u, bu, "user"),
-                                       (last_i, bi, "item"),
-                                       (last_i, bj, "item")])
+            return opt, loss.reshape(())
         tabs = {f: getattr(mf, f).detach().requires_grad_()
                 for f in ("user_emb", "item_emb")}
+        lookups[3:] = [(tabs[f], idx, side) for f, (_, idx, side) in zip(
+            ("user_emb", "item_emb", "item_emb"), lookups[3:])]
         with torch.enable_grad():
-            loss = row_loss(layout.rows(tabs["user_emb"], bu, "user"),
-                            layout.rows(tabs["item_emb"], bi, "item"),
-                            layout.rows(tabs["item_emb"], bj, "item"),
-                            theta, lu, li, lj, bm, denom)
+            lu, li, lj, xu, xi, xj = layout.rows_from(lookups, summed, owned)
+            loss = row_loss(xu, xi, xj, theta, lu, li, lj, bm, denom)
             grads = torch.autograd.grad(loss, list(tabs.values()))
-        grads, loss = _sum_data(layout, list(grads), loss.detach())
+        _flat_into(last_cut.bufs[0], grads, loss)
+        grads, loss = _unflat((yield last_cut), grads)
         opt = adam_update(mf._asdict(), dict(zip(tabs, grads)), opt,
                           lr=cfg.mf_lr)
         return opt, loss
@@ -276,12 +415,20 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
               generator: torch.Generator,
               index: Optional[PeriodIndex] = None, losses=None, slots=None):
         rows = _epoch_triples(rows, generator, mode)
+        cuts = ()
+        if layout is not None:
+            n, d = batch // layout.mesh.shape["data"], mf.user_emb.shape[1]
+            cuts = (_rows_cut(layout, n, d, rows.device),
+                    _gather_cut(layout, n, d, rows.device)
+                    if cfg.fast_table_adam else
+                    _sum_cut(layout, mf.user_emb.numel()
+                             + mf.item_emb.numel(), rows.device))
 
         def step(opt, r, m, gen):
             u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
             if layout is not None:
                 return sharded_step(mf, opt, theta, last_u, last_i, u, i, j,
-                                    m)
+                                    m, cuts)
             lu, li, lj = _g32(last_u, u), _g32(last_i, i), _g32(last_i, j)
             if cfg.fast_table_adam:
                 xs = [mf.user_emb[u].requires_grad_(),
@@ -309,19 +456,10 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
                                  step, shuffle=mode != "replay",
                                  losses=losses, slots=slots,
-                                 step_draws=draws)
+                                 step_draws=draws, cuts=cuts)
         return mf, opt, losses
 
     return epoch
-
-
-def _sum_data(layout, grads, loss):
-    """Gradients and the loss summed over 'data', in one all-reduce."""
-    flat = layout.sum_data(torch.cat([g.reshape(-1) for g in grads]
-                                     + [loss.reshape(1)]))
-    parts = flat.split([g.numel() for g in grads] + [1])
-    return ([p.view_as(g) for p, g in zip(parts, grads)],
-            parts[-1].reshape(()))
 
 
 def make_outer_epoch(cfg: SMLConfig, layout=None):
@@ -342,18 +480,25 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
               index: Optional[PeriodIndex] = None, losses=None, slots=None):
         rows = _epoch_triples(rows, generator, mode)
         leaves = theta_leaves(theta)
+        cuts = ()
+        if layout is not None:
+            n = batch // layout.mesh.shape["data"]
+            cuts = (_rows_cut(layout, n, last_u.shape[1], rows.device),
+                    _sum_cut(layout, sum(p.numel() for p in leaves.values()),
+                             rows.device))
 
         def sharded_step(opt, u, i, j, m):
             bu, bi, bj, bm, denom = _block(layout, u, i, j, m)
-            rows = layout.rows_many(
-                [(last_u, bu, "user"), (last_i, bi, "item"),
-                 (last_i, bj, "item"), (hat_u, bu, "user"),
-                 (hat_i, bi, "item"), (hat_i, bj, "item")])
+            lookups = list(zip((last_u, last_i, last_i, hat_u, hat_i, hat_i),
+                               (bu, bi, bj) * 2, LOOKUP_SIDES))
+            owned = layout.owned_into(cuts[0].bufs[0], lookups)
+            rows = layout.rows_from(lookups, (yield cuts[0]), owned)
             with torch.enable_grad():
                 loss = transferred_pair_loss(theta, tcfg, *rows, bm,
                                              cfg.use_bce, denom)
                 grads = torch.autograd.grad(loss, list(leaves.values()))
-            grads, loss = _sum_data(layout, list(grads), loss.detach())
+            _flat_into(cuts[1].bufs[0], grads, loss)
+            grads, loss = _unflat((yield cuts[1]), grads)
             opt = adam_update(leaves, dict(zip(leaves, grads)), opt,
                               lr=cfg.tr_lr, weight_decay=cfg.tr_l2)
             return opt, loss
@@ -376,7 +521,7 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
                                  step, shuffle=mode != "replay",
                                  losses=losses, slots=slots,
-                                 step_draws=draws)
+                                 step_draws=draws, cuts=cuts)
         return theta, opt, losses
 
     return epoch

@@ -6,6 +6,9 @@ JAX package's, on gloo worlds of CPU ranks.
   duplicate and boundary ids; its gradient is the scatter-add of the
   incoming rows, with no second reduction (a double reduction would scale
   it by the rank count);
+* the lookup taken apart as a split step takes it (the layout's owned
+  rows into a buffer, the all-reduce, the rows from the summed buffer)
+  equals ``collective_gather`` bit for bit, rows and gradient, on 2 ranks;
 * ``make_sharded_mf_train_step`` against the JAX one (rtol 2e-5, atol
   1e-6, the JAX test's tolerance against dense math);
 * all-reduce, all-gather and broadcast over each axis of a (2, 2) mesh,
@@ -57,6 +60,19 @@ def test_collective_gather_and_grad_match_jax(rng, n_model):
     scatter = np.zeros_like(table)
     np.add.at(scatter, idx, w)
     np.testing.assert_allclose(grad, scatter, rtol=1e-6, atol=1e-6)
+
+
+def test_split_lookup_equals_collective_gather(rng):
+    table = rng.normal(size=(64, 16)).astype(np.float32)
+    idx = np.concatenate([rng.integers(0, 64, 40), [0, 31, 32, 63, 63]])
+    w = rng.normal(size=(idx.shape[0], 16)).astype(np.float32)
+    ranks = run_world(f"{WORKERS}:split_lookup", 2, device="cpu",
+                      args=(table, idx.astype(np.int64), w, 2),
+                      timeout_s=TIMEOUT_S)
+    for (rows, grad), (split_rows, split_grad) in ranks:
+        np.testing.assert_array_equal(split_rows, rows)
+        np.testing.assert_array_equal(split_grad, grad)
+        np.testing.assert_array_equal(rows, table[idx])
 
 
 def test_sharded_mf_step_matches_jax(rng):

@@ -1239,6 +1239,48 @@ def test_captured_phase_on_an_nccl_mesh_of_one_rank(card):
         assert torch.equal(fi, ui) and torch.equal(fo, uo)
 
 
+def test_mesh_program_captures_split_step_slots(card):
+    """A world of one rank in this process, its mesh groups over NCCL: the
+    phase program's step slots are split at their two cuts, so its
+    capture holds three IF nodes per step slot (one without a mesh)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.multihost import init_distributed
+    from sml_tpu_torch.parallel.sharding import make_mesh
+    from sml_tpu_torch.train import graphs
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    saved = dict(collective.WORLD)
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    stats = []
+    try:
+        mesh = make_mesh(1, 1)
+        for on_mesh in (True, False):
+            eng = _fused_engine(card, eval_during_inner=False,
+                                eval_during_outer=False)
+            state = (eng.init_state_sharded(mesh) if on_mesh
+                     else eng.init_state())
+            prep_t, prep_tt, _ = _fused_inputs(eng)
+            for _ in range(2):
+                state, _, _ = eng.phase_step(eng.snapshot_last(state),
+                                             prep_t, prep_tt)
+            torch.cuda.synchronize()
+            stats.append(dict(eng.graph_stats))
+            eng.release_programs()
+    finally:
+        graphs.release_all()
+        dist.destroy_process_group()
+        collective.WORLD.clear()
+        collective.WORLD.update(saved)
+    for st, per_slot in zip(stats, (3, 1)):
+        assert st["captures"] == 1 and st["step_slots"] > 0, st
+        assert st["if_nodes"] == per_slot * st["step_slots"], st
+
+
 def test_graphed_spmf_matches_eager(card, tmp_path, monkeypatch):
     """SPMF over three periods through its epoch program (one warm-up, one
     capture, replays) against its epochs called eagerly: tables, moments,

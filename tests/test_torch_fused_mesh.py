@@ -14,17 +14,26 @@ inside it.
   the same numpy inputs: tables, Θ, losses and norms within rtol 2e-4,
   atol 2e-5 (``test_torch_multihost.py``'s tolerance), the evals' recall
   within one hit of 64 rows.
+* The split step slots: on those meshes, three phases whose epochs skip
+  step slots (half the padded rows real), with the row-sparse and the
+  dense table Adam, fused (``phase_step``, then ``period_step``) against
+  unfused: the whole states bit-equal. In the fused phase every rank opens
+  three bodies per step slot (``graphs.step_if`` replaced by a recorder)
+  and makes ``nb_max`` x (collectives per step) collectives per epoch,
+  skipped slots included, none of them inside an open body; a collective
+  called inside a segment raises, naming it.
 * Ranks whose inputs take different step slots raise before the program
-  runs, on every rank, rather than wait in a collective.
-* The rule on the card, asked of stand-ins: a collective across ranks
-  (gloo or NCCL) refuses capture, a group of one rank does not; where
-  capture is refused, ``fuse_period=True`` raises and ``False`` /
-  ``"auto"`` run unfused.
+  runs, on every rank, rather than train apart.
+* The rule on the card, asked of stand-ins: only gloo across ranks (ranks
+  sharing a card) refuses capture; NCCL across ranks and a group of one
+  rank do not; where capture is refused, ``fuse_period=True`` raises and
+  ``False`` / ``"auto"`` run unfused.
 """
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sml_tpu.train.engine import SMLEngine as JaxEngine
 from sml_tpu_torch.config import DataSpec, SMLConfig, TransferConfig
@@ -159,6 +168,52 @@ def test_fused_on_a_mesh_matches_unfused_and_jax(mesh_dataset, jax_periods,
                 assert abs(tm[k]["recall"] - jm[k]["recall"]) * 64 <= 1.0
 
 
+@pytest.mark.parametrize("mesh_shape", MESHES)
+def test_split_step_slots_skip_alike_on_a_mesh(mesh_shape):
+    cfgs = [_cfg(fast_table_adam=fast) for fast in (True, False)]
+    n = mesh_shape[0] * mesh_shape[1]
+    ranks = run_world(f"{WORKERS}:split_slots", n, device="cpu",
+                      args=(cfgs, N_USERS, N_ITEMS, mesh_shape, (300, 200)),
+                      timeout_s=TIMEOUT_S)
+    for k, cfg in enumerate(cfgs):
+        # the row-sparse step gathers its row gradients and sums its loss
+        # over 'data' at its second cut; the dense one sums both in one
+        calls_in = 3 if cfg.fast_table_adam else 2
+        for rank, got in enumerate(r[k] for r in ranks):
+            worst = {p: v for p, v in got["diff"].items() if v != 0.0}
+            assert not worst, f"rank {rank}: fused differs: {worst}"
+            (t_in, t_out), (nb_in, nb_out) = got["taken"], got["slots"]
+            assert 0 < t_in < nb_in and 0 < t_out < nb_out, got
+            assert got["opens"] == 3 * (cfg.mf_epochs * nb_in
+                                        + cfg.tr_epochs * nb_out)
+            assert got["collectives"] == (cfg.mf_epochs * nb_in * calls_in
+                                          + cfg.tr_epochs * nb_out * 2)
+            assert got["inside"] == 0
+
+
+def test_a_collective_inside_a_segment_raises():
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.train import graphs, steps
+    t = torch.ones(3)
+    with collective.segment("step slot 2, before its cut 'rows'"):
+        with pytest.raises(RuntimeError, match="all_gather called inside "
+                           "step slot 2, before its cut 'rows'"):
+            collective.all_gather(t, None)
+    assert collective.all_gather(t, None) is t
+
+    cut = steps.Cut("sum", (torch.zeros(3),), lambda buf: buf)
+
+    def step(b):
+        cut.bufs[0].fill_(b)
+        got = yield cut
+        collective.all_reduce(got, None)
+    slots = graphs.SlotTable(2, "cpu")
+    slots.fill(1)
+    with pytest.raises(RuntimeError, match="all_reduce called inside step "
+                       "slot 0, after its last cut"):
+        steps.run_slots(2, 1, torch.Generator(), slots, step, cuts=(cut,))
+
+
 def test_unequal_step_slots_raise_on_every_rank():
     cfg = _cfg()
     got = run_world(f"{WORKERS}:unequal_slots", 2, device="cpu",
@@ -170,7 +225,7 @@ def test_unequal_step_slots_raise_on_every_rank():
 
 def test_fusion_route_where_the_programs_cannot_be_captured():
     """The driver's rule on an engine that refuses capture (a card under a
-    mesh of several ranks): ``fuse_period=True`` raises with the reason
+    mesh of ranks sharing it): ``fuse_period=True`` raises with the reason
     and the way out, False and ``"auto"`` run unfused."""
     from sml_tpu_torch.train.driver import fusion_route
 
@@ -189,21 +244,22 @@ def test_fusion_route_where_the_programs_cannot_be_captured():
 
 
 def test_capture_refusal_names_collectives_across_ranks(monkeypatch):
-    """The rule on the card: a group of one rank makes no collective (the
-    program is captured); a gloo collective across ranks is refused
-    anywhere, an NCCL one inside IF nodes (``conditional``); on the CPU
-    nothing is captured, so nothing is refused. Groups stand in as
+    """The rule on the card: a group of one rank makes no collective, and
+    an NCCL collective across ranks is captured between the IF nodes of a
+    split step slot, so neither is refused; a gloo collective across ranks
+    (ranks sharing a card) is refused, whatever the other groups; on the
+    CPU nothing is captured, so nothing is refused. Groups stand in as
     ``(size, backend)``."""
     from sml_tpu_torch.parallel import collective
     monkeypatch.setattr(collective, "group_size", lambda g: g[0])
     monkeypatch.setattr(collective.dist, "get_backend", lambda g: g[1])
     refusal = collective.capture_refusal
-    for cond in (False, True):
-        assert refusal([(1, "nccl"), (1, "gloo")], "cuda", cond) is None
-        assert "gloo" in refusal([(2, "gloo")], "cuda", cond)
-        assert refusal([(2, "nccl"), (4, "gloo")], "cpu", cond) is None
+    assert refusal([(1, "nccl"), (1, "gloo")], "cuda") is None
     assert refusal([(1, "nccl"), (2, "nccl")], "cuda") is None
-    assert "IF node" in refusal([(1, "nccl"), (2, "nccl")], "cuda", True)
+    assert refusal([(2, "nccl"), (4, "nccl")], "cuda") is None
+    assert "gloo" in refusal([(2, "gloo")], "cuda")
+    assert "gloo" in refusal([(2, "nccl"), (4, "gloo")], "cuda")
+    assert refusal([(2, "nccl"), (4, "gloo")], "cpu") is None
 
 
 def test_nccl_capture_probe_needs_cards():

@@ -9,7 +9,11 @@ items).
 * a resume from the run's own checkpoint on both processes reports its
   summary; a resume where the processes see different checkpoint
   directories raises on every process, within the test's timeout;
-* ``rank --shard`` prints the 1-process output.
+* ``rank --shard`` prints the 1-process output;
+* with a coordinator, ``cli.main`` frees every CUDA graph
+  (``graphs.release_all``) before the world's barrier and
+  ``destroy_process_group``, whether the command returns or raises (spies
+  on the three, in a one-process world in the test's own process).
 
 Every process runs one thread, with a finite timeout; on timeout every
 process of the run is killed.
@@ -152,3 +156,55 @@ def test_rank_shard_matches_one_process(runs):
     assert [rc for rc, _, _ in two] == [0, 0], two[0][2][-2000:]
     assert two[0][1] == one and len(one.splitlines()) == 4
     assert two[1][1] == ""
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_cli_releases_graphs_before_the_world_ends(monkeypatch, tmp_path,
+                                                   fails):
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from sml_tpu_torch import cli
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.train import graphs
+    calls = []
+
+    def spy(name, fn):
+        def call(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return call
+    monkeypatch.setattr(graphs, "release_all",
+                        spy("release", graphs.release_all))
+    monkeypatch.setattr(dist, "barrier", spy("barrier", dist.barrier))
+    monkeypatch.setattr(dist, "destroy_process_group",
+                        spy("destroy", dist.destroy_process_group))
+
+    def command(args):
+        calls.append("command")
+        if fails:
+            raise RuntimeError("the command failed")
+        return 0
+    monkeypatch.setattr(cli, "cmd_synth", command)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["--device", "cpu", "--coordinator", f"127.0.0.1:{port}",
+            "--num-processes", "1", "--process-id", "0", "synth", "--out",
+            str(tmp_path)]
+    saved, threads = dict(collective.WORLD), torch.get_num_threads()
+    try:
+        if fails:
+            with pytest.raises(RuntimeError, match="the command failed"):
+                cli.main(argv)
+        else:
+            assert cli.main(argv) == 0
+    finally:
+        collective.WORLD.clear()
+        collective.WORLD.update(saved)
+        torch.set_num_threads(threads)
+    assert calls == (["command", "release", "destroy"] if fails else
+                     ["command", "release", "barrier", "destroy"])
+    assert not dist.is_initialized()

@@ -365,3 +365,110 @@ def unequal_slots(device, cfg, n_users, n_items, rows):
         return str(exc)
     return None
 
+
+
+def split_lookup(device, table, idx, w, n_model):
+    """The lookup taken apart as a split step takes it (the owned rows
+    into a buffer, its all-reduce, the rows from the summed buffer) and
+    whole (``collective_gather``), on the rank's block of ``table``: each
+    way's rows and the gradient of ``sum(rows * w)`` in the block."""
+    from sml_tpu_torch.parallel.collective import (all_reduce,
+                                                   collective_gather)
+    from sml_tpu_torch.parallel.sharding import TableLayout
+    mesh = _mesh((1, n_model))
+    layout = TableLayout(mesh, table.shape[0], table.shape[0] + n_model)
+    shard = torch.from_numpy(table[_block(table.shape[0], mesh)].copy())
+    shard.requires_grad_()
+    ids, weight = torch.from_numpy(idx), torch.from_numpy(w)
+    out = []
+    for split in (False, True):
+        if split:
+            lookup = [(shard, ids, "user")]
+            buf = torch.zeros((ids.shape[0], table.shape[1]))
+            owned = layout.owned_into(buf, lookup)
+            (rows,) = layout.rows_from(lookup, all_reduce(buf, mesh.group(
+                "model")), owned)
+        else:
+            rows = collective_gather(shard, ids, mesh.group("model"))
+        (g,) = torch.autograd.grad(torch.sum(rows * weight), [shard])
+        out.append((rows.detach().numpy(), g.numpy()))
+    return out
+
+
+def split_slots(device, cfgs, n_users, n_items, mesh_shape, n_rows):
+    """For each of ``cfgs``: three SML phases on the mesh from one state
+    born sharded, on inputs of ``n_rows`` (inner, outer) real rows padded
+    to twice as many (so every epoch skips step slots), unfused
+    (``dryrun._unfused_phases``) and fused (``phase_step``, then a
+    ``period_step`` of two phases). The fused phase runs with a recorder
+    in place of ``graphs.step_if`` and counters on ``collective``'s
+    ``all_reduce`` and ``all_gather``. Returns per config: the largest
+    differences of the whole states, the step slots taken and held (inner,
+    outer), the IF-node openings and collectives the recorded phase made,
+    and how many collectives ran inside an open body."""
+    import contextlib
+
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.dryrun import _unfused_phases
+    from sml_tpu_torch.train import graphs
+    from sml_tpu_torch.train.engine import SMLEngine
+    mesh = _mesh(mesh_shape)
+    rng = np.random.default_rng(0)
+    set_t, set_tt = (np.stack([rng.integers(0, n_users, n),
+                               rng.integers(0, n_items, n)], 1)
+                     for n in n_rows)
+    events = []
+
+    @contextlib.contextmanager
+    def recorder(slots, b, segment=0):
+        events.append("open")
+        try:
+            yield bool(slots.host[b])
+        finally:
+            events.append("close")
+
+    def counted(name, fn):
+        def call(t, group):
+            events.append(name)
+            return fn(t, group)
+        return call
+    out = []
+    for cfg in cfgs:
+        runs = []
+        for fused in (False, True):
+            eng = SMLEngine(cfg, n_users, n_items, device=device)
+            eng.shape_targets = {"set_t": 2 * n_rows[0],
+                                 "set_tt": 2 * n_rows[1]}
+            state = eng.snapshot_last(eng.init_state_sharded(mesh))
+            prep_t, prep_tt = eng.prep_inner(set_t), eng.prep_outer(set_tt)
+            if not fused:
+                state, _ = _unfused_phases(eng, state, prep_t, prep_tt, 3,
+                                           None)
+                runs.append(_state_arrays(eng, state))
+                continue
+            saved = (graphs.step_if, collective.all_reduce,
+                     collective.all_gather)
+            graphs.step_if = recorder
+            collective.all_reduce = counted("all_reduce", saved[1])
+            collective.all_gather = counted("all_gather", saved[2])
+            try:
+                state, _, _ = eng.phase_step(state, prep_t, prep_tt)
+            finally:
+                (graphs.step_if, collective.all_reduce,
+                 collective.all_gather) = saved
+            prog = next(iter(eng._programs.values()))
+            state, _, _, _ = eng.period_step(state, prep_t, prep_tt, 2)
+            runs.append(_state_arrays(eng, state))
+        depth, inside = 0, 0
+        for e in events:
+            depth += {"open": 1, "close": -1}.get(e, 0)
+            inside += e.startswith("all_") and depth > 0
+        out.append({"diff": _differences(*runs), "taken": prog.taken,
+                    "slots": (prog.t_slots.host.shape[0],
+                              prog.tt_slots.host.shape[0]),
+                    "opens": events.count("open"),
+                    "collectives": sum(e.startswith("all_")
+                                       for e in events),
+                    "inside": inside})
+        events.clear()
+    return out
