@@ -12,6 +12,19 @@ Phases, one JSON line each:
 
 1. env      torch/CUDA versions, the card, its power limit.
 2. build    nvcc builds ``sml_tpu_torch/csrc/*.cu`` (timed).
+2b. sanitize  ``python -m sml_tpu_torch.scripts.sanitize --all`` in
+            subprocesses: ptxas's registers and spills of every kernel
+            with and without ``-lineinfo`` (equal); the guard-page fence
+            proved (an over-run and an under-run of K3's C entry must die
+            of an illegal address), then every kernel target (K1, K2, K3,
+            P1, P2, P3 on their edge cases, each call repeated and held
+            bit-equal, then to its plain version) under the fence at the
+            tail and at the head of every allocation. An error, a failed
+            run or a fence that misses its probe fails the phase.
+            compute-sanitizer is not run here (``--tools none``): on the
+            H100 machine it refuses the device, as ``PERF.md`` records;
+            ``sanitize.py --all`` runs its tools where it does. The
+            phase's line says so (``compute_sanitizer``).
 3. K1       ``transfer_rows_kernel`` against its plain PyTorch version at
             the Yelp refresh shape (100,000 user + 20,000 item rows, d=64,
             C1=10, C2=5, H=512), f32 and bf16 snapshots, and on a grid of
@@ -24,7 +37,8 @@ Phases, one JSON line each:
             on integer-valued f32 and bf16 tables, and equal there to the
             dense design (P1's ``<f32, 64, ij>``); near-exact on random
             ones; exact on a ``EDGE_ROWS``-row batch of edge-case masks (no
-            bit, every item, one 16-byte chunk, the last chunk). Times of
+            bit, every item, one 16-byte chunk, the last chunk, every
+            other item: ``ops.edge_cases.k2_edge_rows``). Times of
             f32, bf16, an empty mask, the dense design and a
             ``torch.matmul`` yardstick, each eager and by CUDA-graph
             replay; the build's registers and blocks per SM; bound.
@@ -303,6 +317,8 @@ import tempfile
 import time
 
 # outside a checkout this import fails before anything is printed
+from sml_tpu_torch.ops.edge_cases import (k2_edge_rows, p2_out_of_range,
+                                          p3_edge_rows)
 from sml_tpu_torch.scripts.scorer_timing import cuda_ms, graph_ms
 
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 without tensor cores
@@ -491,6 +507,43 @@ def phase_env(torch):
     return smi_line
 
 
+def phase_sanitize():
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "sml_tpu_torch.scripts.sanitize", "--all",
+         "--tools", "none"],
+        capture_output=True, text=True, timeout=900)
+    lines = [json.loads(ln) for ln in run.stdout.splitlines()
+             if ln.startswith("{")]
+    bad = [ln for ln in lines
+           if ln.get("status") not in ("clean", "caught")]
+    check(run.returncode == 0 and lines and "sanitize" in lines[-1],
+          f"sanitize --all exited {run.returncode}: {bad} "
+          f"{run.stderr[-2000:]}")
+    checks = lines[:-1]
+    by = {}
+    for ln in checks:
+        by.setdefault(ln["check"], {})[
+            f"{ln.get('target', '-')}/{ln.get('mode', '-')}"] = (
+                ln["status"], ln.get("seconds"))
+    for name in ("k1", "k2", "k3", "p1", "p2", "p3"):
+        for mode in ("tail", "head"):
+            check(by["fence"][f"{name}/{mode}"][0] == "clean",
+                  f"{name} under the {mode} fence: "
+                  f"{by['fence'][f'{name}/{mode}']}")
+    probes = by["fence-probe"]
+    check(len(probes) == 2 and all(v[0] == "caught"
+                                   for v in probes.values()),
+          f"fence probes {probes}")
+    emit({"phase": "sanitize", "seconds": time.perf_counter() - t0,
+          "status": lines[-1]["status"],
+          "lineinfo": [ln for ln in checks if ln["check"] == "lineinfo"],
+          "fence": by["fence"], "fence_probe": probes,
+          "compute_sanitizer": "not run: no memcheck, racecheck, synccheck "
+          "or initcheck result in this phase (sanitize.py --all runs them "
+          "where the tool supports the card)"})
+
+
 def phase_build():
     from sml_tpu_torch import _build
     cached = _build.library_path().exists()
@@ -657,22 +710,6 @@ def distinct_eval_rows(torch, n_rows: int, n_users: int, n_items: int,
     return np.ascontiguousarray(rows.cpu().numpy().astype(np.int64))
 
 
-def k2_edge_batch(torch, ek, masks):
-    """A batch of ``EDGE_ROWS`` rows of packed masks whose rows 0-3 are:
-    no bit set, every item below N_ITEMS, all 128 bits of one 16-byte chunk
-    (4 words), and the items of the last chunk."""
-    full = ek.build_packed_mask(torch.arange(N_ITEMS, device="cuda")[None],
-                                N_ITEMS)[0]
-    edge = masks[:EDGE_ROWS].clone()
-    edge[0] = 0
-    edge[1] = full
-    edge[2] = 0
-    edge[2, 40:44] = -1
-    edge[3] = 0
-    edge[3, -4:] = full[-4:]
-    return edge
-
-
 def phase_k2(torch):
     from sml_tpu_torch import _build
     from sml_tpu_torch.ops import eval_kernel as ek
@@ -719,7 +756,8 @@ def phase_k2(torch):
                                                   masks[sl], 64, "ij")
                 mismatch["int_f32_vs_dense_design"] += int((got != old).sum())
     # edge-case rows, exact on integer tables
-    edge = k2_edge_batch(torch, ek, masks)
+    edge = masks[:EDGE_ROWS].clone()
+    k2_edge_rows(edge, N_ITEMS)
     edge_mismatch = {}
     for name, ue, it in (("f32", ue_i, it_i),
                          ("bf16", ue_i.bfloat16(), it_i.bfloat16())):
@@ -1990,25 +2028,6 @@ def p2_mismatch(torch, pk, ue_t, users, cand, tab) -> int:
         (got[~nan] != want[~nan]).sum())
 
 
-def p2_out_of_range_ids(torch, rows, g):
-    """The probe's first batch with ids outside both tables: candidate ids
-    -1, -I, I, I+5, -I-1 and +-2^40 in 4,096 random slots, user ids -1,
-    -U, U, U+7, -U-1 and +-2^40 on every third row."""
-    r = rows[:EVAL_BATCH].clone()
-    users, cand = r[:, 0], r[:, 1:]
-    bad_c = torch.tensor([-1, -N_ITEMS, N_ITEMS, N_ITEMS + 5, -N_ITEMS - 1,
-                          2 ** 40, -2 ** 40], device="cuda")
-    bad_u = torch.tensor([-1, -N_USERS, N_USERS, N_USERS + 7, -N_USERS - 1,
-                          2 ** 40, -2 ** 40], device="cuda")
-    at = torch.randint(0, cand.numel(), (4096,), generator=g).cuda()
-    n_at = cand.shape[1]
-    cand[at // n_at, at % n_at] = bad_c[torch.arange(4096, device="cuda")
-                                        % len(bad_c)]
-    users[::3] = bad_u[torch.arange(len(users[::3]), device="cuda")
-                       % len(bad_u)]
-    return users, cand
-
-
 def phase_p2(torch, rows, l2_rates):
     from sml_tpu_torch import _build
     from sml_tpu_torch.ops import probe_kernels as pk
@@ -2035,8 +2054,10 @@ def phase_p2(torch, rows, l2_rates):
                 (pk.candidate_scores_cuda(ue_t, u32, c32, tab) != got).sum())
     # ids outside both tables, and odd shapes, on the integer tables
     ue_i, tab_i = tables["int"]
-    oor_mismatch = p2_mismatch(torch, pk, ue_i,
-                               *p2_out_of_range_ids(torch, rows, g), tab_i)
+    oor = rows[:EVAL_BATCH].clone()
+    p2_out_of_range(g, oor[:, 0], oor[:, 1:], N_USERS, N_ITEMS)
+    oor_mismatch = p2_mismatch(torch, pk, ue_i, oor[:, 0], oor[:, 1:],
+                               tab_i)
     odd_mismatch = {}
     for b in P2_ODD_B:
         for c in P2_ODD_C:
@@ -2119,23 +2140,6 @@ def phase_p2(torch, rows, l2_rates):
                                    "library_ms")}}
 
 
-def p3_edge_batch(torch, maskm, tgt, ipad):
-    """``EDGE_ROWS`` rows of int8 masks and targets whose rows 0-3 are: no
-    entry set; every item below N_ITEMS, the target among them; the 16
-    entries of one 16-byte chunk, the target among them; the last chunk
-    (pad items, whose table rows are zero)."""
-    edge, t = maskm[:EDGE_ROWS].clone(), tgt[:EDGE_ROWS].clone()
-    edge[0] = 0
-    edge[1] = 0
-    edge[1, :N_ITEMS] = 1
-    edge[2] = 0
-    edge[2, 8192:8208] = 1
-    t[2] = 8200
-    edge[3] = 0
-    edge[3, ipad - 16:] = 1
-    return edge, t
-
-
 def phase_p3(torch, rows):
     from sml_tpu_torch import _build
     from sml_tpu_torch.ops import probe_kernels as pk
@@ -2163,7 +2167,8 @@ def phase_p3(torch, rows):
             max_diff = max(max_diff, int((got - want).abs().max()))
     # edge-case rows on the integer tables, exact
     tab, ue = tables["int"]
-    edge, edge_tgt = p3_edge_batch(torch, maskm, tgt, ipad)
+    edge, edge_tgt = maskm[:EDGE_ROWS].clone(), tgt[:EDGE_ROWS].clone()
+    p3_edge_rows(edge, edge_tgt, N_ITEMS, ipad)
     want = pk.dense_mask_rank_plain(tab, ue[:EDGE_ROWS], edge_tgt, edge)
     check(int(want[0]) == 0 and 0 < int(want[1]) < N_ITEMS,
           f"P3 edge rows: plain ranks {want[:4].tolist()}")
@@ -3133,6 +3138,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     smi_line = phase_env(torch)
     phase_build()
+    phase_sanitize()
     k1 = phase_k1(torch)
     k2, k2_l2_rate = phase_k2(torch)
     phase_slice(torch)

@@ -28,8 +28,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# -lineinfo: source lines in the device code's debug sections, for the
+# memory checkers' reports (scripts/sanitize.py); the code is the same
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                           "--resource-usage")
+                           "--resource-usage", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -57,6 +57,11 @@ The rules it keeps:
   collective on a capturing stream raises (``parallel/collective.py``).
   A world's barrier or teardown hangs while a graph holding NCCL
   collectives is alive, so a process calls :func:`release_all` first.
+* A graph is never destroyed, nor its pools given back, while a capture
+  is in progress (:func:`_free_graph` sets it aside until the capture
+  has ended): the garbage collector frees a program and its engine (a
+  reference cycle) whenever Python allocates, so also inside another
+  program's capture, whose end then died of a segmentation fault.
 * A capture that fails, or a torch without IF nodes, raises; nothing runs
   the body eagerly instead.
 """
@@ -76,6 +81,9 @@ from sml_tpu_torch import _build
 
 # the captures in progress (a :class:`_Capture` each, innermost last)
 _CAPTURES: List["_Capture"] = []
+# graphs (with their IF bodies' pools) whose owner died while a capture was
+# in progress, freed once none is (:func:`_free_graph`)
+_DEFERRED: List[tuple] = []
 # every live program of the process, for :func:`release_all`
 _PROGRAMS: "weakref.WeakSet[Program]" = weakref.WeakSet()
 _THREAD_LOCAL = 1          # cudaStreamCaptureModeThreadLocal
@@ -89,7 +97,7 @@ class _Capture:
     segments), and the launches recorded inside each body with its
     slot."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, parent: torch.cuda.Stream):
         for name in ("_cuda_beginAllocateCurrentStreamToPool",
                      "_cuda_endAllocateToPool", "_cuda_releasePool"):
             if not hasattr(torch._C, name):
@@ -97,8 +105,12 @@ class _Capture:
                     f"this PyTorch has no torch._C.{name} (torch "
                     f"{torch.__version__}); the fused programs' IF nodes "
                     "need it")
-        self.device = device
+        self.device = device = parent.device
+        # never the capture stream itself: PyTorch hands out its 32 pooled
+        # streams in turn, so a new one is that stream again after 31 more
         self.stream = torch.cuda.Stream(device)
+        while self.stream.cuda_stream == parent.cuda_stream:
+            self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.opened = 0
         self.step_slots = 0
@@ -108,6 +120,33 @@ class _Capture:
         for _ in range(self.opened):
             torch._C._cuda_releasePool(self.device.index, self.pool)
         self.opened = 0
+
+
+def _capturing() -> bool:
+    """Whether a capture is in progress: one of this module's, or any on
+    this thread's current stream."""
+    return bool(_CAPTURES) or (torch.cuda.is_initialized()
+                               and torch.cuda.is_current_stream_capturing())
+
+
+def _free_graph(graph: torch.cuda.CUDAGraph, capture: "_Capture") -> None:
+    """Free ``graph`` and its IF bodies' pool, or, while a capture is in
+    progress, once it has ended: a graph destroyed (or its pools given
+    back) inside another capture kills the process with a segmentation
+    fault in that capture's end (fault 9: the garbage collector, which
+    frees a program and its engine's reference cycle, runs whenever
+    Python allocates, so also inside a capture)."""
+    _DEFERRED.append((graph, capture))
+    _free_deferred()
+
+
+def _free_deferred() -> None:
+    """Free the graphs set aside by :func:`_free_graph`, unless a capture
+    is still in progress."""
+    while _DEFERRED and not _capturing():
+        graph, capture = _DEFERRED.pop()
+        graph.reset()
+        capture.release()
 
 
 def _copy_to_device(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -212,10 +251,11 @@ class CapturedCall:
         wrappers = list(_build.COUNTED)
         before = [w.launches for w in wrappers]
         stream.wait_stream(torch.cuda.current_stream(stream.device))
-        self.capture = _Capture(stream.device)
-        # the IF bodies' pool goes with the graph (its references to the
-        # pool's memory die first: the graph is this object's)
-        weakref.finalize(self, self.capture.release)
+        self.capture = _Capture(stream)
+        # the graph and the IF bodies' pool go together, when this object
+        # dies or is released, and never inside a capture
+        self._free = weakref.finalize(self, _free_graph, self.graph,
+                                      self.capture)
         _CAPTURES.append(self.capture)
         try:
             with torch.cuda.graph(self.graph, stream=stream,
@@ -223,6 +263,7 @@ class CapturedCall:
                 fn()
         finally:
             _CAPTURES.pop()
+            _free_deferred()
         self.if_nodes, self.step_slots = (self.capture.opened,
                                           self.capture.step_slots)
         # nothing ran: the launches belong to the replays
@@ -249,10 +290,10 @@ class CapturedCall:
                     w.launches += n
 
     def release(self) -> None:
-        """Free the graph and its IF bodies' pool now, whoever still holds
-        this object; it is not replayed again."""
-        self.graph.reset()
-        self.capture.release()
+        """Free the graph and its IF bodies' pool now (inside a capture:
+        once it has ended), whoever still holds this object; it is not
+        replayed again."""
+        self._free()
 
 
 def new_stats() -> Dict[str, float]:
@@ -339,6 +380,7 @@ def release_all() -> None:
     for prog in list(_PROGRAMS):
         prog.release()
     gc.collect()
+    _free_deferred()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 

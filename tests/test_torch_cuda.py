@@ -32,7 +32,11 @@ one capture for a sweep of periods of different row counts, bit-equal
 to the unfused sweep; a fused program replayed inside a trace after an
 earlier trace, and after two (fault 8's reproducer). A fused phase
 captured on a one-rank NCCL mesh, bit-equal to its calls on the same
-mesh; SPMF's graphed epochs equal to its eager ones.
+mesh; SPMF's graphed epochs equal to its eager ones. Faults 9 and 10: a
+program freed by the garbage collector inside another capture, and an IF
+body stream that was the capture stream; the programs' memory when a
+program is released right after its replay, when IF bodies reuse each
+other's blocks and under pinned fills of queued replays.
 """
 
 import json
@@ -47,6 +51,7 @@ from sml_tpu_torch.ops import adam_kernel as AK
 from sml_tpu_torch.ops import eval_kernel as E
 from sml_tpu_torch.ops import probe_kernels as PK
 from sml_tpu_torch.ops import transfer_kernel as TK
+from sml_tpu_torch.scripts.program_stress import ragged_dataset
 
 pytestmark = pytest.mark.cuda
 
@@ -1008,31 +1013,6 @@ def test_generator_skip_ahead_matches_replays(card):
                            torch.rand(5, generator=eg, device=card))
 
 
-def _ragged_dataset(root):
-    """Five periods whose train and test row counts and item pools all
-    differ (the card's counterpart of ``test_torch_sweep_program.py``'s
-    dataset)."""
-    from sml_tpu_torch.config import DataSpec
-    from sml_tpu_torch.data.formats import DatasetInfo, write_dataset
-    rng = np.random.default_rng(11)
-    train_rows, test_rows = (700, 420, 910, 515, 650), (90, 61, 118, 75, 102)
-    train, test = [], {}
-    for p, (n, m) in enumerate(zip(train_rows, test_rows)):
-        lo = 7 * p
-        train.append(np.stack([rng.integers(0, 200, n),
-                               rng.integers(lo, lo + 60 + 5 * p, n)], 1))
-        negs = np.stack([rng.choice(120, 20, replace=False)
-                         for _ in range(m)])
-        test[p] = np.concatenate([rng.integers(0, 200, (m, 1)),
-                                  rng.integers(lo, lo + 60, (m, 1)), negs],
-                                 axis=1)
-    write_dataset(str(root / "synth"), train, test,
-                  DatasetInfo(sum(train_rows), 200, 120))
-    return DataSpec(root=str(root), name="synth", num_periods=5,
-                    online_train_start=1, online_test_start=3,
-                    eval_neg_num=20)
-
-
 @pytest.mark.parametrize("extra", [
     {}, dict(eval_during_inner=True, eval_during_outer=True, log_norms=True,
              saddle_retries=1, saddle_mode="legacy", saddle_frac=0.0,
@@ -1045,7 +1025,7 @@ def test_one_capture_serves_a_ragged_sweep(card, tmp_path, extra):
     K1/K2/K3 launches equal but for the phase the fused guard adds.""" 
     from sml_tpu_torch.models.transfer import theta_leaves
     from sml_tpu_torch.train.driver import SMLDriver
-    spec = _ragged_dataset(tmp_path)
+    spec = ragged_dataset(tmp_path)
     counted = (AK.decay_adam_cuda, TK.transfer_rows_cuda, E.masked_rank_cuda)
     runs = []
     for fuse in (dict(), dict(fuse_phases=False, fuse_period=False)):
@@ -1287,7 +1267,7 @@ def test_graphed_spmf_matches_eager(card, tmp_path, monkeypatch):
     the generator and the recalls equal."""
     from sml_tpu_torch.config import BaselineConfig
     from sml_tpu_torch.train import baselines
-    spec = _ragged_dataset(tmp_path)
+    spec = ragged_dataset(tmp_path)
 
     class Eager:
         def __init__(self, epoch, *_):
@@ -1331,3 +1311,195 @@ def test_spmf_draw_cdf_is_the_same_every_run(card):
     assert first.device == p.device
     assert all(torch.equal(first, draw_cdf(p)) for _ in range(5))
     assert torch.equal(first.cpu(), torch.cumsum(p.cpu(), 0))
+
+
+def _slot_program(site, n=256, slots=4, inside=None):
+    """A program of ``slots`` step slots, each an IF node whose body
+    allocates its temporaries (from the IF bodies' pool) and adds ``(b +
+    1) * x @ x`` into ``acc``; ``inside(b)`` runs in slot b's body (fault
+    9's reproducers: the fused programs at their simplest)."""
+    from sml_tpu_torch.train import graphs
+
+    class Prog(graphs.Program):
+        def __init__(self):
+            super().__init__(site)
+            dev = site.device
+            g = torch.Generator().manual_seed(n + slots)
+            self.x = (torch.randn(n, n, generator=g) / n ** 0.5).to(dev)
+            self.acc = torch.zeros(n, n, device=dev)
+            self.slots = graphs.SlotTable(slots, dev)
+
+        def body(self, gen):
+            self.acc.zero_()
+            for b in range(slots):
+                with graphs.step_if(self.slots, b) as run:
+                    if run:
+                        y = self.x @ self.x
+                        self.acc.add_(y * float(b + 1))
+                        if inside is not None:
+                            inside(b)
+
+        def run(self, taken, gen):
+            self.slots.fill(taken)
+            self.launch(gen)
+            return self.acc
+
+        def want(self, taken):
+            return (self.x @ self.x) * float(taken * (taken + 1) // 2)
+    return Prog()
+
+
+def test_if_body_stream_differs_from_the_capture_stream(card):
+    """Fault 10: the IF bodies' stream came from PyTorch's pool of 32
+    streams, so once the process had made 31 more streams it was the
+    capture stream itself and ``sml_if_begin`` failed. The capture takes
+    a body stream that is not its own."""
+    from sml_tpu_torch.train import graphs
+    site = graphs.GraphSite(card)
+    gen = torch.Generator(device=card)
+    prog = _slot_program(site)
+    prog.run(4, gen)                      # the warm-up makes site.stream()
+    for _ in range(31):
+        torch.cuda.Stream(card)
+    for taken in (4, 2, 3):
+        out = prog.run(taken, gen).clone()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, prog.want(taken))
+    assert site.stats["captures"] == 1
+    prog.release()
+
+
+def test_a_program_collected_during_another_capture(card):
+    """Fault 9 (ROADMAP §3): a captured program that only the garbage
+    collector can free (a reference cycle, as a program and its engine
+    make) is collected inside another program's capture. Its
+    graph destroyed and its pools given back there, that capture's end
+    died of a segmentation fault. Now they are set aside until the
+    capture ends: it and its replays go on right, and then the first
+    program's graph and IF bodies' pool are freed."""
+    import gc
+
+    from sml_tpu_torch.train import graphs
+    site = graphs.GraphSite(card)
+    gen = torch.Generator(device=card)
+    first = _slot_program(site)
+    for _ in range(2):
+        first.run(3, gen)                 # warm-up, capture and a replay
+    torch.cuda.synchronize()
+    first_capture = first.call.capture
+    assert first_capture.opened == 4      # an IF node per slot
+    first.cycle = first
+    gc.disable()
+    try:
+        del first
+        collected = []
+        second = _slot_program(site, inside=lambda b: collected.append(
+            (gc.collect(), len(graphs._DEFERRED))))
+        out = second.run(4, gen).clone()  # captured: the site is warm
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    assert site.stats["captures"] == 2
+    # collected in the first IF body, set aside until the capture ended
+    assert collected[0][0] > 0 and collected[0][1] == 1
+    assert not graphs._DEFERRED and first_capture.opened == 0
+    torch.testing.assert_close(out, second.want(4))
+    for taken in (1, 4):
+        out = second.run(taken, gen).clone()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, second.want(taken))
+    second.release()
+
+
+def test_release_right_after_a_replay(card):
+    """Fault 9, hypothesis "release without a wait": a program released
+    while its replay still runs (its graph reset, its pools given back),
+    the cache emptied and the freed memory taken and written at once:
+    the replay's result is right."""
+    from sml_tpu_torch.train import graphs
+    site = graphs.GraphSite(card)
+    gen = torch.Generator(device=card)
+    prog = _slot_program(site, n=4096, slots=8)
+    want = prog.want(8)
+    prog.run(8, gen)
+    prog.run(8, gen)
+    torch.cuda.synchronize()
+    out = prog.run(8, gen)                # in flight: ~20 ms of products
+    prog.release()
+    torch.cuda.empty_cache()
+    junk = [torch.full((4096, 4096), float("nan"), device=card)
+            for _ in range(8)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want)
+    del junk
+
+
+def test_if_bodies_reusing_a_block_stay_ordered(card):
+    """Fault 9, hypothesis "pool blocks reused across slots": each slot's
+    body allocates a 64 MB temporary, which the next slot's body takes
+    again (the block freed when the body's tensor dies); the graph orders
+    the IF nodes, so every slot reads its own values, replay after
+    replay."""
+    from sml_tpu_torch.train import graphs
+    site = graphs.GraphSite(card)
+    slots, n = 6, 1 << 24
+    table = graphs.SlotTable(slots, card)
+    sums = torch.zeros(slots, device=card)
+
+    def body():
+        sums.zero_()
+        for b in range(slots):
+            with graphs.step_if(table, b) as run:
+                if run:
+                    t = torch.full((n,), 2.0 ** b, device=card)
+                    sums[b] = t.sum()
+                    del t
+    table.fill(slots)
+    graphs.run_on(site.stream(), body)
+    call = graphs.CapturedCall(body, site.stream())
+    for taken in (6, 3, 6, 1) * 5:
+        table.fill(taken)
+        call.replay()
+        got = sums.clone()
+        torch.cuda.synchronize()
+        want = torch.tensor([2.0 ** b * n if b < taken else 0.0
+                             for b in range(slots)], device=card)
+        assert torch.equal(got, want), (taken, got)
+    call.release()
+
+
+def test_pinned_fills_between_queued_replays(card):
+    """Fault 9, hypothesis "pinned temporaries": 200 runs queued without
+    a wait, each filling the slot table and the bias table from a pinned
+    temporary the host drops at once; every replay reads its own run's
+    values."""
+    from sml_tpu_torch.train import graphs
+    from sml_tpu_torch.train.optim import BiasTable, bias_corrections
+    site = graphs.GraphSite(card)
+    table = graphs.SlotTable(4, card)
+    bias = BiasTable(4, card)
+    seen = torch.zeros(4, 2, device=card)
+    taken_seen = torch.zeros(4, device=card)
+
+    def body():
+        seen.copy_(bias.buf)
+        taken_seen.copy_(table.dev.float())
+    table.fill(4)
+    bias.fill(0)
+    graphs.run_on(site.stream(), body)
+    call = graphs.CapturedCall(body, site.stream())
+    hist, hist_taken = [], []
+    for k in range(200):
+        table.fill(k % 5)
+        bias.fill(k)
+        call.replay()
+        hist.append(seen.clone())
+        hist_taken.append(taken_seen.clone())
+    torch.cuda.synchronize()
+    for k in range(200):
+        want = torch.tensor([bias_corrections(k + 1 + b) for b in range(4)],
+                            device=card)
+        assert torch.equal(hist[k], want), k
+        assert hist_taken[k].tolist() == [float(b < k % 5)
+                                          for b in range(4)], k
+    call.release()

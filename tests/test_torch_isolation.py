@@ -62,6 +62,8 @@ def test_port_sources_import_no_jax_or_reference():
                                          "multihost", "dryrun")} <= names
     # and the fused programs' CUDA graphs
     assert "train/graphs.py" in names
+    # and the memory checks' driver and the programs' stress run
+    assert {"scripts/sanitize.py", "scripts/program_stress.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
