@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port's paths once on one NVIDIA GPU: serving, the training
 sweep, the eval-design probes, the pretrainer, the baselines, every
-transfer kind, ingest into an attributed, profiled ``sml`` run, and the
-parallel layer (two ranks sharing the card, and the multi-process CLI).
+transfer kind, ingest into an attributed, profiled ``sml`` run, the
+engine at production scale, and the parallel layer (two ranks sharing
+the card, and the multi-process CLI).
 
 Run from the repository root, on a host with one CUDA card:
 
@@ -245,6 +246,37 @@ Phases, one JSON line each:
             and an attributed evaluation of it, each called directly under
             the profiler, with the engine's own spans inside
             ``make_eval_set`` (hash, padding and upload, mask).
+17b. scale  the JAX package's one-chip production shape (5,000,000
+            users x 1,000,000 items, d=64, bf16 snapshots, two phases, a
+            4,096 x 1,001 test: ``SCALE_ARGS``) through the core of
+            ``python -m sml_tpu_torch.scripts.scale_engine_run``, the
+            launch counters zeroed just before and read just after: the
+            auto rule must resolve the row-sparse Adam (6M rows), K3
+            launch once per inner step and K1 twice per refresh, K2 never
+            (1M items > the 262,144-item mask cap: the gather path);
+            losses finite; the final tables within ``K1_TOL`` of K1's
+            plain version on the snapshots on each side's first and last
+            ``SCALE_SAMPLE`` rows and as many at random; the card's ranks
+            of ``SCALE_RECOUNT`` test rows on the final tables within the
+            f32 rounding bounds of an f64 recount on the CPU (the
+            untrained refresh pulls the rows within a few units of the
+            last place of each other, so most ranks there are rounding:
+            the line counts them), and the hits of the same rows on the
+            run's first tables (drawn again from the seed) equal on the
+            card and the CPU; top-``SCALE_K`` serving of ``SCALE_SERVE``
+            users (ms a batch, peak), ``SCALE_CHECK`` of them equal to a CPU
+            top-K but at ties (``PAR_TIE``); the inner step at 6M rows
+            with the row-sparse path and with dense gradients. Then K2 at
+            the cap: an engine of ``CAP_USERS`` x ``CAP_ITEMS`` with
+            masked scoring evaluates ``CAP_ROWS`` rows (its launches
+            counted), its hits and ranks equal to the gather path's on
+            integer-valued tables. Then past 2^31 elements: K3 on one
+            ``EDGE_TABLE_ROWS`` x 64 f32 table and K1 on as many bf16
+            rows, each against its plain version on ``EDGE_WINDOW`` rows
+            at the start, on both sides of element 2^31 and at the end
+            (K3 ``mu``/``nu`` bit-equal, ``p`` rtol ``K3_RTOL``; K1
+            ``K1_TOL``), with their ms and bounds. Peak memory and
+            seconds of each part.
 18. parallel  three worlds spawned with a timeout each
             (``parallel.dryrun.run_world``): R=1; two ranks sharing the
             card over gloo on a (1, 2) mesh (tables row-sharded, the
@@ -295,8 +327,9 @@ Phases, one JSON line each:
             launches derived from the data times the replays.
 19. the card's name and power limit as nvidia-smi prints them, the
    ``kernels`` line (launches from each kernel's own path: the train
-   sweep, the fused sweep, both fused-evals runs, both mesh-fused runs
-   and the parallel phase's ranks for K1-K3, the probes for P1-P3),
+   sweep, the fused sweep, both fused-evals runs, both mesh-fused runs,
+   the scale run and the engine at the mask cap, and the parallel
+   phase's ranks for K1-K3, the probes for P1-P3),
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -411,6 +444,25 @@ INGEST_SML_ARGS = ["--multi-num", str(INGEST_MULTI_NUM), "--mf-sample",
                    "alone", "--transfer-type", "conv_com_root",
                    "--eval-scoring", "masked", "--saddle-retries", "0",
                    "--attributed-eval"]
+# scale: the JAX package's one-chip production shape (its
+# benchmarks_scale_r5.json "scale_5m_chip_bf16snap_r5"), the scale
+# script's other flags at their defaults; rows sampled, recounted, served
+# and checked, and the replay rows of the fast-vs-dense inner step
+SCALE_ARGS = ["--users", "5000000", "--items", "1000000",
+              "--snapshot-dtype", "bfloat16"]
+SCALE_SAMPLE, SCALE_RECOUNT = 4096, 256
+SCALE_SERVE, SCALE_K, SCALE_CHECK = 1024, 100, 8
+SCALE_CROSS_ROWS = 8192
+# K2 at the engine's mask cap (SMLConfig.eval_mask_max_items): an engine
+# of CAP_USERS x CAP_ITEMS with masked scoring, its ranks on CAP_ROWS rows
+# (distinct candidates) against the gather path's on integer-valued
+# tables (every score exact in f32)
+CAP_USERS, CAP_ITEMS, CAP_ROWS = 1_000_000, 262_144, 4096
+# the 2^31-element edge: one table of EDGE_TABLE_ROWS x DIM f32 elements
+# (2,181,038,080) for K3 and as many bf16 rows for K1, each held to its
+# plain version on EDGE_WINDOW rows at the start, on both sides of element
+# 2^31 and at the end
+EDGE_TABLE_ROWS, EDGE_WINDOW = 34_078_720, 4096
 # parallel: three worlds of the replay phase, a test and serving at the
 # Yelp shape; name, ranks, (data, model) mesh (None: one rank alone). Two
 # ranks share the one card over gloo.
@@ -1069,24 +1121,22 @@ def random_tables(torch, seed: int):
                     torch.randn(N_ITEMS, 1, generator=g))
 
 
-def phase_crossover(torch):
-    """One inner step at the Yelp shape with the row-sparse path (K3) and
-    with dense gradients; replay rows, so both run the same steps."""
-    from sml_tpu_torch.config import yelp_sml
+def crossover(torch, base_cfg, n_users: int, n_items: int, rows,
+              pretrained) -> dict:
+    """One inner epoch of replay ``rows`` with the row-sparse path (K3) and
+    with dense gradients from the tables ``pretrained`` (after a warm-up
+    epoch each), in the order fast, dense, dense, fast: ms per step by
+    CUDA events and by the host's clock."""
     from sml_tpu_torch.train.engine import SMLEngine
 
-    rows = seeded_rows(INNER_ROWS, SEED + 51)
-    pretrained = random_tables(torch, SEED + 52)
-    out = {"phase": "crossover", "rows": N_USERS + N_ITEMS,
-           "batch": yelp_sml().mf_batch_size,
-           "auto_rule": "fast iff rows >= 1,000,000 and batch <= 2048"}
+    steps = -(-rows.shape[0] // base_cfg.mf_batch_size)
+    out = {"rows": n_users + n_items, "batch": base_cfg.mf_batch_size}
     for fast in (True, False, False, True):
-        cfg = yelp_sml().replace(replay_mode=True, fast_table_adam=fast)
-        eng = SMLEngine(cfg, N_USERS, N_ITEMS, device="cuda")
+        cfg = base_cfg.replace(replay_mode=True, fast_table_adam=fast)
+        eng = SMLEngine(cfg, n_users, n_items, device="cuda")
         state = eng.snapshot_last(eng.init_state(pretrained_mf=pretrained))
         padded, index = eng.prep_inner(rows)
         state, _ = eng.inner_epoch(state, padded, index)      # warm-up
-        steps = -(-INNER_ROWS // cfg.mf_batch_size)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -1100,7 +1150,21 @@ def phase_crossover(torch):
         out.setdefault(f"{name}_step_ms", []).append(
             start.elapsed_time(stop) / steps)
         out.setdefault(f"{name}_step_wall_ms", []).append(wall)
-    emit(out)
+        del state, eng, padded, index
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_crossover(torch):
+    """One inner step at the Yelp shape with the row-sparse path (K3) and
+    with dense gradients; replay rows, so both run the same steps."""
+    from sml_tpu_torch.config import yelp_sml
+
+    emit({"phase": "crossover",
+          "auto_rule": "fast iff rows >= 1,000,000 and batch <= 2048",
+          **crossover(torch, yelp_sml(), N_USERS, N_ITEMS,
+                      seeded_rows(INNER_ROWS, SEED + 51),
+                      random_tables(torch, SEED + 52))})
 
 
 def kernel_counts(ak, tk, ek):
@@ -2944,6 +3008,307 @@ def phase_ingest_sweep(torch, dev: str = "cuda"):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def scale_refresh_error(torch, state) -> float:
+    """The largest difference between the final tables and K1's plain
+    version on the same snapshots and Θ, over each side's first and last
+    ``SCALE_SAMPLE`` rows and ``SCALE_SAMPLE`` drawn at random."""
+    from sml_tpu_torch.ops.transfer_kernel import transfer_rows_plain
+    g = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    err = 0.0
+    for table, last, hat, tower in (
+            (state.mf.user_emb, state.last_user, state.hat_user,
+             state.theta.user),
+            (state.mf.item_emb, state.last_item, state.hat_item,
+             state.theta.item)):
+        n = table.shape[0]
+        rows = torch.cat([
+            torch.arange(SCALE_SAMPLE, device="cuda"),
+            torch.arange(n - SCALE_SAMPLE, n, device="cuda"),
+            torch.randint(0, n, (SCALE_SAMPLE,), generator=g,
+                          device="cuda")])
+        want = transfer_rows_plain(tower, last[rows], hat[rows])
+        err = max(err, (table[rows] - want).abs().max().item())
+    return err
+
+
+def scale_recount(torch, mf, rows) -> dict:
+    """The card's ranks of eval-format ``rows`` on the tables ``mf`` (the
+    engine's gather ranker) against a recount in f64 on the CPU: each rank
+    must lie between the candidates whose f64 score beats the target's by
+    more than ``bound`` and those within ``bound`` of it or above, where
+    ``bound`` is twice the worst-case f32 rounding of a dot product of
+    n = 64 terms in any order (n · 2^-24 · the sum of |products|, with
+    66 for n as a margin). Tables whose rows lie within a few units of
+    the last place of each other (Θ's untrained refresh pulls them
+    together) leave many candidates inside the bound: their ranks are
+    rounding, and the line says how many rows and how far apart the rows
+    are."""
+    from sml_tpu_torch.eval.evaluator import _make_ranker
+    r = torch.from_numpy(rows).cuda()
+    prep, rank = _make_ranker("gather")
+    card = rank(prep(mf), r, None, slice(0, rows.shape[0])).long().cpu()
+    u = mf.user_emb[r[:, 0]].double().cpu()
+    v = mf.item_emb[r[:, 1:]].double().cpu()
+    score = torch.einsum("bd,bcd->bc", u, v)
+    size = torch.einsum("bd,bcd->bc", u.abs(), v.abs())
+    bound = 2 * 66 * 2.0 ** -24 * torch.maximum(size[:, 1:], size[:, :1])
+    gap = score[:, 1:] - score[:, :1]
+    lo, hi = (gap > bound).sum(1), (gap >= -bound).sum(1)
+    item = mf.item_emb
+    return {"rows": rows.shape[0],
+            "rows_outside_bounds": int(((card < lo) | (card > hi)).sum()),
+            "rows_with_ties_in_bound": int((hi > lo).sum()),
+            "card_hits@20": int((card < 20).sum()),
+            "f64_hits@20": int(((gap > 0).sum(1) < 20).sum()),
+            "item_spread": (item.std(0).mean() / item.abs().mean()).item()}
+
+
+def scale_cap(torch) -> tuple:
+    """K2 at the engine's mask cap: the masked evaluation of ``CAP_ROWS``
+    rows through an engine at ``CAP_USERS`` x ``CAP_ITEMS`` (its launches
+    counted), its hits and its ranks against the gather path's on the same
+    integer-valued tables."""
+    from sml_tpu_torch.config import SMLConfig, TransferConfig
+    from sml_tpu_torch.eval.evaluator import _make_ranker
+    from sml_tpu_torch.models.mf import MFParams
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+    from sml_tpu_torch.train.engine import SMLEngine
+
+    cfg = SMLConfig(latent_dim=DIM, transfer=TransferConfig(latent_dim=DIM),
+                    eval_scoring="masked")
+    check(CAP_ITEMS == cfg.eval_mask_max_items, "the cap moved")
+    eng = SMLEngine(cfg, CAP_USERS, CAP_ITEMS, device="cuda")
+    st = eng.init_state()
+    mf = MFParams(torch.round(st.mf.user_emb * 2),
+                  torch.round(st.mf.item_emb * 2), st.mf.user_bias,
+                  st.mf.item_bias)
+    del st
+    rows = distinct_eval_rows(torch, CAP_ROWS, CAP_USERS, CAP_ITEMS,
+                              SEED + 63)
+    padded = eng.make_eval_set(rows, build_mask=True)
+    check(padded.cand_mask is not None, "no mask at the cap")
+    torch.cuda.synchronize()
+    zero_counts(ak, tk, ek)
+    t0 = time.perf_counter()
+    masked = eng.evaluate(mf, padded)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = kernel_counts(ak, tk, ek)
+    check(launches["masked_rank_gather_kernel"] == CAP_ROWS // EVAL_BATCH
+          and launches["decay_adam_kernel"] == 0
+          and launches["transfer_rows_kernel"] == 0,
+          f"cap launches {launches}")
+    gather = SMLEngine(cfg.replace(eval_scoring="gather"), CAP_USERS,
+                       CAP_ITEMS, device="cuda").evaluate(mf, rows)
+    hits = {k: (round(masked[k]["recall"] * CAP_ROWS),
+                round(gather[k]["recall"] * CAP_ROWS)) for k in masked}
+    check(all(a == b for a, b in hits.values()),
+          f"masked hits {hits} differ from the gather path's at the cap")
+    ranks = {}
+    for mode in ("masked", "gather"):
+        prep, rank = _make_ranker(mode)
+        ctx = prep(mf)
+        ranks[mode] = torch.cat([
+            rank(ctx, padded.rows[s:s + EVAL_BATCH],
+                 padded.cand_mask[s:s + EVAL_BATCH] if mode == "masked"
+                 else None, slice(s, s + EVAL_BATCH))
+            for s in range(0, CAP_ROWS, EVAL_BATCH)])
+    check(torch.equal(ranks["masked"].long(), ranks["gather"].long()),
+          f"K2 ranks differ from the gather path's at the cap in "
+          f"{int((ranks['masked'].long() != ranks['gather'].long()).sum())}"
+          f" rows")
+    out = {"users": CAP_USERS, "items": CAP_ITEMS, "rows": CAP_ROWS,
+           "eval_s": eval_s, "launches": launches,
+           "hits_masked_gather": hits, "ranks_equal": True}
+    del eng, mf, padded
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def scale_edge(torch) -> dict:
+    """K3 on one f32 table and K1 on as many bf16 rows past 2^31 elements,
+    each against its plain version on windows of rows at the start, on
+    both sides of element 2^31 and at the end; seconds per call, peak."""
+    from sml_tpu_torch.config import TransferConfig, yelp_sml
+    from sml_tpu_torch.models.transfer import init_transfer
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import transfer_kernel as tk
+    from sml_tpu_torch.train.optim import (ADAM_B1, ADAM_B2, ADAM_EPS,
+                                           BiasTable, bias_corrections)
+
+    n, w = EDGE_TABLE_ROWS, EDGE_WINDOW
+    elems = n * DIM
+    check(elems > 2 ** 31, "the edge table does not pass 2^31 elements")
+    mid = 2 ** 31 // DIM
+    wins = [slice(0, w), slice(mid - w, mid + w), slice(n - w, n)]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rows": n, "elements": elems}
+
+    p = torch.randn(n, DIM, generator=g, device="cuda")
+    mu = torch.randn(n, DIM, generator=g, device="cuda") * 0.1
+    nu = torch.rand(n, DIM, generator=g, device="cuda") * 0.01
+    saved = [(p[s].clone(), mu[s].clone(), nu[s].clone()) for s in wins]
+    bc1, bc2 = bias_corrections(K3_STEP)
+    table = BiasTable(1, "cuda")
+    table.fill(K3_STEP - 1)
+    bc_dev = table.at(K3_STEP, ADAM_B1, ADAM_B2)
+    kw = dict(lr=yelp_sml().mf_lr, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ak.fused_decay_adam(p, mu, nu, *bc_dev, **kw)
+    torch.cuda.synchronize()
+    out["k3_first_call_s"] = time.perf_counter() - t0
+    err, p_not_equal = 0.0, 0
+    for (ps, ms, ns), s in zip(saved, wins):
+        ak.decay_adam_plain(ps, ms, ns, bc1, bc2, **kw)
+        check(torch.equal(mu[s], ms) and torch.equal(nu[s], ns),
+              f"K3 mu/nu past 2^31 differ from the plain version at {s}")
+        check(torch.allclose(p[s], ps, rtol=K3_RTOL, atol=0.0),
+              f"K3 p past 2^31 outside rtol {K3_RTOL} at {s}")
+        p_not_equal += int((p[s] != ps).sum())
+        err = max(err, (p[s] - ps).abs().max().item())
+    out["k3_max_abs_err"], out["k3_p_not_bit_equal"] = err, p_not_equal
+    out["k3_ms"] = cuda_ms(
+        lambda: ak.fused_decay_adam(p, mu, nu, *bc_dev, **kw), 3)
+    out["k3_bound_ms"], _ = bound_ms(8 * elems, 24 * elems)
+    del p, mu, nu, saved
+    torch.cuda.empty_cache()
+
+    tower = init_transfer(torch.Generator().manual_seed(SEED + 65),
+                          TransferConfig(latent_dim=DIM),
+                          device="cuda").user
+    last = torch.randn(n, DIM, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    hat = torch.randn(n, DIM, generator=g, device="cuda",
+                      dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tk.transfer_rows_cuda(tower, last, hat)
+    torch.cuda.synchronize()
+    out["k1_first_call_s"] = time.perf_counter() - t0
+    err = 0.0
+    for s in wins:
+        want = tk.transfer_rows_plain(tower, last[s], hat[s])
+        check(bool(torch.isfinite(got[s]).all()), f"K1 not finite at {s}")
+        err = max(err, (got[s] - want).abs().max().item())
+    check(err <= K1_TOL, f"K1 past 2^31 elements off its plain version by "
+                         f"{err}")
+    out["k1_max_abs_err"] = err
+    out["k1_ms"] = cuda_ms(
+        lambda: tk.transfer_rows_cuda(tower, last, hat, out=got), 3)
+    out["k1_bound_ms"], _ = bound_ms(k1_flops(n, DIM),
+                                     n * DIM * (2 + 2 + 4))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del last, hat, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_scale(torch) -> dict:
+    from sml_tpu_torch.models.mf import MFParams, init_mf
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+    from sml_tpu_torch.scripts import scale_engine_run
+    from sml_tpu_torch.scripts.scale_serve import untied_rows
+    from sml_tpu_torch.train.engine import SMLEngine
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    args = scale_engine_run.build_parser().parse_args(SCALE_ARGS)
+    torch.cuda.synchronize()
+    zero_counts(ak, tk, ek)
+    eng, state, res, info = scale_engine_run.run_scale(args, "cuda")
+    torch.cuda.synchronize()
+    launches = kernel_counts(ak, tk, ek)
+    run_s = time.perf_counter() - t_phase
+    steps = info["inner_steps"] * args.phases
+    out = {"phase": "scale", "result": res, "run_s": run_s,
+           "init_s": info["init_seconds"],
+           "fast_table_adam": info["fast_table_adam"],
+           "inner_steps": info["inner_steps"],
+           "outer_steps": info["outer_steps"],
+           "peak_gib": {k: v / 2 ** 30
+                        for k, v in info["peak_bytes"].items()},
+           "launches": dict(launches)}
+    check(info["fast_table_adam"] is True,
+          "the auto rule kept 6M rows on dense gradients")
+    check(state.hat_user.dtype == torch.bfloat16,
+          "the snapshots are not bf16")
+    check(launches["decay_adam_kernel"] == steps,
+          f"K3 launched {launches['decay_adam_kernel']} times for {steps} "
+          f"inner steps")
+    check(launches["transfer_rows_kernel"] == 2 * 2 * args.phases,
+          f"K1 launched {launches['transfer_rows_kernel']} times, not 2 "
+          f"per refresh")
+    check(launches["masked_rank_gather_kernel"] == 0,
+          "K2 launched on the gather path")
+    check(all(math.isfinite(x) for part in info["losses"].values()
+              for phase in part for x in phase), "a loss is not finite")
+
+    out["refresh_max_abs_err"] = scale_refresh_error(torch, state)
+    check(out["refresh_max_abs_err"] <= K1_TOL,
+          f"the scale refresh is off K1's plain version by "
+          f"{out['refresh_max_abs_err']}")
+
+    rows = info["test_rows"][:SCALE_RECOUNT]
+    out["recount"] = scale_recount(torch, state.mf, rows)
+    check(out["recount"]["rows_outside_bounds"] == 0,
+          f"card ranks outside the f64 recount's bounds: {out['recount']}")
+    # the run's first tables (drawn again from the seed: N(0,1) rows, well
+    # apart) through the same evaluation on the card and on the CPU: hits
+    # equal
+    first = init_mf(torch.Generator().manual_seed(eng.cfg.seed),
+                    eng.n_users, eng.n_items, eng.cfg.latent_dim,
+                    device="cpu", emb_scale=eng.cfg.emb_init_scale)
+    card = eng.evaluate(MFParams(*(t.cuda() for t in first)), rows)
+    host = SMLEngine(eng.cfg, eng.n_users, eng.n_items,
+                     device="cpu").evaluate(first, rows)
+    recount = {k: (round(card[k]["recall"] * SCALE_RECOUNT),
+                   round(host[k]["recall"] * SCALE_RECOUNT)) for k in card}
+    check(all(a == b for a, b in recount.values()),
+          f"eval hits on the first tables (card, cpu) {recount} differ")
+    out["first_tables_hits_card_cpu"] = recount
+    del first
+    mf_cpu = MFParams(*(t.cpu() for t in state.mf))
+
+    users = torch.from_numpy(np.random.default_rng(SEED + 66).choice(
+        eng.n_users, SCALE_SERVE, replace=False)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    eng.serve_topk(state.mf, users, SCALE_K)
+    torch.cuda.synchronize()
+    out["serve_ms"] = cuda_ms(lambda: eng.serve_topk(state.mf, users,
+                                                     SCALE_K), 5)
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, ids = eng.serve_topk(state.mf, users, SCALE_K)
+    out["serve_check"] = untied_rows(
+        mf_cpu.user_emb[users[:SCALE_CHECK].cpu()].numpy(),
+        mf_cpu.item_emb.numpy(), ids[:SCALE_CHECK].cpu().numpy(), SCALE_K,
+        PAR_TIE)
+    check(out["serve_check"]["rows_differ_untied"] == 0,
+          f"served top-{SCALE_K} differs from the CPU's other than at ties: "
+          f"{out['serve_check']}")
+    del mf_cpu
+
+    rng = np.random.default_rng(SEED + 62)
+    out["crossover"] = crossover(
+        torch, eng.cfg, eng.n_users, eng.n_items,
+        np.stack([rng.integers(0, n, SCALE_CROSS_ROWS)
+                  for n in (eng.n_users, eng.n_items, eng.n_items)], 1),
+        state.mf)
+    del eng, state
+    torch.cuda.empty_cache()
+    out["cap"], cap_launches = scale_cap(torch)
+    out["edge"] = scale_edge(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {k: launches[k] + cap_launches[k] for k in launches}
+
+
 def write_parallel_data(torch, path: str) -> None:
     """The parallel phase's inputs, one ``.npz`` that every rank reads:
     the train-lockstep phase's replay rows and pretrained tables, a
@@ -3177,6 +3542,8 @@ def main() -> int:
             shutil.rmtree(root, ignore_errors=True)
         phase_transfer_kinds(torch)
         phase_ingest_sweep(torch)
+        for k, v in phase_scale(torch).items():
+            launches[k] += v
         par_launches = phase_parallel(torch)
         for k, v in par_launches.items():
             launches[k] += v

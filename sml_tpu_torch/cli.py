@@ -61,18 +61,54 @@ def _add_data_args(p):
     p.add_argument("--checkpoint-dir", default=None)
 
 
+def npz_arrays(path: str) -> dict:
+    """The arrays of an ``.npz`` by name, read lazily: a stored
+    (uncompressed, as ``np.savez`` writes) member is a read-only memory map
+    of the file, so a caller reads from disk only the rows it takes; a
+    compressed member is read whole."""
+    import struct
+    import zipfile
+
+    import numpy as np
+    fmt = np.lib.format
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as fh:
+        for info in zf.infolist():
+            name = info.filename.removesuffix(".npy")
+            if info.compress_type == zipfile.ZIP_STORED:
+                # the member's bytes follow its local header, whose name
+                # and extra fields may differ in length from the central
+                # directory's
+                fh.seek(info.header_offset + 26)
+                n_name, n_extra = struct.unpack("<HH", fh.read(4))
+                fh.seek(info.header_offset + 30 + n_name + n_extra)
+                version = fmt.read_magic(fh)
+                read_header = {(1, 0): fmt.read_array_header_1_0,
+                               (2, 0): fmt.read_array_header_2_0}.get(version)
+                if read_header is not None:
+                    shape, fortran, dtype = read_header(fh)
+                    if not dtype.hasobject and 0 not in shape:
+                        out[name] = np.memmap(
+                            path, dtype=dtype, mode="r", offset=fh.tell(),
+                            shape=shape, order="F" if fortran else "C")
+                        continue
+            with zf.open(info) as member:
+                out[name] = fmt.read_array(member)
+    return out
+
+
 def _load_mf(path: str, device, item_rows: slice = slice(None)):
     """The ``.npz`` tables on ``device``; ``item_rows`` keeps a row block
-    of the item table (cut on the host)."""
+    of the item table (only those rows are read from the file)."""
     import numpy as np
     import torch
 
     from sml_tpu_torch.models.mf import MFParams
-    with np.load(path) as blob:
-        return MFParams(*(
-            torch.from_numpy(np.ascontiguousarray(
-                blob[f][item_rows] if f == "item_emb" else blob[f]))
-            .to(device) for f in MFParams._fields))
+    arrays = npz_arrays(path)
+    return MFParams(*(
+        torch.from_numpy(np.array(
+            arrays[f][item_rows] if f == "item_emb" else arrays[f],
+            order="C")).to(device) for f in MFParams._fields))
 
 
 def sml_config(args) -> C.SMLConfig:
@@ -286,30 +322,38 @@ def cmd_ingest(args) -> int:
 
 
 def cmd_rank(args) -> int:
-    """Full-catalog top-K serving from trained tables."""
+    """Full-catalog top-K serving from trained tables. Only the served
+    users' rows and this rank's item rows are read from the ``.npz``
+    (:func:`npz_arrays`), so no rank holds the whole user table, in host
+    memory or on its card. Process 0 also prints, to stderr, one JSON line
+    with the seconds taken to load and to serve."""
+    import time
+
     import numpy as np
     import torch
 
     from sml_tpu_torch.device import resolve_device
     from sml_tpu_torch.eval.full_ranking import recommend
+    from sml_tpu_torch.models.mf import MFParams
     from sml_tpu_torch.parallel.multihost import process_count, process_index
 
     device = resolve_device(args.device)
+    t0 = time.perf_counter()
     n_proc = process_count()
+    arrays = npz_arrays(args.model)
+    n_users, n_items = (arrays["user_emb"].shape[0],
+                        arrays["item_emb"].shape[0])
     mesh, item_rows = None, slice(None)
     if args.shard and n_proc > 1:
         # the item table's row block of this rank, over every rank
         from sml_tpu_torch.parallel.sharding import make_mesh
         mesh = make_mesh(1, n_proc)
-        with np.load(args.model) as blob:
-            n_items = blob["item_emb"].shape[0]
         if n_items % n_proc:
             raise ValueError(f"--shard: {n_items} items do not divide over "
                              f"{n_proc} ranks")
         per = n_items // n_proc
         item_rows = slice(mesh.index("model") * per,
                           (mesh.index("model") + 1) * per)
-    mf = _load_mf(args.model, device, item_rows)
 
     if args.users:
         users = np.asarray([int(u) for u in args.users.split(",")], np.int64)
@@ -317,17 +361,28 @@ def cmd_rank(args) -> int:
         with open(args.users_file) as fh:
             users = np.asarray([int(line) for line in fh if line.strip()],
                                np.int64)
-    n_users = mf.user_emb.shape[0]
     bad = users[(users < 0) | (users >= n_users)]
     if bad.size:
         print(f"error: user ids out of range [0, {n_users}): "
               f"{bad[:10].tolist()}", file=sys.stderr)
         return 2
 
+    def rows(name, sl):
+        return torch.from_numpy(np.array(arrays[name][sl], order="C")).to(
+            device)
+    item_emb, item_bias = rows("item_emb", item_rows), rows("item_bias",
+                                                            item_rows)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dtype = torch.bfloat16 if args.bf16 else None
     for start in range(0, users.shape[0], args.batch_size):
         chunk = users[start:start + args.batch_size]
-        scores, items = recommend(mf, torch.from_numpy(chunk), args.k,
+        # the batch's user rows stand in for the user table
+        mf = MFParams(rows("user_emb", chunk), item_emb,
+                      rows("user_bias", chunk), item_bias)
+        scores, items = recommend(mf, torch.arange(chunk.shape[0]), args.k,
                                   mesh=mesh, compute_dtype=dtype,
                                   topk_method=args.topk_method)
         scores = scores.cpu().numpy()
@@ -339,6 +394,13 @@ def cmd_rank(args) -> int:
                               "items": items[r].tolist(),
                               "scores": [round(float(s), 4)
                                          for s in scores[r]]}))
+    if process_index() == 0:
+        print(json.dumps({"rank_load_s": load_s,
+                          "rank_serve_s": time.perf_counter() - t0,
+                          "users": int(users.shape[0]),
+                          "batches": -(-users.shape[0] // args.batch_size),
+                          "items": n_items, "processes": n_proc}),
+              file=sys.stderr, flush=True)
     return 0
 
 

@@ -64,6 +64,9 @@ def test_port_sources_import_no_jax_or_reference():
     assert "train/graphs.py" in names
     # and the memory checks' driver and the programs' stress run
     assert {"scripts/sanitize.py", "scripts/program_stress.py"} <= names
+    # and the production-scale run, its serving check and the results file
+    assert {"scripts/scale_engine_run.py", "scripts/scale_serve.py",
+            "utils/results.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
