@@ -2,8 +2,9 @@
 """Drive the port's paths once on one NVIDIA GPU: serving, the training
 sweep, the eval-design probes, the pretrainer, the baselines, every
 transfer kind, ingest into an attributed, profiled ``sml`` run, the
-engine at production scale, and the parallel layer (two ranks sharing
-the card, and the multi-process CLI).
+engine at production scale, the Adressa and Yelp-scale protocol scripts,
+and the parallel layer (two ranks sharing the card, and the multi-process
+CLI).
 
 Run from the repository root, on a host with one CUDA card:
 
@@ -245,7 +246,8 @@ Phases, one JSON line each:
             wall ms of each span; then ``make_eval_set`` of the test file
             and an attributed evaluation of it, each called directly under
             the profiler, with the engine's own spans inside
-            ``make_eval_set`` (hash, padding and upload, mask).
+            ``make_eval_set`` (the id check, hash, padding and upload,
+            mask).
 17b. scale  the JAX package's one-chip production shape (5,000,000
             users x 1,000,000 items, d=64, bf16 snapshots, two phases, a
             4,096 x 1,001 test: ``SCALE_ARGS``) through the core of
@@ -276,7 +278,29 @@ Phases, one JSON line each:
             at the start, on both sides of element 2^31 and at the end
             (K3 ``mu``/``nu`` bit-equal, ``p`` rtol ``K3_RTOL``; K1
             ``K1_TOL``), with their ms and bounds. Peak memory and
-            seconds of each part.
+            seconds of each part. Then top-``SCALE_K`` over
+            ``SERVE5M_ITEMS`` items on the card for one batch of
+            ``SCALE_SERVE`` users (N(0,1) tables), f32 and bf16 inputs:
+            ms a batch, the peak, and ``SCALE_CHECK`` users' ids equal to
+            a CPU top-K (its inputs rounded the same way) but at ties.
+17c. protocols  the port's protocol scripts
+            (``scripts/adressa_run.py``, ``scripts/yelp_scale_sweep.py``)
+            through their phase functions at the protocols' full widths
+            and a cut depth (``PROTO_ADRESSA_CUT``, ``PROTO_YELP_CUT``):
+            gen and pretrain, then the sweep with ``--fuse-period on``
+            (one program for the run) and ``off`` (the eager path, no
+            program), each with its jsonl records: records and
+            ``results.json`` entries equal but for clocks, final state
+            (tables, snapshots, Θ, moments, counts, generator) bit-equal,
+            one program and one capture for the fused run and none for
+            the eager one, and in both runs the K1 and K2
+            launches the configuration implies (K1 two per refresh; K2 one
+            per batch of every in-training eval and test: Yelp-scale only,
+            whose 21,000 items take packed masks; K3 none, the auto rule
+            keeps these tables on dense gradients). Then the baselines:
+            Adressa's three for ``PROTO_BASE_PERIODS`` test period with
+            ``pool_init_type=1`` (the early stop), Yelp-scale's fine.
+            Seconds and peak memory of each run.
 18. parallel  three worlds spawned with a timeout each
             (``parallel.dryrun.run_world``): R=1; two ranks sharing the
             card over gloo on a (1, 2) mesh (tables row-sharded, the
@@ -328,7 +352,8 @@ Phases, one JSON line each:
 19. the card's name and power limit as nvidia-smi prints them, the
    ``kernels`` line (launches from each kernel's own path: the train
    sweep, the fused sweep, both fused-evals runs, both mesh-fused runs,
-   the scale run and the engine at the mask cap, and the parallel
+   the scale run and the engine at the mask cap, both runs of each
+   protocol sweep, and the parallel
    phase's ranks for K1-K3, the probes for P1-P3),
    and last ``{"ok": true, "device": {...}}``.
 
@@ -453,6 +478,10 @@ SCALE_ARGS = ["--users", "5000000", "--items", "1000000",
 SCALE_SAMPLE, SCALE_RECOUNT = 4096, 256
 SCALE_SERVE, SCALE_K, SCALE_CHECK = 1024, 100, 8
 SCALE_CROSS_ROWS = 8192
+# top-SCALE_K serving over SERVE5M_ITEMS items on the card: one batch of
+# SCALE_SERVE users on N(0,1) tables (rows well apart), f32 and bf16
+# inputs, SCALE_CHECK users held to a CPU top-K but at ties (PAR_TIE)
+SERVE5M_USERS, SERVE5M_ITEMS = 1_000_000, 5_000_000
 # K2 at the engine's mask cap (SMLConfig.eval_mask_max_items): an engine
 # of CAP_USERS x CAP_ITEMS with masked scoring, its ranks on CAP_ROWS rows
 # (distinct candidates) against the gather path's on integer-valued
@@ -463,6 +492,15 @@ CAP_USERS, CAP_ITEMS, CAP_ROWS = 1_000_000, 262_144, 4096
 # plain version on EDGE_WINDOW rows at the start, on both sides of element
 # 2^31 and at the end
 EDGE_TABLE_ROWS, EDGE_WINDOW = 34_078_720, 4096
+# protocols: the two protocol scripts' phase functions at their
+# protocols' full widths and a cut depth: Adressa (12,000 x 8,000, 8,000
+# interactions a period, d=64, 999 negatives, multi_num=7, two epochs)
+# over 8 periods, training from 2, testing 5-7, and each baseline for one
+# test period; Yelp-scale (31,000 x 21,000, 30,000 a period, multi_num=10,
+# in-training evals) over 6 periods, training from 2, testing 4-5
+PROTO_ADRESSA_CUT = dict(n_periods=8, train_start=2, test_start=5)
+PROTO_YELP_CUT = dict(n_periods=6, train_start=2, test_start=4)
+PROTO_BASE_PERIODS = 1
 # parallel: three worlds of the replay phase, a test and serving at the
 # Yelp shape; name, ranks, (data, model) mesh (None: one rank alone). Two
 # ranks share the one card over gloo.
@@ -2857,7 +2895,8 @@ def split_eval(torch, path: str, period: int, dev: str = "cuda") -> dict:
     check(all(np.isfinite(v) for v in rec.values()),
           f"attributed record not finite: {rec}")
     parts = {k: set_tr["spans"].get(k) for k in
-             ("eval_set_hash", "eval_set_pad_upload", "eval_set_mask")}
+             ("eval_set_check", "eval_set_hash", "eval_set_pad_upload",
+              "eval_set_mask")}
     check(all(v is not None and v["calls"] == 1 for v in parts.values()),
           f"make_eval_set's spans missing from its trace: {set_tr['spans']}")
     return {"make_eval_set_ms": set_ms, "make_eval_set_parts": parts,
@@ -3208,6 +3247,48 @@ def scale_edge(torch) -> dict:
     return out
 
 
+def scale_serve_5m(torch) -> dict:
+    """Top-``SCALE_K`` over ``SERVE5M_ITEMS`` items on the card, one batch
+    of ``SCALE_SERVE`` users, f32 and bf16 inputs (``dense_full_topk``, as
+    ``rank`` serves): ms a batch, the peak over the resident tables, and
+    ``SCALE_CHECK`` users' ids against a CPU top-K (rounded the same way
+    for bf16) but at ties."""
+    from sml_tpu_torch.eval.full_ranking import dense_full_topk
+    from sml_tpu_torch.scripts.scale_serve import untied_rows
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 67)
+    items = torch.randn(SERVE5M_ITEMS, DIM, generator=g, device="cuda")
+    users = torch.randn(SERVE5M_USERS, DIM, generator=g, device="cuda")
+    ids = torch.randperm(SERVE5M_USERS, generator=g,
+                         device="cuda")[:SCALE_SERVE]
+    rows = users[ids]
+    items_cpu = items.cpu().numpy()
+    out = {"users": SERVE5M_USERS, "items": SERVE5M_ITEMS,
+           "batch": SCALE_SERVE, "k": SCALE_K}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, got = dense_full_topk(rows, items, SCALE_K, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check_rows = untied_rows(rows[:SCALE_CHECK].cpu().numpy(), items_cpu,
+                                 got[:SCALE_CHECK].cpu().numpy(), SCALE_K,
+                                 PAR_TIE, bf16=dtype is not None)
+        check(check_rows["rows_differ_untied"] == 0,
+              f"5M-item top-{SCALE_K} ({name}) differs from the CPU's other "
+              f"than at ties: {check_rows}")
+        out[name] = {
+            "ms": cuda_ms(lambda: dense_full_topk(rows, items, SCALE_K,
+                                                  compute_dtype=dtype), 3),
+            "peak_gib": peak / 2 ** 30,
+            "serve_gib": (peak - base) / 2 ** 30,
+            "check": check_rows}
+    del items, users, rows, items_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_scale(torch) -> dict:
     from sml_tpu_torch.models.mf import MFParams, init_mf
     from sml_tpu_torch.ops import adam_kernel as ak
@@ -3302,11 +3383,159 @@ def phase_scale(torch) -> dict:
         state.mf)
     del eng, state
     torch.cuda.empty_cache()
+    out["serve_5m"] = scale_serve_5m(torch)
     out["cap"], cap_launches = scale_cap(torch)
     out["edge"] = scale_edge(torch)
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return {k: launches[k] + cap_launches[k] for k in launches}
+
+
+def protocol_launches(proto, cfg, test_rows, eval_batches,
+                      masks: bool) -> dict:
+    """K1 and K2 launches a protocol sweep must make, from its
+    configuration: per trained period ``t`` two K1 launches per refresh
+    (one after each phase's inner block and outer epoch, one at the
+    period's end); with masks, one K2 launch per batch of every
+    in-training eval of the val rows ``test/(t+1)`` and of the test of
+    ``test/(t+1)`` once ``t + 1`` reaches the test span. K3 none: the
+    protocols' tables stay on dense gradients by the auto rule."""
+    k1 = k2 = 0
+    evals = (cfg.mf_epochs * cfg.eval_during_inner
+             + cfg.tr_epochs * cfg.eval_during_outer)
+    for t in range(proto.train_start, proto.n_periods - 1):
+        k1 += 2 * (cfg.multi_num * (1 + cfg.tr_epochs) + 1)
+        if masks:
+            batches = eval_batches(test_rows(t + 1))
+            k2 += cfg.multi_num * evals * batches
+            if t + 1 >= proto.test_start:
+                k2 += batches
+    return {"decay_adam_kernel": 0, "transfer_rows_kernel": k1,
+            "masked_rank_gather_kernel": k2}
+
+
+def protocol_pair(torch, run_phase, args, proto, key: str, root: str,
+                  want: dict) -> dict:
+    """One protocol sweep fused (``--fuse-period on``) and on the eager
+    path (``off``), each with its records (``--log``) and its launches
+    counted: records and ``results.json`` entries equal but for clocks
+    (``protocol_runs.compare_pair``) and final state bit-equal, one program
+    and one capture for the fused run and none for the eager one, launches
+    equal to ``want`` in both."""
+    from sml_tpu_torch.ops import adam_kernel as ak
+    from sml_tpu_torch.ops import eval_kernel as ek
+    from sml_tpu_torch.ops import transfer_kernel as tk
+    from sml_tpu_torch.scripts.protocol_runs import compare_pair
+
+    runs, out = {}, {}
+    for fuse in ("on", "off"):
+        args.fuse_period, args.key = fuse, f"{key}_{fuse}"
+        args.log = os.path.join(root, f"{key}_{fuse}.jsonl")
+        torch.cuda.synchronize()
+        zero_counts(ak, tk, ek)
+        runs[fuse] = run_phase(args, proto)
+        torch.cuda.synchronize()
+        out[fuse] = {"seconds": runs[fuse].seconds,
+                     "peak_gib": runs[fuse].line["peak_gib"],
+                     "graphs": runs[fuse].line["graph_stats"],
+                     "launches": kernel_counts(ak, tk, ek)}
+        check(out[fuse]["launches"] == want,
+              f"{key} fuse={fuse} launches {out[fuse]['launches']}, the "
+              f"configuration's {want}")
+    args.key = args.log = None
+    with open(os.path.join(root, "results.json")) as fh:
+        results = json.load(fh)
+    out["pair"] = compare_pair(root, results, f"{key}_on", f"{key}_off")
+    errors = state_errors(torch, runs["on"].state, runs["off"].state)
+    graphs = out["on"]["graphs"]
+    out.update(state_errors=errors, summary=results[f"{key}_on"]["summary"],
+               per_period_recall20=results[f"{key}_on"][
+                   "per_period_recall@20"])
+    check(out["pair"]["records_equal"] and out["pair"]["results_equal"],
+          f"{key}: the fused and eager records differ: {out['pair']}")
+    check(all(errors[k] == 0.0 for k in ("tables", "snapshots", "theta",
+                                          "moments"))
+          and errors["counts_equal"] and errors["generator_equal"],
+          f"{key}: the fused and eager final states differ: {errors}")
+    check(graphs["programs"] == graphs["captures"] == 1
+          and out["off"]["graphs"]["programs"] == 0,
+          f"{key}: the fused run made {graphs} (one program, one capture), "
+          f"the eager one {out['off']['graphs']} (none)")
+    metrics = {k: v for k, v in out["summary"].items()
+               if k != "total_seconds"}
+    check(bool(metrics) and all(0.0 <= v <= 1.0 for v in metrics.values()),
+          f"{key}: summary metrics out of [0, 1]: {out['summary']}")
+    return out
+
+
+def phase_protocols(torch) -> dict:
+    """The protocol scripts' phase functions at full width and a cut depth
+    (``PROTO_*_CUT``): gen, pretrain, the sweep fused and unfused, and the
+    baselines (Adressa: all three for ``PROTO_BASE_PERIODS`` test period;
+    Yelp-scale: fine). Returns the sweeps' launches."""
+    from sml_tpu_torch.data.formats import row_count
+    from sml_tpu_torch.ops.batching import bucket_rows
+    from sml_tpu_torch.scripts import adressa_run, yelp_scale_sweep
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sml_protocols_")
+    out = {"phase": "protocols"}
+    launches = {}
+    try:
+        for name, mod, cut, phase, base_args in (
+                ("adressa", adressa_run, PROTO_ADRESSA_CUT,
+                 adressa_run.phase_sml, []),
+                ("yelp", yelp_scale_sweep, PROTO_YELP_CUT,
+                 yelp_scale_sweep.phase_ours, ["--evals"])):
+            proto = mod.PROTOCOL._replace(**cut)
+            sub = os.path.join(root, name)
+            args = mod.build_parser().parse_args(
+                ["--phase", "gen", "--root", sub] + base_args)
+            part = {"protocol": proto._asdict()}
+            t0 = time.perf_counter()
+            part["dataset"] = mod.phase_gen(args, proto)
+            part["gen_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            part["pretrain"] = mod.phase_pretrain(args, proto)
+            part["pretrain_s"] = time.perf_counter() - t0
+            cfg = (adressa_run.sml_config(args, proto) if name == "adressa"
+                   else yelp_scale_sweep.ours_config(args, proto))
+            spec_path = os.path.join(sub, proto.name)
+            bound = max(row_count(spec_path, "test", p)
+                        for p in range(proto.train_start, proto.n_periods))
+            want = protocol_launches(
+                proto, cfg, lambda p: row_count(spec_path, "test", p),
+                lambda n: max(bucket_rows(n, cfg.eval_batch_size),
+                              bucket_rows(bound, cfg.eval_batch_size))
+                // cfg.eval_batch_size,
+                masks=cfg.eval_during_inner or cfg.eval_during_outer)
+            part["derived_launches"] = want
+            part["sweep"] = protocol_pair(torch, phase, args, proto, name,
+                                          sub, want)
+            for fuse in ("on", "off"):
+                for k, v in part["sweep"][fuse]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            t0 = time.perf_counter()
+            if name == "adressa":
+                base = adressa_run.phase_baselines(
+                    args, proto, max_periods=PROTO_BASE_PERIODS)
+                drivers = base.pop("drivers")
+                check(all(d.cfg.pool_init_type == 1 and d._early_stop
+                          for d in drivers.values()),
+                      "the Adressa baselines run without the early stop")
+                part["baselines"] = base
+            else:
+                driver = yelp_scale_sweep.phase_baseline(args, proto)
+                part["baselines"] = {"fine": {
+                    "recall@20": driver.recall, "graphs": driver.graph_stats}}
+            part["baselines_s"] = time.perf_counter() - t0
+            out[name] = part
+            shutil.rmtree(sub, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
 
 
 def write_parallel_data(torch, path: str) -> None:
@@ -3543,6 +3772,8 @@ def main() -> int:
         phase_transfer_kinds(torch)
         phase_ingest_sweep(torch)
         for k, v in phase_scale(torch).items():
+            launches[k] += v
+        for k, v in phase_protocols(torch).items():
             launches[k] += v
         par_launches = phase_parallel(torch)
         for k, v in par_launches.items():

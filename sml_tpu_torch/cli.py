@@ -399,7 +399,12 @@ def cmd_rank(args) -> int:
                           "rank_serve_s": time.perf_counter() - t0,
                           "users": int(users.shape[0]),
                           "batches": -(-users.shape[0] // args.batch_size),
-                          "items": n_items, "processes": n_proc}),
+                          "items": n_items, "processes": n_proc,
+                          # the card's peak while loading and serving
+                          "rank_peak_gib": (
+                              torch.cuda.max_memory_allocated(device)
+                              / 2 ** 30 if device.type == "cuda"
+                              else None)}),
               file=sys.stderr, flush=True)
     return 0
 

@@ -19,6 +19,13 @@ JAX package:
 ``auto``         ``masked`` when the eval set carries a mask, else
                  ``gather``.
 
+Every place that uploads eval rows first calls :func:`check_eval_ids`: a
+user id outside ``[0, n_users)`` or a candidate id outside ``[0,
+n_items)`` raises a ``ValueError`` on the host, whatever the scoring mode
+and device (the JAX package clamps or drops such ids; a rank on such a
+row means nothing, and on the card the indexing would be a device-side
+assert that ends the process).
+
 Batches run as a Python loop; on the card each masked batch is one K2
 launch. Sums accumulate in f32 in batch order, as the JAX scan does.
 :func:`make_attributed_eval_fn` adds hit attribution by entity freshness
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +46,33 @@ from sml_tpu_torch.ops.metrics import hits_and_ndcg_at, rank_of_target
 
 SCORING_MODES = ("gather", "matmul", "gather_bf16", "matmul_bf16",
                  "masked", "masked_bf16", "auto")
+
+
+def check_eval_ids(rows: np.ndarray, n_users: int, n_items: int) -> None:
+    """Raise ``ValueError`` naming the first eval row whose user id (column
+    0) lies outside ``[0, n_users)`` or whose candidate ids (columns 1:,
+    the target and its negatives) lie outside ``[0, n_items)``. One pass
+    over each block: the ids are read as unsigned integers of their width,
+    so a negative id is larger than any bound and the max alone is the
+    min-and-max test."""
+    rows = np.asarray(rows)
+    if rows.size == 0:
+        return
+    as_unsigned = np.dtype(f"u{rows.dtype.itemsize}")
+    users, cands = rows[:, 0], rows[:, 1:]
+    if (users.view(as_unsigned).max() < n_users
+            and cands.view(as_unsigned).max() < n_items):
+        return
+    bad_user = (users < 0) | (users >= n_users)
+    bad_cand = (cands < 0) | (cands >= n_items)
+    r = int(np.flatnonzero(bad_user | bad_cand.any(axis=1))[0])
+    if bad_user[r]:
+        what, c, bound = "user", 0, n_users
+    else:
+        what, c, bound = ("candidate", 1 + int(np.argmax(bad_cand[r])),
+                          n_items)
+    raise ValueError(f"eval row {r}: {what} id {int(rows[r, c])} (column "
+                     f"{c}) is outside [0, {bound})")
 
 
 def _resolve_mode(scoring: str, n_items: int, n_cand: int,

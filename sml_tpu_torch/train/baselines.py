@@ -36,7 +36,9 @@ from sml_tpu_torch.config import (BaselineConfig, DataSpec,
 from sml_tpu_torch.data.feeder import StreamingPeriods
 from sml_tpu_torch.data.formats import row_count
 from sml_tpu_torch.device import resolve_device
-from sml_tpu_torch.eval.evaluator import make_attributed_eval_fn, make_eval_fn
+from sml_tpu_torch.eval.evaluator import (check_eval_ids,
+                                          make_attributed_eval_fn,
+                                          make_eval_fn)
 from sml_tpu_torch.models.mf import MFParams, init_mf, score_pairs
 from sml_tpu_torch.ops.batching import pad_rows
 from sml_tpu_torch.ops.losses import bce_pair_loss, l2_embedding_penalty
@@ -298,7 +300,10 @@ class BaselineDriver:
 
     def _pad_eval(self, test_rows: np.ndarray):
         """Pad and upload an eval set once per period (sweep-wide shape);
-        early-stop evals and the final metrics reuse it."""
+        early-stop evals and the final metrics reuse it. An id outside
+        the tables raises ``ValueError`` first (:func:`check_eval_ids`)."""
+        info = self.stream.info
+        check_eval_ids(test_rows, info.n_users, info.n_items)
         return pad_rows(test_rows, self.cfg.eval_batch_size,
                         pad_to=self._bounds["eval"], device=self.device)
 

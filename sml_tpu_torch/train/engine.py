@@ -54,7 +54,8 @@ import torch
 
 from sml_tpu_torch.config import SMLConfig, resolve_fast_table_adam
 from sml_tpu_torch.device import resolve_device
-from sml_tpu_torch.eval.evaluator import (make_attributed_eval_fn,
+from sml_tpu_torch.eval.evaluator import (check_eval_ids,
+                                          make_attributed_eval_fn,
                                           make_eval_fn)
 from sml_tpu_torch.models.mf import MFParams, init_mf, with_tables
 from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
@@ -676,8 +677,12 @@ class SMLEngine:
         (honoured only when the engine's policy wants masks); a cached
         entry without one is upgraded in place. Inside a trace, the
         content hash, the padding and upload and the mask are spans of
-        their own (``eval_set_hash``, ``eval_set_pad_upload``,
-        ``eval_set_mask``)."""
+        their own (``eval_set_check``, ``eval_set_hash``,
+        ``eval_set_pad_upload``, ``eval_set_mask``). A user or candidate
+        id outside the tables raises ``ValueError`` before anything is
+        uploaded (:func:`check_eval_ids`)."""
+        with annotate("eval_set_check"):
+            check_eval_ids(test_rows, self.n_users, self.n_items)
         build_mask = build_mask and self._want_masks
         if self.layout is not None:
             return self._make_eval_block(test_rows, build_mask)

@@ -23,7 +23,7 @@ from sml_tpu_torch.config import (DataSpec, PretrainConfig,
                                   resolve_fast_table_adam)
 from sml_tpu_torch.data.feeder import StreamingPeriods
 from sml_tpu_torch.device import resolve_device
-from sml_tpu_torch.eval.evaluator import make_eval_fn
+from sml_tpu_torch.eval.evaluator import check_eval_ids, make_eval_fn
 from sml_tpu_torch.models.mf import MFParams, init_mf
 from sml_tpu_torch.ops.batching import pad_rows
 from sml_tpu_torch.ops.sampling import build_period_index
@@ -70,6 +70,7 @@ def pretrain_mf(cfg: PretrainConfig, spec: DataSpec, pretrain_period: int,
 
     padded = pad_rows(train, cfg.batch_size, device=device)
     index = build_period_index(train, info.n_items, device=device)
+    check_eval_ids(test, info.n_users, info.n_items)
     test_padded = pad_rows(test, 1024, device=device)
 
     def evaluate(mfp):

@@ -67,6 +67,9 @@ def test_port_sources_import_no_jax_or_reference():
     # and the production-scale run, its serving check and the results file
     assert {"scripts/scale_engine_run.py", "scripts/scale_serve.py",
             "utils/results.py"} <= names
+    # and the two protocol scripts, what they share and their runner
+    assert {"scripts/adressa_run.py", "scripts/yelp_scale_sweep.py",
+            "scripts/protocol.py", "scripts/protocol_runs.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
