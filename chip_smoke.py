@@ -75,12 +75,14 @@ Phases, one JSON line each:
             (``SWEEP_TRAIN_ROWS`` train and ``SWEEP_TEST_ROWS`` test rows:
             every period's inner and outer epochs take another number of
             steps), ``yelp_sml()`` with ``fast_table_adam`` and masked
-            scoring, pinned to the unfused path (``fuse_phases=False,
+            scoring at ``SWEEP_MULTI_NUM`` phases a period (the preset's
+            10 cut to 3), pinned to the unfused path (``fuse_phases=False,
             fuse_period=False``: its epochs are wrapped and timed, which a
-            CUDA-graph replay never enters, so its numbers stay comparable
-            with the earlier runs). Launch counts must equal those derived
-            from the data (K3: one per fast step, 440; K1 126; K2 32: one
-            per eval batch); losses finite, metrics in [0, 1].
+            CUDA-graph replay never enters, so its step times stay
+            comparable with the earlier runs). Launch counts must equal
+            those derived from the data (K3: one per fast step, 132; K1
+            42; K2 32: one per eval batch); losses finite, metrics in
+            [0, 1].
             The data carry no signal, so training drives the loss to the
             BCE saddle (2 ln 2) and the item rows together (scores tie,
             and the strictly-greater rank then counts every target a
@@ -131,8 +133,8 @@ Phases, one JSON line each:
 9d. mesh-fused  the fused programs under a mesh: a world of one rank
             in this process, its mesh groups over NCCL (the card its
             own), on the sweep dataset's first ``MESH_PERIODS`` periods
-            with ``log_norms`` and ``MESH_MULTI_NUM`` phases a period (the
-            sweep's 10 cut for time): the state born row-sharded on a (1, 1)
+            with ``log_norms`` and ``MESH_MULTI_NUM`` phases a period (cut
+            for time): the state born row-sharded on a (1, 1)
             mesh, the sweep unfused, then with the default ``"auto"``,
             which captures the program with its collectives in the
             structure a mesh of several cards captures
@@ -283,6 +285,21 @@ Phases, one JSON line each:
             ``SCALE_SERVE`` users (N(0,1) tables), f32 and bf16 inputs:
             ms a batch, the peak, and ``SCALE_CHECK`` users' ids equal to
             a CPU top-K (its inputs rounded the same way) but at ties.
+            Last, ``SMLDriver`` at the one-card shape (5M x 1M, bf16
+            snapshots: ``SCALE_SWEEP_ARGS``, a cut depth of
+            ``python -m sml_tpu_torch.scripts.scale_sweep``, through its
+            functions): a synthetic dataset of 3 periods of 100,000
+            interactions (tests of 999 negatives in periods 1 and 2), the
+            sweep eager (no program) and then fused by ``"auto"``, each
+            from the seed: every leaf's digest (per block of rows, an f64
+            sum and a ``blake2b`` of the bytes) equal, the test hits and
+            the losses equal, one capture for the fused program, K1 and
+            K3 launches as derived from the configuration, the data and
+            the guard's retries (``scale_sweep.sweep_launches``),
+            the fused peak no more than ``scale_sweep.PEAK_RATIO`` x the
+            eager one, and no byte of Θ or the moments copied into the
+            programs' state slot (``SMLEngine.slot_copies``) in any
+            period.
 17c. protocols  the port's protocol scripts
             (``scripts/adressa_run.py``, ``scripts/yelp_scale_sweep.py``)
             through their phase functions at the protocols' full widths
@@ -424,12 +441,12 @@ INNER_ROWS, OUTER_ROWS = 8192, 4096
 # the sweep's periods differ in their train and test row counts, so its
 # epochs take other step counts each period (one captured program serves
 # them all: its tail steps are skipped on the card)
-SWEEP_PERIODS = 4
+SWEEP_PERIODS, SWEEP_MULTI_NUM = 4, 3
 SWEEP_TRAIN_ROWS = (65_536, 57_344, 49_400, 61_440)
 SWEEP_TEST_ROWS = (16_384, 12_800, 14_848, 11_264)
 # mesh-fused: the sweep's first periods (a warm-up and a test period) on
 # a (1, 1) mesh over NCCL, unfused and fused, at a cut depth of phases
-MESH_PERIODS, MESH_MULTI_NUM = 2, 4
+MESH_PERIODS, MESH_MULTI_NUM = 2, 2
 # eval-design probes: P1 at its probe's shape; the probe mains' repeats
 PROBE_ROWS, PROBE_ITEMS = 16_384, 20_480
 PROBE_TRIALS, PROBE_ROUNDS = 3, 3
@@ -478,6 +495,11 @@ SCALE_ARGS = ["--users", "5000000", "--items", "1000000",
 SCALE_SAMPLE, SCALE_RECOUNT = 4096, 256
 SCALE_SERVE, SCALE_K, SCALE_CHECK = 1024, 100, 8
 SCALE_CROSS_ROWS = 8192
+# the driver at the one-card production shape, cut to 3 periods of
+# 100,000 interactions (period 0 trains, periods 1 and 2 test) and 2
+# phases a period, eager against fused
+SCALE_SWEEP_ARGS = SCALE_ARGS + ["--periods", "3", "--inter", "100000",
+                                 "--first-test", "1", "--multi-num", "2"]
 # top-SCALE_K serving over SERVE5M_ITEMS items on the card: one batch of
 # SCALE_SERVE users on N(0,1) tables (rows well apart), f32 and bf16
 # inputs, SCALE_CHECK users held to a CPU top-K but at ties (PAR_TIE)
@@ -495,11 +517,11 @@ EDGE_TABLE_ROWS, EDGE_WINDOW = 34_078_720, 4096
 # protocols: the two protocol scripts' phase functions at their
 # protocols' full widths and a cut depth: Adressa (12,000 x 8,000, 8,000
 # interactions a period, d=64, 999 negatives, multi_num=7, two epochs)
-# over 8 periods, training from 2, testing 5-7, and each baseline for one
+# over 7 periods, training from 2, testing 5-6, and each baseline for one
 # test period; Yelp-scale (31,000 x 21,000, 30,000 a period, multi_num=10,
-# in-training evals) over 6 periods, training from 2, testing 4-5
-PROTO_ADRESSA_CUT = dict(n_periods=8, train_start=2, test_start=5)
-PROTO_YELP_CUT = dict(n_periods=6, train_start=2, test_start=4)
+# in-training evals) over 5 periods, training from 2, testing 4
+PROTO_ADRESSA_CUT = dict(n_periods=7, train_start=2, test_start=5)
+PROTO_YELP_CUT = dict(n_periods=5, train_start=2, test_start=4)
 PROTO_BASE_PERIODS = 1
 # parallel: three worlds of the replay phase, a test and serving at the
 # Yelp shape; name, ranks, (data, model) mesh (None: one rank alone). Two
@@ -1310,41 +1332,26 @@ def write_sweep_dataset(torch, root: str) -> None:
 
 
 def expected_sweep_launches(spec, cfg, feeder_rows, eval_batches) -> dict:
-    """K3, K1 and K2 launches the sweep must make, from the data:
-    ``feeder_rows(kind, period)`` gives a period file's row count,
-    ``eval_batches(rows)`` the batches of its padded eval set."""
+    """K3, K1 and K2 launches the sweep must make, from the data
+    (``scale_sweep.sweep_launches``): ``feeder_rows(kind, period)`` gives
+    a period file's row count, ``eval_batches(rows)`` the batches of its
+    padded eval set."""
     from sml_tpu_torch.config import resolve_fast_table_adam
+    from sml_tpu_torch.scripts.scale_sweep import sweep_launches
     fast = resolve_fast_table_adam(cfg.fast_table_adam, N_USERS + N_ITEMS,
                                    cfg.mf_batch_size)
-    k3 = k1 = k2 = 0
-    d_time = 0
-    while spec.online_train_start + d_time + 1 < spec.num_periods:
-        t = spec.online_train_start + d_time
-        steps = -(-feeder_rows("test" if cfg.mf_sample == "all" else "train",
-                               t) // cfg.mf_batch_size)
-        # one K3 launch per fast step, for all four MF leaves (none on
-        # the dense-gradient path)
-        if fast:
-            k3 += steps * cfg.mf_epochs * cfg.multi_num
-        # a refresh after each phase's inner block and outer epoch, and
-        # one at the period's end; two K1 launches per refresh (conv_com
-        # alone reaches K1)
-        if cfg.transfer.kind == "conv_com":
-            k1 += 2 * (cfg.multi_num * (1 + cfg.tr_epochs) + 1)
-        if t + 1 >= spec.online_test_start:
-            # branch C tests test/(t+1), one K2 launch per padded batch
-            k2 += eval_batches(feeder_rows("test", t + 1))
-        d_time += 1
-    return {"decay_adam_kernel": k3, "transfer_rows_kernel": k1,
-            "masked_rank_gather_kernel": k2}
+    return sweep_launches(spec, cfg, feeder_rows, fast, eval_batches)
 
 
 def sweep_cfg(**kw):
     """The train sweep's configuration (``yelp_sml()``, K3 on, masked
-    scoring); ``kw`` sets the fused-program switches."""
+    scoring, ``SWEEP_MULTI_NUM`` phases a period); ``kw`` sets the
+    fused-program switches."""
     from sml_tpu_torch.config import yelp_sml
-    return yelp_sml().replace(fast_table_adam=True, eval_scoring="masked",
-                              **kw)
+    base = dict(fast_table_adam=True, eval_scoring="masked",
+                multi_num=SWEEP_MULTI_NUM)
+    base.update(kw)
+    return yelp_sml().replace(**base)
 
 
 def sweep_driver(torch, root: str, cfg, log_name: str,
@@ -3386,9 +3393,40 @@ def phase_scale(torch) -> dict:
     out["serve_5m"] = scale_serve_5m(torch)
     out["cap"], cap_launches = scale_cap(torch)
     out["edge"] = scale_edge(torch)
+    out["sweep"], sweep_launches = scale_sweep_cut(torch)
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
-    return {k: launches[k] + cap_launches[k] for k in launches}
+    return {k: launches[k] + cap_launches[k] + sweep_launches[k]
+            for k in launches}
+
+
+def scale_sweep_cut(torch) -> tuple:
+    """``SMLDriver`` at 5M x 1M, eager and then fused, through
+    ``scripts/scale_sweep.py``'s functions (``SCALE_SWEEP_ARGS``); returns
+    its report and both runs' launches."""
+    from sml_tpu_torch.scripts import scale_sweep
+    args = scale_sweep.build_parser().parse_args(SCALE_SWEEP_ARGS)
+    card = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="sml_scale_sweep_")
+    try:
+        spec, data_s = scale_sweep.write_data(args, root)
+        runs = {run: scale_sweep.run_sweep(args, spec, card, None, run)
+                for run in scale_sweep.RUNS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checks = scale_sweep.checks(runs, card)
+    info = {run: runs[run]["info"] for run in scale_sweep.RUNS}
+    out = {"args": SCALE_SWEEP_ARGS, "data_s": data_s, "checks": checks,
+           **info}
+    check(not checks["failed"],
+          f"the fused sweep at 5M x 1M fails {checks['failed']}: {out}")
+    check(all(want[k] > 0 for run in info
+              for want in info[run]["derived_launches"]
+              for k in ("decay_adam_kernel", "transfer_rows_kernel")),
+          f"no K1 or K3 launch derived for the sweep at 5M x 1M: {info}")
+    launches = {k: sum(info[run]["launches"][k] for run in info)
+                for k in info["eager"]["launches"]}
+    return out, launches
 
 
 def protocol_launches(proto, cfg, test_rows, eval_batches,

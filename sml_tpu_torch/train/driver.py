@@ -41,10 +41,15 @@ engine's reason (``SMLEngine.capture_refusal``), and ``False`` runs
 unfused. Under a mesh the fused programs run on the rank's row blocks, as
 the JAX package's do: on the CPU eagerly, on any mesh; on cards captured,
 each step slot split at its collectives. Every route gives
-the unfused path's numbers, draws and records. One phase program serves the whole run (on
-the card one capture, replayed in every period; the saddle retry's new
-buffers and generator are copied into it); :meth:`SMLDriver.run` and
-:meth:`SMLDriver.close` drop it.
+the unfused path's numbers, draws and records. One phase program serves
+the whole run (on the card one capture, replayed in every period), on the
+state's own buffers: :meth:`SMLDriver.run` consumes the state it is
+given (``SMLEngine.adopt``: its buffers become the engine's state slot,
+as the JAX package donates its state), every route's eager calls write
+into the slot, and the saddle guard restores its one restart copy into it
+(a retry copies only its re-rolled Θ and Θ moments in), so a run holds
+one copy of the state, two in period 0 with the guard on; :meth:`run`
+and :meth:`SMLDriver.close` drop the program and let go of the slot.
 """
 
 from __future__ import annotations
@@ -308,17 +313,15 @@ class SMLDriver:
         """``(check_phase, stalled_at)`` for the period-0 guard."""
         saddle = 2.0 * float(np.log(2.0))
         multi = self.cfg.multi_num
+        check_phase = saddle_check_phase(self.cfg)
         if self.cfg.saddle_mode == "auto":
             # stall iff (saddle - L) / saddle < tau * (phase+1) / multi_num
-            check_phase = min(max(1, round(0.3 * multi)), multi - 1)
-
             def stalled_at(phase, loss):
                 escape = (saddle - loss) / saddle
                 return escape < self.cfg.saddle_tau * (phase + 1) / multi
         else:
             thresh = self.cfg.saddle_frac * saddle
             final_thresh = self.cfg.saddle_final_frac * saddle
-            check_phase = min(self.cfg.saddle_check_phase, multi - 1)
 
             def stalled_at(phase, loss):
                 return ((phase == check_phase and loss > thresh)
@@ -470,6 +473,7 @@ class SMLDriver:
             # branch A: warm-up, with the optional first-period saddle guard
             budget = self.cfg.saddle_retries if d_time == 0 else 0
             fused = self._can_fuse_period(prep_tt)
+            # the guard's restart point: its one copy of the state
             state0 = copy_state(state) if budget > 0 else None
             attempt = 0
             while True:
@@ -492,12 +496,14 @@ class SMLDriver:
                                 attempt=attempt, mode=self.cfg.saddle_mode,
                                 escalated=escalate,
                                 outer_loss=self._last_outer_loss)
-                # re-roll the (Θ init, data stream) pair
-                restart = copy_state(state0)
+                # re-roll the (Θ init, data stream) pair from the restart
+                # point, written into the stalled attempt's buffers
+                restart = self.engine.restore_state(state, state0)
                 restart = restart._replace(
                     gen=self.engine.fold_generator(state0.gen, attempt))
                 state = self.engine.reinit_theta(restart, salt=attempt,
                                                  warmstart=escalate)
+            state0 = None
             state = self._refresh(state)
         elif sd.set_tt is None:
             # branch B: tr_stop during the test span
@@ -539,7 +545,8 @@ class SMLDriver:
             max_periods: Optional[int] = None,
             start_pass: int = 0, start_period: int = 0,
             on_period_end=None) -> RunReport:
-        """The full sweep. With ``pass_num > 1`` the warm-up span is
+        """The full sweep, on ``state``'s own buffers (it is consumed:
+        ``SMLEngine.adopt``). With ``pass_num > 1`` the warm-up span is
         replayed: non-final passes stop at ``multipass_stop_stage``; only
         the final pass runs the test span. ``start_pass``/``start_period``
         resume mid-sweep (skipped periods only advance the feeder's test
@@ -547,6 +554,7 @@ class SMLDriver:
         after every trained period."""
         if state is None:
             state = self.engine.init_state()
+        state = self.engine.adopt(state)
         for pass_id in range(start_pass, self.cfg.pass_num):
             final_pass = pass_id == self.cfg.pass_num - 1
             self.feeder.reinit()
@@ -577,6 +585,15 @@ class SMLDriver:
         self.engine.release_programs()
         if hasattr(self.feeder, "close"):
             self.feeder.close()
+
+
+def saddle_check_phase(cfg: SMLConfig) -> int:
+    """The phase at which the period-0 saddle guard first reads the outer
+    loss (it reads the last phase's too)."""
+    multi = cfg.multi_num
+    if cfg.saddle_mode == "auto":
+        return min(max(1, round(0.3 * multi)), multi - 1)
+    return min(cfg.saddle_check_phase, multi - 1)
 
 
 def fusion_route(cfg: SMLConfig, engine: SMLEngine) -> bool:

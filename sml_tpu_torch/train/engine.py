@@ -17,10 +17,19 @@ package's fused programs: :meth:`SMLEngine.phase_step` runs one SML phase
 refresh, the val evals inside when given) and :meth:`SMLEngine.period_step`
 a period's phases, stacking their losses, eval sums and weight norms. The
 phase is the same calls in the same order as the unfused driver's, on
-fixed buffers the program owns (a state slot and input buffers, copied
+fixed buffers: the state's own, and input buffers the program owns, copied
 into before each run; the refresh and the snapshot write into the slot's
 tables, the Adam steps read their bias corrections and the epochs which
-step slots run from device tables). As the JAX package compiles its period
+step slots run from device tables. The state's buffers are the engine's
+slot (:meth:`SMLEngine.adopt`; the JAX package donates its state to both
+programs): the state a run is given (``SMLDriver.run`` adopts it), or
+else the first one a program runs on, lends its tables, snapshots, Θ and
+moments, and every program of the engine runs on them from then on.
+While the slot is held, the eager calls (``snapshot_last``,
+``snapshot_hat``, ``refresh``, ``load_hat_into_mf``) write into its
+buffers too, so no copy of the tables, snapshots or moments is made;
+``slot_copies`` counts the bytes copied into the slot from buffers that
+are not its own. As the JAX package compiles its period
 program once, one phase program serves a sweep: on the card it is captured
 once as a CUDA graph and replayed in every period, whatever the period's
 row counts (``train/graphs.py``); on the CPU it runs eagerly, which is its
@@ -179,6 +188,13 @@ class SMLEngine:
         self._programs: Dict[tuple, _PhaseProgram] = {}
         self._site = graphs.GraphSite(self.device)
         self.graph_stats = self._site.stats
+        # the state buffers every program runs on and the eager calls
+        # write into (the adopted state's own), their addresses, and the
+        # bytes copied into them (and into the programs' input buffers)
+        # by group
+        self._slot: Optional[SMLState] = None
+        self._slot_ptrs: list = []
+        self.slot_copies = {g: 0 for g in (*_GROUPS, "inputs")}
 
     # ------------------------------------------------------------------ state
     def _snap_dtype(self) -> torch.dtype:
@@ -420,33 +436,74 @@ class SMLEngine:
         """A new buffer in ``cfg.snapshot_dtype``."""
         return x.detach().to(self._snap_dtype(), copy=True)
 
+    def _owns(self, *tensors: torch.Tensor) -> bool:
+        """Whether every one of ``tensors`` is a buffer of the programs'
+        state slot: the eager calls then write into it in place (the
+        state is the programs', as a donated JAX argument is)."""
+        if self._slot is None:
+            return False
+        slot = _state_tensors(self._slot)
+        return all(any(t is s for s in slot) for t in tensors)
+
+    def _copied_into(self, dst, src, dtype: torch.dtype):
+        """``src``'s values in ``dtype``: written into the ``dst`` buffers
+        where they are the slot's (``dtype`` is theirs), else new
+        buffers."""
+        if self._owns(*dst) and all(d.dtype == dtype for d in dst):
+            with torch.no_grad():
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+            return dst
+        return [s.detach().to(dtype, copy=True) for s in src]
+
     def snapshot_last(self, state: SMLState) -> SMLState:
         """``save_MF_weight('last')``."""
-        return state._replace(last_user=self._snap(state.mf.user_emb),
-                              last_item=self._snap(state.mf.item_emb))
+        last = self._copied_into((state.last_user, state.last_item),
+                                 (state.mf.user_emb, state.mf.item_emb),
+                                 self._snap_dtype())
+        return state._replace(last_user=last[0], last_item=last[1])
 
     def snapshot_hat(self, state: SMLState) -> SMLState:
         """``save_MF_weight('hat')``."""
-        return state._replace(hat_user=self._snap(state.mf.user_emb),
-                              hat_item=self._snap(state.mf.item_emb))
+        hat = self._copied_into((state.hat_user, state.hat_item),
+                                (state.mf.user_emb, state.mf.item_emb),
+                                self._snap_dtype())
+        return state._replace(hat_user=hat[0], hat_item=hat[1])
 
     def load_hat_into_mf(self, state: SMLState) -> SMLState:
         """``load_MFbase_weight(hat)`` (the ``Load_W_hat`` option)."""
-        dt = state.mf.user_emb.dtype
-        return state._replace(mf=with_tables(
-            state.mf, state.hat_user.to(dt, copy=True),
-            state.hat_item.to(dt, copy=True)))
+        tables = self._copied_into((state.mf.user_emb, state.mf.item_emb),
+                                   (state.hat_user, state.hat_item),
+                                   state.mf.user_emb.dtype)
+        return state._replace(mf=with_tables(state.mf, *tables))
 
     def refresh(self, state: SMLState) -> SMLState:
         """``updata``: MF tables <- Θ(last, hat); for ``conv_com`` on the
         card one K1 launch per side. Under a mesh the snapshots are the
         rank's row blocks, so this is the sharded refresh
-        (``apply_tables_sharded``), with no collective."""
+        (``apply_tables_sharded``), with no collective. Into the tables
+        themselves where they are the programs' slot, else new ones."""
+        tables = (state.mf.user_emb, state.mf.item_emb)
         new_u, new_i = apply_tables(
             state.theta, self.cfg.transfer,
             state.last_user, state.hat_user,
-            state.last_item, state.hat_item)
+            state.last_item, state.hat_item,
+            out=tables if self._owns(*tables) else None)
         return state._replace(mf=with_tables(state.mf, new_u, new_i))
+
+    def restore_state(self, state: SMLState, saved: SMLState) -> SMLState:
+        """``saved``'s values (tables, snapshots, Θ, moments, counts and a
+        generator at its position) in ``state``'s buffers: the saddle
+        guard's restart reuses the stalled attempt's buffers, so it holds
+        one copy of the state (its restart point), as the JAX package's
+        guard does, and a fused retry runs on the programs' slot with
+        nothing copied but Θ's re-roll."""
+        _check_disjoint(state)
+        graphs.load_into(_state_tensors(state), _state_tensors(saved))
+        return state._replace(
+            mf_opt=state.mf_opt._replace(count=saved.mf_opt.count),
+            tr_opt=state.tr_opt._replace(count=saved.tr_opt.count),
+            gen=clone_generator(saved.gen))
 
     def inner_epoch(self, state: SMLState, padded: PaddedRows,
                     index: Optional[PeriodIndex]):
@@ -510,16 +567,52 @@ class SMLEngine:
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = _PhaseProgram(
-                self, state, prep_t, prep_tt, ev, want_diag)
+                self, prep_t, prep_tt, ev, want_diag)
         prog.load_inputs(prep_t, prep_tt, ev)
         return prog
 
+    def adopt(self, state: SMLState) -> SMLState:
+        """``state`` held in the engine's state slot, which the fused
+        programs run on and the eager calls write into (:meth:`_owns`).
+        Without a slot (the first call, or after :meth:`release_programs`)
+        ``state``'s own buffers become the slot, with nothing copied: the
+        counterpart of the JAX programs' ``donate_argnums=(0,)``, so
+        ``state`` is consumed. With one, each of ``state``'s buffers that
+        is not the slot's is copied in, its bytes added to
+        :attr:`slot_copies` by group. Returns the slot's buffers with
+        ``state``'s step counts and generator. Every capture is bound to
+        the slot's addresses, so a slot whose containers were given other
+        buffers raises."""
+        if self._slot is None:
+            _check_disjoint(state)
+            self._slot = _slot_of(state)
+            self._slot_ptrs = [t.data_ptr()
+                               for t in _state_tensors(self._slot)]
+        else:
+            if [t.data_ptr() for t in _state_tensors(self._slot)] \
+                    != self._slot_ptrs:
+                raise RuntimeError(
+                    "the programs' state slot holds other buffers than the "
+                    "ones its graphs were captured on")
+            for (group, dst), (_, src) in zip(_state_groups(self._slot),
+                                              _state_groups(state)):
+                self.slot_copies[group] += graphs.load_into(dst, src)
+        slot = self._slot
+        return slot._replace(
+            mf_opt=slot.mf_opt._replace(count=state.mf_opt.count),
+            tr_opt=slot.tr_opt._replace(count=state.tr_opt.count),
+            gen=state.gen)
+
     def release_programs(self) -> None:
         """Drop the phase programs, their graphs released at once
-        (``graphs.Program.release``), and their buffers."""
+        (``graphs.Program.release``), and their input buffers, and let go
+        of the state slot: its buffers stay the caller's state, readable
+        and untouched, and the next :meth:`adopt` takes the state it is
+        given."""
         for prog in self._programs.values():
             prog.release()
         self._programs.clear()
+        self._slot, self._slot_ptrs = None, []
 
     def phase_step(self, state: SMLState, prep_t, prep_tt):
         """One fused SML phase; returns ``(state, last_inner_losses,
@@ -895,15 +988,38 @@ class SMLEngine:
         return mask(self.n_users, new_users), mask(self.n_items, new_items)
 
 
-def _state_tensors(state: SMLState) -> list:
-    """The buffers a phase reads and writes: the tables, snapshots, Θ and
-    both optimizers' moments (by name)."""
-    tensors = [*state.mf, state.last_user, state.last_item, state.hat_user,
-               state.hat_item, *theta_leaves(state.theta).values()]
+_GROUPS = ("tables", "snapshots", "theta", "moments")
+
+
+def _state_groups(state: SMLState) -> tuple:
+    """The buffers a phase reads and writes, by :data:`_GROUPS`: the
+    tables, the snapshots, Θ and both optimizers' moments (by name)."""
+    moments = []
     for opt in (state.mf_opt, state.tr_opt):
-        tensors += [opt.mu[k] for k in sorted(opt.mu)]
-        tensors += [opt.nu[k] for k in sorted(opt.nu)]
-    return tensors
+        moments += [opt.mu[k] for k in sorted(opt.mu)]
+        moments += [opt.nu[k] for k in sorted(opt.nu)]
+    return (("tables", list(state.mf)),
+            ("snapshots", [state.last_user, state.last_item,
+                           state.hat_user, state.hat_item]),
+            ("theta", list(theta_leaves(state.theta).values())),
+            ("moments", moments))
+
+
+def _state_tensors(state: SMLState) -> list:
+    return [t for _, group in _state_groups(state) for t in group]
+
+
+def _slot_of(state: SMLState) -> SMLState:
+    """The programs' slot on ``state``'s own buffers, in containers of its
+    own (a caller who later puts another buffer in its moments' dicts does
+    not move the slot's), without a generator."""
+    return state._replace(
+        mf=MFParams(*state.mf),
+        mf_opt=AdamState(state.mf_opt.count, dict(state.mf_opt.mu),
+                         dict(state.mf_opt.nu)),
+        tr_opt=AdamState(state.tr_opt.count, dict(state.tr_opt.mu),
+                         dict(state.tr_opt.nu)),
+        gen=None)
 
 
 def _prep_tensors(prep) -> tuple:
@@ -925,16 +1041,19 @@ def _clone_prep(prep):
 class _PhaseProgram(graphs.Program):
     """One SML phase on fixed buffers (``train/graphs.py``): the driver's
     unfused phase (``_inner_block``, ``snapshot_hat``, ``refresh``,
-    ``_outer_block``) as the same calls in the same order, on buffers the
-    program owns, which change no number:
+    ``_outer_block``) as the same calls in the same order, on fixed
+    buffers, which change no number:
 
-    * a state slot (tables, snapshots, Θ, both optimizers' moments) and
-      input buffers at the inputs' padded shapes (set_t and set_tt rows,
-      masks and sampling indexes, and the val set when the evals run
-      inside); :meth:`load_inputs` copies a period's inputs in, and
-      :meth:`run` copies in every state buffer that is not the slot's
-      (the snapshots are new tensors each period) and returns a state
-      that holds the slot;
+    * the engine's state slot (tables, snapshots, Θ, both optimizers'
+      moments: the first state's own buffers, shared by every program of
+      the engine, ``SMLEngine.adopt``) and input buffers the program
+      owns at the inputs' padded shapes (set_t and set_tt rows, masks and
+      sampling indexes, and the val set when the evals run inside);
+      :meth:`load_inputs` copies a period's inputs in, and :meth:`run`
+      has the engine copy in every state buffer that is not the slot's
+      (none where the state came from the last run and the eager calls
+      between wrote into the slot) and returns a state that holds the
+      slot;
     * the hat snapshot is copied into the slot's ``hat_*`` buffers, each
       refresh writes into the MF tables themselves (``apply_tables(...,
       out=)``), and ``load_w_hat`` copies the snapshot into the tables;
@@ -964,13 +1083,11 @@ class _PhaseProgram(graphs.Program):
     on the slots they take: :meth:`load_inputs` checks that on the host
     before a run."""
 
-    def __init__(self, eng: SMLEngine, state: SMLState, prep_t, prep_tt,
-                 ev, want_diag: bool):
+    def __init__(self, eng: SMLEngine, prep_t, prep_tt, ev,
+                 want_diag: bool):
         super().__init__(eng._site)
         cfg = eng.cfg
         self.eng, self.cfg = eng, cfg
-        self.slot = copy_state(state)._replace(gen=None)
-        _check_disjoint(self.slot)
         self.t, self.tt = _clone_prep(prep_t), _clone_prep(prep_tt)
         self.ev = (None if ev is None else
                    tuple(None if x is None else x.clone() for x in ev))
@@ -1006,7 +1123,7 @@ class _PhaseProgram(graphs.Program):
                            *(self.ev or ())) if x is not None]
         src = [x for x in (*_prep_tensors(prep_t), *_prep_tensors(prep_tt),
                            *(ev or ())) if x is not None]
-        graphs.load_into(dst, src)
+        self.eng.slot_copies["inputs"] += graphs.load_into(dst, src)
         cfg = self.cfg
         self.taken = (
             min(num_batches(prep_t[0].n_real, cfg.mf_batch_size),
@@ -1036,7 +1153,7 @@ class _PhaseProgram(graphs.Program):
                      out=(state.mf.user_emb, state.mf.item_emb))
 
     def body(self, gen: torch.Generator) -> None:
-        cfg, eng, st = self.cfg, self.eng, self.slot
+        cfg, eng, st = self.cfg, self.eng, self.eng._slot
         (pt, it), (ptt, itt) = self.t, self.tt
         mf_opt = st.mf_opt._replace(bias=self.mf_bias)
         tr_opt = st.tr_opt._replace(bias=self.tr_bias)
@@ -1071,8 +1188,7 @@ class _PhaseProgram(graphs.Program):
         """One phase from ``state`` on the loaded inputs; returns the state
         after it (the slot's buffers, ``state``'s generator advanced), its
         step counts advanced by the real steps."""
-        slot = self.slot
-        graphs.load_into(_state_tensors(slot), _state_tensors(state))
+        slot = self.eng.adopt(state)
         c_mf, c_tr = state.mf_opt.count, state.tr_opt.count
         self.mf_bias.fill(c_mf, self.taken[0])
         self.tr_bias.fill(c_tr, self.taken[1])

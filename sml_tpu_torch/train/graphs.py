@@ -4,7 +4,9 @@ package's one-dispatch XLA programs (``sml_tpu/train/engine.py``
 ``sml_tpu/train/pretrain.py`` and ``baselines.py``).
 
 A :class:`Program` is a body on fixed buffers: the caller copies each
-run's state and inputs into the program's own buffers, then the body runs.
+run's inputs (and state, where it is not already in the buffers the body
+runs on: :func:`load_into` skips a buffer that is its own input) into
+them, then the body runs.
 On the card the site's first body runs eagerly on a side stream (the
 warm-up), the program's next run captures it as one CUDA graph
 (:class:`CapturedCall`), and every run from then on is a replay, so a
@@ -393,9 +395,11 @@ def shape_key(*tensors) -> tuple:
 
 
 def load_into(dst: Sequence[torch.Tensor],
-              src: Sequence[torch.Tensor]) -> None:
+              src: Sequence[torch.Tensor]) -> int:
     """Copy each ``src`` tensor into its ``dst`` buffer (on the current
-    stream), except where it already is that buffer."""
+    stream), except where it already is that buffer; returns the bytes
+    written."""
+    copied = 0
     with torch.no_grad():
         for d, s in zip(dst, src):
             if d.shape != s.shape:
@@ -403,3 +407,5 @@ def load_into(dst: Sequence[torch.Tensor],
                                  f"its input {tuple(s.shape)}")
             if d.data_ptr() != s.data_ptr():
                 d.copy_(s)
+                copied += d.numel() * d.element_size()
+    return copied

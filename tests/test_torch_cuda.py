@@ -36,7 +36,10 @@ mesh; SPMF's graphed epochs equal to its eager ones. Faults 9 and 10: a
 program freed by the garbage collector inside another capture, and an IF
 body stream that was the capture stream; the programs' memory when a
 program is released right after its replay, when IF bodies reuse each
-other's blocks and under pinned fills of queued replays.
+other's blocks and under pinned fills of queued replays. The programs
+on the state's own buffers: a capture replayed after an eager phase that
+refreshed the tables in them, and after a state handed in with new tables
+(copied in); ``release_programs`` leaving the state readable.
 """
 
 import json
@@ -1503,3 +1506,96 @@ def test_pinned_fills_between_queued_replays(card):
         assert hist_taken[k].tolist() == [float(b < k % 5)
                                           for b in range(4)], k
     call.release()
+
+
+def _state_leaves(state) -> dict:
+    """The state's tensors by name, without the generator's state."""
+    from sml_tpu_torch.scripts.program_stress import state_tensors
+    return {k: t for k, t in state_tensors(state).items() if k != "gen"}
+
+
+def _state_values(state) -> dict:
+    return {k: t.detach().clone() for k, t in _state_leaves(state).items()}
+
+
+def _assert_same_values(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5,
+                                   msg=k)
+
+
+def test_capture_on_the_adopted_slot_after_an_eager_refresh(card):
+    """A period captured on the state's own buffers (``SMLEngine.adopt``),
+    then branch C's eager phase 0 writing into them (its refreshes into
+    the tables), then a state handed in with tables refreshed into new
+    buffers (copied into the slot): the replays run on the slot and the
+    whole equals the same phases run call by call on another engine."""
+    from sml_tpu_torch.models.mf import with_tables
+    from sml_tpu_torch.models.transfer import apply_tables
+    from sml_tpu_torch.train.engine import copy_state
+    kw = dict(eval_during_inner=False, eval_during_outer=False)
+    fused, plain = _fused_engine(card, **kw), _fused_engine(card, **kw)
+    prep_t, prep_tt, val = _fused_inputs(fused)
+    state = fused.adopt(fused.init_state())
+    ptrs = {k: t.data_ptr() for k, t in _state_leaves(state).items()}
+    ref = copy_state(state)
+    state = fused.period_step(fused.snapshot_last(state), prep_t, prep_tt,
+                              3)[0]
+    ref = plain.snapshot_last(ref)
+    for _ in range(3):
+        ref = _eager_phase(plain, ref, prep_t, prep_tt, val)[0]
+    # the period's final refresh, the next period's snapshot and its
+    # eager phase 0, all into the slot
+    state = fused.snapshot_last(fused.refresh(state))
+    state = _eager_phase(fused, state, prep_t, prep_tt, val)[0]
+    ref = plain.snapshot_last(plain.refresh(ref))
+    ref = _eager_phase(plain, ref, prep_t, prep_tt, val)[0]
+    assert {k: t.data_ptr() for k, t in _state_leaves(state).items()} == ptrs
+    # the same refresh into new tables: copied into the slot, then replays
+    new = apply_tables(state.theta, fused.cfg.transfer, state.last_user,
+                       state.hat_user, state.last_item, state.hat_item)
+    moved = state._replace(mf=with_tables(state.mf, *new))
+    state = fused.period_step(moved, prep_t, prep_tt, 2)[0]
+    for _ in range(2):
+        ref = _eager_phase(plain, ref, prep_t, prep_tt, val)[0]
+    torch.cuda.synchronize()
+    assert {k: t.data_ptr() for k, t in _state_leaves(state).items()} == ptrs
+    assert [fused.graph_stats[k] for k in ("programs", "warmups", "captures",
+                                           "replays")] == [1, 1, 1, 4]
+    assert fused.slot_copies["tables"] == sum(
+        t.numel() * t.element_size() for t in new)
+    assert all(fused.slot_copies[g] == 0
+               for g in ("snapshots", "theta", "moments"))
+    _assert_same_values(_state_values(state), _state_values(ref))
+    assert torch.equal(state.gen.get_state(), ref.gen.get_state())
+
+
+def test_release_programs_leaves_the_state_readable(card):
+    """After ``release_programs`` (and ``graphs.release_all``) the state
+    that the freed graphs ran on holds its values while the card reuses
+    the freed memory, and the next program adopts it and runs on it."""
+    from sml_tpu_torch.train import graphs
+    from sml_tpu_torch.train.engine import copy_state
+    kw = dict(eval_during_inner=False, eval_during_outer=False)
+    eng, plain = _fused_engine(card, **kw), _fused_engine(card, **kw)
+    prep_t, prep_tt, val = _fused_inputs(eng)
+    state = eng.snapshot_last(eng.init_state())
+    ref = copy_state(state)
+    state = eng.period_step(state, prep_t, prep_tt, 3)[0]
+    torch.cuda.synchronize()
+    values = _state_values(state)
+    eng.release_programs()
+    graphs.release_all()
+    assert eng._slot is None and not eng._programs
+    junk = [torch.full((1 << 20,), float("nan"), device=card)
+            for _ in range(16)]
+    torch.cuda.synchronize()
+    _assert_same_values(_state_values(state), values)
+    del junk
+    state = eng.period_step(state, prep_t, prep_tt, 2)[0]
+    for _ in range(5):
+        ref = _eager_phase(plain, ref, prep_t, prep_tt, val)[0]
+    torch.cuda.synchronize()
+    assert eng.graph_stats["captures"] == 2
+    _assert_same_values(_state_values(state), _state_values(ref))

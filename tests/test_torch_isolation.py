@@ -24,6 +24,16 @@ PORT = ROOT / "sml_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "optax", "sml_tpu")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    # the CPU sweeps here are tiny: on torch's pool, shared with the other
+    # test workers, they wait on the pool far longer than they compute
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port_files():
     # the multi-process tests' rank functions start without JAX as well
     return sorted(PORT.rglob("*.py")) + [
@@ -67,6 +77,8 @@ def test_port_sources_import_no_jax_or_reference():
     # and the production-scale run, its serving check and the results file
     assert {"scripts/scale_engine_run.py", "scripts/scale_serve.py",
             "utils/results.py"} <= names
+    # and the driver's sweep at production scale
+    assert "scripts/scale_sweep.py" in names
     # and the two protocol scripts, what they share and their runner
     assert {"scripts/adressa_run.py", "scripts/yelp_scale_sweep.py",
             "scripts/protocol.py", "scripts/protocol_runs.py"} <= names
