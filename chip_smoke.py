@@ -318,11 +318,16 @@ Phases, one JSON line each:
             Adressa's three for ``PROTO_BASE_PERIODS`` test period with
             ``pool_init_type=1`` (the early stop), Yelp-scale's fine.
             Seconds and peak memory of each run.
-18. parallel  three worlds spawned with a timeout each
+18. parallel  four worlds spawned with a timeout each
             (``parallel.dryrun.run_world``): R=1; two ranks sharing the
             card over gloo on a (1, 2) mesh (tables row-sharded, the
             refresh on 50,000 + 10,000-row blocks); two on (2, 1) (data
-            parallel). Each runs the train-lockstep phase's replay phase
+            parallel); two simulated hosts (``run_world(hosts=2)``) on
+            their global mesh, (2, 1), both seeing the one card, so gloo
+            by the transport rule (on two cards or more: a card a host,
+            NCCL, two phases fused against a one-rank reference of two
+            phases; (2, 2) on four), each rank's host and each axis's
+            transport printed. Each runs the train-lockstep phase's replay phase
             (8 inner steps at B=1024 with ``fast_table_adam``, 16 outer
             steps at B=256), then the 16,384-row masked test (999 distinct
             negatives) and top-20 serving of 4 x 1024 users. Each two-rank
@@ -523,11 +528,18 @@ EDGE_TABLE_ROWS, EDGE_WINDOW = 34_078_720, 4096
 PROTO_ADRESSA_CUT = dict(n_periods=7, train_start=2, test_start=5)
 PROTO_YELP_CUT = dict(n_periods=5, train_start=2, test_start=4)
 PROTO_BASE_PERIODS = 1
-# parallel: three worlds of the replay phase, a test and serving at the
-# Yelp shape; name, ranks, (data, model) mesh (None: one rank alone). Two
-# ranks share the one card over gloo.
-PAR_WORLDS = (("R1", 1, None), ("R2_model", 2, (1, 2)),
-              ("R2_data", 2, (2, 1)))
+# parallel: four worlds of the replay phase, a test and serving at the
+# Yelp shape; name, ranks, (data, model) mesh (None: one rank alone;
+# "global": the hosts' layout, make_global_mesh), simulated hosts. Two
+# ranks share the one card over gloo; R2_hosts runs them as two simulated
+# hosts (run_world(hosts=2)), which both see the one card: gloo, unfused,
+# at (2, 1). On two cards or more (par_worlds) each host has its own
+# (two a host on four: (2, 2)), NCCL, and its step trains PAR_FUSED_PHASES
+# phases fused (a warm-up, then a capture), held to R1_fused_ref, one
+# rank training as many phases unfused.
+PAR_WORLDS = (("R1", 1, None, 1), ("R2_model", 2, (1, 2), 1),
+              ("R2_data", 2, (2, 1), 1), ("R2_hosts", 2, "global", 2))
+PAR_FUSED_PHASES = 2
 PAR_TIMEOUT_S = 300
 # served scores against dense serving on the same tables; a served id may
 # differ from R=1's only where R=1's scores tie within PAR_TIE
@@ -3636,11 +3648,29 @@ def phase_parallel_cli(root: str) -> dict:
     return report
 
 
+def par_worlds(cards: int) -> list:
+    """The parallel phase's worlds on a machine of ``cards`` cards: ``(name,
+    ranks, mesh, hosts, spec fields, the world it is held to)``. One card:
+    ``PAR_WORLDS``, each held to R1. Two or more: R2_hosts one card a
+    host (2 ranks, or 4 with four cards), over NCCL, fused, against
+    R1_fused_ref."""
+    worlds = [(name, n, mesh, hosts, {}, None if n == 1 else "R1")
+              for name, n, mesh, hosts in PAR_WORLDS]
+    if cards >= 2:
+        fused = dict(phases=PAR_FUSED_PHASES, fused=True)
+        worlds[-1] = ("R2_hosts", 4 if cards >= 4 else 2, "global", 2,
+                      fused, "R1_fused_ref")
+        worlds.append(("R1_fused_ref", 1, None, 1,
+                       dict(phases=PAR_FUSED_PHASES), None))
+    return worlds
+
+
 def phase_parallel(torch) -> dict:
-    """Three worlds of one replay phase, a test and serving at the Yelp
+    """Four worlds of one replay phase, a test and serving at the Yelp
     shape (R=1; two ranks sharing the card on a (1, 2) mesh, row-sharded;
-    two on (2, 1), data parallel), each held to R=1 with its launches per
-    rank counted; then the multi-process CLI."""
+    two on (2, 1), data parallel; two simulated hosts, :func:`par_worlds`),
+    each held to its reference with its launches per rank counted; then
+    the multi-process CLI."""
     import dataclasses
 
     from sml_tpu_torch.config import yelp_sml
@@ -3655,29 +3685,43 @@ def phase_parallel(torch) -> dict:
         base = StepSpec(cfg, N_USERS, N_ITEMS, data, serve_k=SERVE_K)
         worlds, out = {}, {"phase": "parallel", "users": N_USERS,
                            "items": N_ITEMS, "eval_rows": EVAL_ROWS,
+                           "cards": torch.cuda.device_count(),
                            "worlds": {}}
-        for name, n, mesh in PAR_WORLDS:
+        plan = par_worlds(torch.cuda.device_count())
+        for name, n, mesh, hosts, kw, _ in plan:
             t0 = time.perf_counter()
             worlds[name] = run_world(
                 "sml_tpu_torch.parallel.dryrun:full_step", n, "cuda",
-                (dataclasses.replace(base, mesh=mesh),), PAR_TIMEOUT_S)
+                (dataclasses.replace(base, mesh=mesh, **kw),), PAR_TIMEOUT_S,
+                hosts)
             spawn_s = time.perf_counter() - t0
-            d = 1 if mesh is None else mesh[0]
-            want = {"transfer_rows_kernel": 4,
-                    "decay_adam_kernel": -(-INNER_ROWS // cfg.mf_batch_size),
+            d = hosts if mesh == "global" else 1 if mesh is None else mesh[0]
+            phases = kw.get("phases", 1)
+            want = {"transfer_rows_kernel": 4 * phases,
+                    "decay_adam_kernel": phases * -(-INNER_ROWS
+                                                    // cfg.mf_batch_size),
                     "masked_rank_gather_kernel": EVAL_ROWS // EVAL_BATCH // d}
             for r, res in enumerate(worlds[name]):
                 check(res["launches"] == want,
                       f"{name} rank {r} launched {res['launches']}, "
                       f"expected {want}")
+                if kw.get("fused"):
+                    check(res["graphs"]["captures"] == 1,
+                          f"{name} rank {r}: graphs {res['graphs']}, "
+                          "expected one capture")
             out["worlds"][name] = {
-                "ranks": n, "mesh": mesh, "spawn_wall_s": spawn_s,
+                "ranks": n, "mesh": mesh, "hosts": hosts,
+                "phases": phases, "fused": bool(kw.get("fused")),
+                "spawn_wall_s": spawn_s,
                 "step_wall_s": [r["wall_s"] for r in worlds[name]],
                 "transport": worlds[name][0]["transport"],
+                "host_by_rank": [r["host"] for r in worlds[name]],
+                "graphs": worlds[name][0]["graphs"],
                 "launches_per_rank": want}
-        ref = worlds["R1"][0]
-        for name, _, mesh in PAR_WORLDS[1:]:
-            got = worlds[name][0]
+        for name, _, mesh, _, _, held_to in plan:
+            if held_to is None:
+                continue
+            ref, got = worlds[held_to][0], worlds[name][0]
             errs = {"user": float(abs(got["user_emb"] - ref["user_emb"])
                                   .max()),
                     "item": float(abs(got["item_emb"] - ref["item_emb"])
@@ -3691,30 +3735,31 @@ def phase_parallel(torch) -> dict:
                     for k in ref["eval"]}
             serve = served_agreement(torch, ref, got)
             check(max(errs.values()) <= TRAIN_ATOL,
-                  f"{name}: tables/Θ differ from R=1 by {errs}")
+                  f"{name}: tables/Θ differ from {held_to} by {errs}")
             check(loss_err <= LOSS_RTOL,
-                  f"{name}: losses differ from R=1 by rtol {loss_err}")
+                  f"{name}: losses differ from {held_to} by rtol {loss_err}")
             check(max(hits.values()) <= SLICE_HIT_TOL,
-                  f"{name}: hit counts differ from R=1: {hits}")
+                  f"{name}: hit counts differ from {held_to}: {hits}")
             check(serve["rows_differ_untied"] == 0,
-                  f"{name}: served ids differ where R=1 does not tie: "
+                  f"{name}: served ids differ where {held_to} does not tie: "
                   f"{serve}")
             check(serve["score_err_vs_dense"] <= PAR_SCORE_ATOL,
                   f"{name}: served scores differ from dense serving: "
                   f"{serve}")
             out["worlds"][name].update(
-                max_abs_err_vs_r1=errs, loss_max_rel_err_vs_r1=loss_err,
-                hit_diff_vs_r1={str(k): v for k, v in hits.items()},
+                held_to=held_to, max_abs_err_vs_ref=errs,
+                loss_max_rel_err_vs_ref=loss_err,
+                hit_diff_vs_ref={str(k): v for k, v in hits.items()},
                 **serve)
         out["worlds"]["R1"]["eval_hits"] = {
-            str(k): v[0] for k, v in ref["eval"].items()}
+            str(k): v[0] for k, v in worlds["R1"][0]["eval"].items()}
         # the transport: every collective the port calls, on CUDA tensors
         # of two ranks sharing the card (each two-rank world checks them
         # before its step), handed to the group's backend as they are (the
         # port copies nothing to the host; ProcessGroupGloo stages CUDA
         # tensors through pinned host buffers inside itself)
         from sml_tpu_torch.parallel.collective import GLOO_CUDA_COLLECTIVES
-        checked = [r["collectives"] for name, _, _ in PAR_WORLDS[1:]
+        checked = [r["collectives"] for name, n, *_ in plan if n > 1
                    for r in worlds[name]]
         for res in checked:
             check(res["on_device"] and res["device"].startswith("cuda")
@@ -3729,20 +3774,23 @@ def phase_parallel(torch) -> dict:
                          "ProcessGroupGloo; the port stages nothing itself"}
         # the fused programs on ranks sharing the card: gloo cannot be
         # captured, so "auto" stays unfused and fuse_period=True raises,
-        # naming the reason and the ways out
-        for name, _, _ in PAR_WORLDS[1:]:
+        # naming the reason and the ways out; a world whose ranks hold a
+        # card each (NCCL) and one rank alone fuse
+        for name, n, *_ in plan:
             for r in worlds[name]:
                 rule = r["fusion"]
-                check(rule["auto"] is False
-                      and isinstance(rule["True"], str)
-                      and "gloo" in rule["True"]
-                      and "fuse_period=False" in rule["True"],
-                      f"{name}: the fusion rule over gloo on the card: "
-                      f"{rule}")
-        check(worlds["R1"][0]["fusion"]["auto"] is True,
-              f"R=1: 'auto' does not fuse: {worlds['R1'][0]['fusion']}")
+                if n > 1 and "nccl" not in r["transport"].values():
+                    check(rule["auto"] is False
+                          and isinstance(rule["True"], str)
+                          and "gloo" in rule["True"]
+                          and "fuse_period=False" in rule["True"],
+                          f"{name}: the fusion rule over gloo on the card: "
+                          f"{rule}")
+                else:
+                    check(rule["auto"] is True and rule["True"] is True,
+                          f"{name}: 'auto' does not fuse: {rule}")
         out["fusion_rule"] = {name: worlds[name][0]["fusion"]
-                              for name, _, _ in PAR_WORLDS}
+                              for name, *_ in plan}
         t0 = time.perf_counter()
         out["cli"] = phase_parallel_cli(os.path.join(root, "cli"))
         out["cli"]["wall_s"] = time.perf_counter() - t0
@@ -3750,7 +3798,7 @@ def phase_parallel(torch) -> dict:
         emit(out)
         # launches on the card in this phase, every rank of every world
         return {k: sum(r["launches"][k] for w in worlds.values() for r in w)
-                for k in ref["launches"]}
+                for k in worlds["R1"][0]["launches"]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -4,10 +4,11 @@
 The transport. :func:`all_reduce`, :func:`all_gather` and :func:`broadcast`
 run over one process group (a mesh axis, ``Mesh.group(axis)``) and are a
 pass-through on a group of one rank. The group's backend is fixed when the
-world starts (:func:`sml_tpu_torch.parallel.multihost.init_distributed`):
-NCCL when every rank has a card of its own, gloo when ranks share a card or
-run on the CPU. Gloo takes CUDA tensors for every collective used here
-(all-reduce, all-gather, broadcast: checked with two ranks on one H100
+world starts (:func:`sml_tpu_torch.parallel.multihost.init_distributed`),
+from the cards the ranks hold (:func:`backend_for`): NCCL when every rank
+is on a card and no two ranks hold the same card, gloo when ranks share a
+card (on one host or on two) or run on the CPU. Gloo takes CUDA tensors
+for every collective used here (all-reduce, all-gather, broadcast: checked with two ranks on one H100
 under torch 2.11, see ``GLOO_CUDA_COLLECTIVES``), so the port hands them
 over as they are and copies nothing to the host itself; ProcessGroupGloo
 stages CUDA tensors through pinned host buffers and reduces them on the
@@ -49,7 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -59,14 +60,34 @@ import torch.distributed as dist
 GLOO_CUDA_COLLECTIVES = frozenset({"all_reduce", "all_gather", "broadcast"})
 
 # this process's place in its world, as init_distributed finds it: the
-# ranks on its host, its index among them, and the mesh groups' backend
+# ranks on its host, its index among them, the mesh groups' backend, and
+# by rank the world's hosts and the cards the ranks hold
 WORLD = {"local_rank": 0, "local_world": 1, "backend": "gloo"}
 
 
-def backend_for(device: torch.device, local_world: int) -> str:
-    """The rule: NCCL when every rank of a host has a card of its own,
-    gloo when ranks share a card or run on the CPU."""
-    if device.type == "cuda" and local_world <= torch.cuda.device_count():
+# bytes of tensors this process has handed to collectives, by the ranks of
+# the group they went over (the world's ranks, sorted): counted at each
+# call, so a captured collective counts once, at its capture, however
+# often the graph replays it
+TRAFFIC: dict = {}
+
+
+def traffic(group) -> int:
+    """Bytes this process has handed to collectives over ``group``
+    (:data:`TRAFFIC`)."""
+    return TRAFFIC.get(tuple(dist.get_process_group_ranks(group)), 0)
+
+
+def backend_for(device_type: str, cards: Sequence[Optional[str]]) -> str:
+    """The rule, from the card each rank of the world holds (``cards``, by
+    rank: the card's UUID, None for a rank on the CPU): NCCL when the
+    ranks run on cards (``device_type`` "cuda") and no two of them hold
+    the same card; gloo otherwise (ranks sharing a card, whether on one
+    host or on two, or on the CPU). No count of cards decides it: a rank
+    that sees only its own card and a rank that sees all of them are
+    told apart by the card they hold."""
+    if (device_type == "cuda" and None not in cards
+            and len(set(cards)) == len(cards)):
         return "nccl"
     return "gloo"
 
@@ -130,6 +151,8 @@ def _runs(op: str, t: torch.Tensor, group) -> bool:
         why = capture_refusal([group], t.device)
         if why is not None:
             raise RuntimeError(why)
+    key = tuple(dist.get_process_group_ranks(group))
+    TRAFFIC[key] = TRAFFIC.get(key, 0) + t.numel() * t.element_size()
     return True
 
 
@@ -204,11 +227,17 @@ class _LookupRows(torch.autograd.Function):
     def backward(ctx, grad_rows):
         safe, in_range = ctx.saved_tensors
         # mask -> local scatter-add: the transpose of the lookup, with no
-        # reduction over the group (each rank keeps its own rows' gradient)
+        # reduction over the group (each rank keeps its own rows' gradient).
+        # index_put_(accumulate=True) adds a repeated id's rows in a fixed
+        # order on the card (sorted, each id's rows serially), as the
+        # single-rank path's indexing backward does: index_add_'s atomics
+        # would add them in whatever order they land, and an eager and a
+        # replayed step would differ in the last bits
         grad = torch.zeros(ctx.shape, dtype=grad_rows.dtype,
                            device=grad_rows.device)
-        grad.index_add_(0, safe, torch.where(in_range[:, None], grad_rows,
-                                             torch.zeros_like(grad_rows)))
+        grad.index_put_((safe,), torch.where(in_range[:, None], grad_rows,
+                                             torch.zeros_like(grad_rows)),
+                        accumulate=True)
         return grad.to(ctx.table_dtype), None, None, None
 
 

@@ -4,7 +4,9 @@
 :func:`run_world` spawns R processes, joins them into one world over a
 file store and calls a function of this package on every rank, with a
 timeout for the whole world: a rank that fails, or a world that outlives
-its time, kills every rank and raises. :func:`full_step` is what one rank
+its time, kills every rank and raises; with ``hosts=H`` its ranks run as
+H simulated hosts, each seeing its own share of the cards
+(:func:`simulated_hosts`). :func:`full_step` is what one rank
 runs: one full SML step (inner epoch -> snapshot -> refresh -> outer epoch
 -> refresh), a leave-one-out test and full-catalog top-K serving, on a
 mesh or on one rank alone, with the kernels' launches counted per rank.
@@ -39,10 +41,48 @@ SERVE_BATCH = 1024      # users per top-K call
 _PENDING = object()     # a rank still running
 
 
+def simulated_hosts(n: int, hosts: int, device: str) -> list:
+    """Where each rank of an ``n``-rank world of ``hosts`` simulated hosts
+    runs: ``(host, env)`` by rank. Rank ``r`` is on host ``r // (n //
+    hosts)`` (a host's ranks contiguous, as ``make_global_mesh`` needs).
+    On cards each host sees its own share of the machine's cards
+    (``CUDA_VISIBLE_DEVICES``; with fewer cards than hosts every host sees
+    the first, and the ranks then share it over gloo), and NCCL is told
+    the hosts apart (``NCCL_HOSTID``), so it carries what crosses hosts
+    over its network transport and not over P2P or shared memory. One
+    host: ``(None, {})`` for every rank (the machine's own name, its
+    environment as it is)."""
+    if hosts == 1:
+        return [(None, {})] * n
+    if hosts < 1 or n % hosts:
+        raise ValueError(f"{n} ranks do not divide into {hosts} hosts")
+    import socket
+    name = socket.gethostname()
+    share = []
+    if device == "cuda":
+        import torch
+        seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+        cards = ([c for c in seen.split(",") if c] if seen is not None
+                 else [str(i) for i in range(torch.cuda.device_count())])
+        per = len(cards) // hosts
+        share = [cards[h * per:(h + 1) * per] if per else cards[:1]
+                 for h in range(hosts)]
+    out = []
+    for r in range(n):
+        h = r // (n // hosts)
+        env = ({"CUDA_VISIBLE_DEVICES": ",".join(share[h]),
+                "NCCL_HOSTID": f"{name}-sim{h}"} if share else {})
+        out.append((f"{name}-sim{h}", env))
+    return out
+
+
 def _rank_main(rank: int, n: int, store: str, device: str, target: str,
-               args, out_dir: str, timeout_s: float) -> None:
-    """A spawned rank: join the world, run ``target`` (``module:function``),
-    write its result or its traceback."""
+               args, out_dir: str, timeout_s: float, host=None,
+               env=None) -> None:
+    """A spawned rank: take its host's environment (before any CUDA call),
+    join the world, run ``target`` (``module:function``), write its result
+    or its traceback."""
+    os.environ.update(env or {})
     import importlib
 
     import torch
@@ -52,7 +92,7 @@ def _rank_main(rank: int, n: int, store: str, device: str, target: str,
         from sml_tpu_torch.parallel.multihost import init_distributed
         from sml_tpu_torch.train import graphs
         dev = init_distributed(store, n, rank, device=device,
-                               timeout_s=timeout_s)
+                               timeout_s=timeout_s, host=host)
         # one thread per rank: worlds may run beside other work
         torch.set_num_threads(1)
         mod, fn = target.split(":")
@@ -72,23 +112,27 @@ def _rank_main(rank: int, n: int, store: str, device: str, target: str,
 
 
 def run_world(target: str, n: int, device: str = "cuda", args=(),
-              timeout_s: float = DEFAULT_WORLD_TIMEOUT_S) -> list:
+              timeout_s: float = DEFAULT_WORLD_TIMEOUT_S,
+              hosts: int = 1) -> list:
     """``target(rank_device, *args)`` on every rank of an ``n``-rank world
     (``target`` is ``"module:function"``, a function of this package);
     returns the results in rank order. Raises, with the failing rank's
     traceback, if a rank fails, and kills every rank if the world is not
     done within ``timeout_s``. ``device="cuda"`` raises here, before any
-    rank starts, when there is no card."""
+    rank starts, when there is no card. ``hosts``: the ranks run as that
+    many simulated hosts (:func:`simulated_hosts`); 1 leaves every rank on
+    this machine's host with its environment as it is."""
     import multiprocessing as mp
 
     from sml_tpu_torch.device import resolve_device
     resolve_device(device)
+    placed = simulated_hosts(n, hosts, device)
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="sml_world_")
     store = "file://" + os.path.join(tmp, "store")
     procs = [ctx.Process(target=_rank_main,
                          args=(r, n, store, device, target, args, tmp,
-                               timeout_s))
+                               timeout_s, *placed[r]))
              for r in range(n)]
     def result(r):
         path = os.path.join(tmp, f"rank{r}.pkl")
@@ -180,7 +224,12 @@ def run_cli_world(argv, n: int, device: str = "cuda",
 @dataclasses.dataclass
 class StepSpec:
     """What :func:`full_step` runs: the config and counts, the mesh shape
-    (None: one rank alone), and an ``.npz`` holding ``inner_rows``,
+    (None: one rank alone; ``"global"``: ``make_global_mesh()``, the
+    hosts' layout), the phases the step trains (each as the driver's
+    unfused phase makes it, after one ``snapshot_last``; ``fused``:
+    through ``SMLEngine.phase_step``, whose first call is the program's
+    warm-up and whose second captures it), and an ``.npz`` holding
+    ``inner_rows``,
     ``outer_rows``, ``test_rows`` and ``serve_users`` (and the pretrained
     tables ``user_emb``/``item_emb``/``user_bias``/``item_bias``, if
     any)."""
@@ -188,7 +237,9 @@ class StepSpec:
     n_users: int
     n_items: int
     data: str
-    mesh: Optional[tuple] = None
+    mesh: object = None
+    phases: int = 1
+    fused: bool = False
     serve_k: int = 20
     topk_methods: tuple = ("exact",)
 
@@ -200,10 +251,19 @@ def _kernel_modules():
             "masked_rank_gather_kernel": eval_kernel.masked_rank_cuda}
 
 
+def spec_mesh(shape):
+    """The mesh of a shape: a ``(data, model)`` tuple over the world's
+    ranks, or ``"global"``, the hosts' layout (``make_global_mesh``)."""
+    from sml_tpu_torch.parallel.multihost import make_global_mesh
+    from sml_tpu_torch.parallel.sharding import make_mesh
+    return make_global_mesh() if shape == "global" else make_mesh(*shape)
+
+
 def full_step(device: str, spec: StepSpec) -> dict:
-    """One full SML step, a test and top-K serving on this rank; see the
-    module note. Returns this rank's launches per kernel, wall seconds and
-    transport, the driver's fusion rule for this engine
+    """One full SML step (``spec.phases`` phases), a test and top-K
+    serving on this rank; see the module note. Returns this rank's
+    launches per kernel, wall seconds, host, card, transport and graph
+    counts, the driver's fusion rule for this engine
     (:func:`_fusion_rule`), on a mesh also :func:`check_transport`'s
     answers (run before the step), and (rank 0) the whole tables, Θ, the
     losses, the test's hit and NDCG sums and the served scores and ids."""
@@ -213,7 +273,6 @@ def full_step(device: str, spec: StepSpec) -> dict:
     from sml_tpu_torch.models.transfer import theta_leaves
     from sml_tpu_torch.parallel import collective
     from sml_tpu_torch.parallel.multihost import process_index
-    from sml_tpu_torch.parallel.sharding import make_mesh
     from sml_tpu_torch.train.engine import SMLEngine
 
     with np.load(spec.data) as blob:
@@ -225,7 +284,7 @@ def full_step(device: str, spec: StepSpec) -> dict:
     mesh, checked = None, None
     if spec.mesh is not None:
         checked = check_transport(device)
-        mesh = make_mesh(*spec.mesh)
+        mesh = spec_mesh(spec.mesh)
         state = eng.init_state_sharded(mesh, pretrained_mf=pretrained)
     else:
         state = eng.init_state(pretrained_mf=pretrained)
@@ -240,10 +299,16 @@ def full_step(device: str, spec: StepSpec) -> dict:
         c.launches = 0
     t0 = time.perf_counter()
     state = eng.snapshot_last(state)
-    state, il = eng.inner_epoch(state, *eng.prep_inner(data["inner_rows"]))
-    state = eng.refresh(eng.snapshot_hat(state))
-    state, ol = eng.outer_epoch(state, *eng.prep_outer(data["outer_rows"]))
-    state = eng.refresh(state)
+    prep_t = eng.prep_inner(data["inner_rows"])
+    prep_tt = eng.prep_outer(data["outer_rows"])
+    for _ in range(spec.phases):
+        if spec.fused:
+            state, il, ol = eng.phase_step(state, prep_t, prep_tt)
+            continue
+        state, il = eng.inner_epoch(state, *prep_t)
+        state = eng.refresh(eng.snapshot_hat(state))
+        state, ol = eng.outer_epoch(state, *prep_tt)
+        state = eng.refresh(state)
     sums, _ = eng.evaluate_deferred(
         state.mf, eng.make_eval_set(data["test_rows"], build_mask=True))
     served = {}
@@ -261,7 +326,10 @@ def full_step(device: str, spec: StepSpec) -> dict:
            "transport": ("local" if mesh is None
                          else {a: collective.transport(mesh.group(a))
                                for a in ("data", "model")}),
-           "collectives": checked, "fusion": _fusion_rule(spec.cfg, eng)}
+           "collectives": checked, "fusion": _fusion_rule(spec.cfg, eng),
+           "graphs": dict(eng.graph_stats),
+           **{k: (collective.WORLD.get(f"{k}s") or [None])[process_index()]
+              for k in ("host", "card")}}
     whole = eng.whole_state(state)
     if process_index() == 0:
         out.update(
@@ -345,12 +413,11 @@ def fused_parts(device: str, cfg_c, cfg_d, n_users: int, n_items: int,
 
     from sml_tpu_torch.models.transfer import theta_leaves
     from sml_tpu_torch.parallel.multihost import process_index
-    from sml_tpu_torch.parallel.sharding import make_mesh
     from sml_tpu_torch.train.engine import SMLEngine
     with np.load(data) as blob:
         d = {k: blob[k] for k in blob.files}
     out = {}
-    grid = None if mesh is None else make_mesh(*mesh)
+    grid = None if mesh is None else spec_mesh(mesh)
     counters = _kernel_modules()
     for part, cfg in (("c", cfg_c), ("d", cfg_d)):
         eng = SMLEngine(cfg, n_users, n_items, device=device)
@@ -573,9 +640,12 @@ def step_against_one_rank(device: str, specs) -> list:
 
 
 def dryrun_multichip(n: int, device: str = "cuda",
-                     timeout_s: float = DEFAULT_WORLD_TIMEOUT_S) -> dict:
+                     timeout_s: float = DEFAULT_WORLD_TIMEOUT_S,
+                     hosts: int = 1) -> dict:
     """One full step on an ``n``-rank mesh (``(2, n/2)`` for an even
-    ``n >= 4``, else ``(1, n)``) against one rank, for 'alone' sampling,
+    ``n >= 4``, else ``(1, n)``; with ``hosts`` > 1 the ranks run as that
+    many simulated hosts on their global mesh, ``(hosts, n/hosts)``)
+    against one rank, for 'alone' sampling,
     replay and 'all' mode: tables and Θ within 1e-4, equal recall at 999
     negatives and NDCG within 1e-6; the fused parts (c) and (d) against
     the same phases unfused on the mesh and against one rank
@@ -586,7 +656,11 @@ def dryrun_multichip(n: int, device: str = "cuda",
     ``device="cuda"`` when there is no card."""
     from sml_tpu_torch.device import resolve_device
     resolve_device(device)
-    n_data, n_model = (2, n // 2) if n >= 4 and n % 2 == 0 else (1, n)
+    if hosts > 1:
+        n_data, n_model = hosts, n // hosts
+    else:
+        n_data, n_model = (2, n // 2) if n >= 4 and n % 2 == 0 else (1, n)
+    shape = "global" if hosts > 1 else (n_data, n_model)
     tmp = tempfile.mkdtemp(prefix="sml_dryrun_")
     report = {"mesh": {"data": n_data, "model": n_model}}
     modes = ("alone", "replay", "all")
@@ -601,18 +675,18 @@ def dryrun_multichip(n: int, device: str = "cuda",
             cfg, _, _ = tiny_config(n_model, **kw)
             path = os.path.join(tmp, f"{mode}.npz")
             _mode_data(base, path, mode)
-            specs.append(StepSpec(cfg, n_users, n_items, path,
-                                  (n_data, n_model), serve_k=8,
+            specs.append(StepSpec(cfg, n_users, n_items, path, shape,
+                                  serve_k=8,
                                   topk_methods=("exact", "exact_bucket")))
         ranks = run_world(f"{__name__}:step_against_one_rank", n, device,
-                          (specs,), timeout_s)
+                          (specs,), timeout_s, hosts)
         cfg_c, _, _ = tiny_config(n_model, mf_sample="all")
         cfg_d, _, _ = tiny_config(n_model, multi_num=2,
                                   eval_during_inner=True,
                                   eval_during_outer=True)
         fused = run_world(f"{__name__}:fused_parts", n, device,
-                          (cfg_c, cfg_d, n_users, n_items, base,
-                           (n_data, n_model)), timeout_s)
+                          (cfg_c, cfg_d, n_users, n_items, base, shape),
+                          timeout_s, hosts)
         for k, mode in enumerate(modes):
             got, one = ranks[0][k]
             delta = max_delta(got, one)

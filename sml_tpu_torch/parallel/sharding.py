@@ -54,9 +54,25 @@ class Mesh:
         # device its tensors are on
         self.transport = collective.WORLD["backend"]
         if self.transport == "nccl":
+            # the rank's card was set when the world started
+            # (init_distributed); DeviceMesh picks one itself (rank %
+            # device_count) only where CUDA is not initialized yet, which
+            # the world's exchange of card identities has done
+            dev = collective.WORLD["device"]
             self.device_mesh = init_device_mesh(
                 "cuda", (n_data, n_model), mesh_dim_names=AXES,
                 backend_override={a: "nccl" for a in AXES})
+            if torch.cuda.current_device() != dev.index:
+                raise RuntimeError(
+                    f"the mesh moved this rank to cuda:"
+                    f"{torch.cuda.current_device()}, not its card {dev}")
+            # every axis's communicator made now, by an eager collective on
+            # it, in the same order on every rank: NCCL makes one at its
+            # group's first collective, which must not fall inside a
+            # capture
+            for a in AXES:
+                collective.all_reduce(torch.zeros(1, device=dev),
+                                      self.group(a))
         else:
             self.device_mesh = init_device_mesh(
                 "cpu", (n_data, n_model), mesh_dim_names=AXES)

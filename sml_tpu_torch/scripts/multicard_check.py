@@ -2,7 +2,14 @@
 cards (NCCL), or sharing cards or the CPU (gloo):
 
     python -m sml_tpu_torch.scripts.multicard_check --ranks 4
+    python -m sml_tpu_torch.scripts.multicard_check --ranks 4 --hosts 2
     python -m sml_tpu_torch.scripts.multicard_check --ranks 2 --device cpu
+
+``--hosts H`` spawns the ranks of parts 1-3 as H simulated hosts
+(``parallel.dryrun.run_world(hosts=H)``: each sees its own share of the
+cards), so their global mesh (``make_global_mesh``) is ``(H, R/H)``, its
+'data' axis across the hosts; part 4, the CLI, runs on this machine's one
+host, as the CLI takes its host from the machine.
 
 1. every collective of ``parallel.collective`` on the ranks' devices,
    against the values it must give, with the transport it used;
@@ -13,7 +20,8 @@ cards (NCCL), or sharing cards or the CPU (gloo):
 3. the fused sweep (:func:`fused_sweep_part`): ``SMLDriver`` on a
    synthetic dataset, on cards at the Yelp widths and table sizes
    (100,000 x 20,000, d=64, C1=10, C2=5, H=512; on the CPU at a tiny
-   size), on an R-rank ``(1, R)`` mesh unfused and fused
+   size), on the R ranks' global mesh (``(1, R)`` on one host) unfused
+   and fused
    (``fuse_period="auto"``, which on cards over NCCL captures the
    program once per rank, its step slots split at their collectives;
    ``True`` on the CPU, where a program runs eagerly on the mesh), then
@@ -188,8 +196,8 @@ def sweep_config(sweep: str):
 
 
 def sweep_rank(device: str, cfg, spec, fused) -> dict:
-    """One rank of the fused sweep part: the sweep on the world's ``(1,
-    R)`` mesh unfused, then with ``fuse_period=fused``, then (rank 0)
+    """One rank of the fused sweep part: the sweep on the world's global
+    mesh unfused, then with ``fuse_period=fused``, then (rank 0)
     fused on this rank alone. Per run: the wall of each period, the route
     taken, the graphs' counts and the launches per kernel; rank 0 also
     the whole final tables and the tests' recalls; and why the mesh's
@@ -245,30 +253,38 @@ def sweep_rank(device: str, cfg, spec, fused) -> dict:
     return out
 
 
-def fused_sweep_part(root: str, n: int, device: str,
-                     timeout_s: float = TIMEOUT_S) -> tuple:
-    """Part 3 (module note): ``(report, failed)``; the Yelp sizes on
-    cards, the tiny ones on the CPU."""
-    import numpy as np
-
+def fused_sweep_dataset(root: str, sweep: str):
+    """The fused sweep's synthetic dataset (``SWEEPS[sweep]``), written
+    under ``root``; returns its ``DataSpec``."""
     from sml_tpu_torch.config import DataSpec
     from sml_tpu_torch.data.synthetic import (SyntheticSpec,
                                               generate_synthetic_dataset)
+    data = SWEEPS[sweep]["data"]
+    generate_synthetic_dataset(os.path.join(root, "sweep"),
+                               SyntheticSpec(**data))
+    return DataSpec(root=root, name="sweep", num_periods=data["n_periods"],
+                    online_train_start=0,
+                    online_test_start=data["first_test_period"],
+                    eval_neg_num=data["neg_num"])
+
+
+def fused_sweep_part(root: str, n: int, device: str,
+                     timeout_s: float = TIMEOUT_S, hosts: int = 1) -> tuple:
+    """Part 3 (module note): ``(report, failed)``; the Yelp sizes on
+    cards, the tiny ones on the CPU; the ranks as ``hosts`` simulated
+    hosts."""
+    import numpy as np
+
     from sml_tpu_torch.parallel.dryrun import run_world
     sweep = "yelp" if device == "cuda" else "tiny"
     data = SWEEPS[sweep]["data"]
     t0 = time.perf_counter()
-    generate_synthetic_dataset(os.path.join(root, "sweep"),
-                               SyntheticSpec(**data))
-    spec = DataSpec(root=root, name="sweep", num_periods=data["n_periods"],
-                    online_train_start=0,
-                    online_test_start=data["first_test_period"],
-                    eval_neg_num=data["neg_num"])
+    spec = fused_sweep_dataset(root, sweep)
     data_s = time.perf_counter() - t0
     fused = "auto" if device == "cuda" else True
     t0 = time.perf_counter()
     ranks = run_world(f"{__name__}:sweep_rank", n, device,
-                      (sweep_config(sweep), spec, fused), timeout_s)
+                      (sweep_config(sweep), spec, fused), timeout_s, hosts)
     r0 = ranks[0]
 
     def tables_err(a, b):
@@ -314,16 +330,19 @@ def fused_sweep_part(root: str, n: int, device: str,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("multicard_check")
     p.add_argument("--ranks", type=int, default=2)
+    p.add_argument("--hosts", type=int, default=1,
+                   help="run parts 1-3 as this many simulated hosts")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
 
     from sml_tpu_torch.device import resolve_device
     from sml_tpu_torch.parallel.dryrun import dryrun_multichip, run_world
     resolve_device(args.device)
-    n, report, failed = args.ranks, {"ranks": args.ranks}, []
+    n, report, failed = args.ranks, {"ranks": args.ranks,
+                                     "hosts": args.hosts}, []
     t0 = time.perf_counter()
     ranks = run_world("sml_tpu_torch.parallel.dryrun:check_transport", n,
-                      args.device, (), TIMEOUT_S)
+                      args.device, (), TIMEOUT_S, args.hosts)
     report["collectives"] = {
         "transport": ranks[0]["transport"],
         "devices": [r["device"] for r in ranks],
@@ -337,7 +356,7 @@ def main(argv=None) -> int:
         # its progress lines go to stderr: stdout carries the document
         with contextlib.redirect_stdout(sys.stderr):
             dry = dryrun_multichip(n, device=args.device,
-                                   timeout_s=TIMEOUT_S)
+                                   timeout_s=TIMEOUT_S, hosts=args.hosts)
         report["dryrun"] = {
             "mesh": dry["mesh"], "serving_score_err": dry["serving"],
             "max_delta": {m: dry[m]["max_delta"]
@@ -351,7 +370,7 @@ def main(argv=None) -> int:
     root = tempfile.mkdtemp(prefix="sml_multicard_")
     try:
         report["fused_sweep"], sweep_failed = fused_sweep_part(
-            root, n, args.device)
+            root, n, args.device, hosts=args.hosts)
         failed += sweep_failed
         report["cli"], cli_failed = cli_against_one_process(root, n,
                                                             args.device)

@@ -16,6 +16,10 @@ the JAX script's, so both scripts make the same data. Two shapes:
   mesh over NCCL):
     python -m sml_tpu_torch.scripts.scale_engine_run --users 50000000 \\
         --items 5000000 --devices 4
+  the same over two simulated hosts of two cards (BASELINE.json config
+  5's layout: a (2, 2) mesh, 'data' across the hosts over NCCL):
+    python -m sml_tpu_torch.scripts.scale_engine_run --users 50000000 \\
+        --items 5000000 --devices 4 --hosts 2
 
 On the CPU (``--device cpu``; without it a host with no GPU raises) at a
 tiny shape:
@@ -23,14 +27,18 @@ tiny shape:
         --users 3000 --items 700 --inter 4000 --eval-rows 64 --neg 99
 
 ``--devices R`` (R > 1) spawns R processes (``parallel.dryrun.run_world``),
-each on its own card (or the CPU, over gloo), whose state is born
-row-sharded (``SMLEngine.init_state_sharded``) on a ``(1, R)`` mesh; users
-and items are rounded down to a multiple of R, and rank 0's result is the
-line. ``--save-model PATH`` (the port's own flag) writes the final tables
-as the ``.npz`` that ``python -m sml_tpu_torch rank`` serves.
-Diagnostics go to stderr, among them the peak device memory
+each on its own card (or the CPU, over gloo), as ``--hosts H`` simulated
+hosts (default 1), whose state is born row-sharded
+(``SMLEngine.init_state_sharded``) on their global mesh
+(``make_global_mesh``: ``(H, R/H)``, the tables row-sharded over a host's
+ranks and each block held once per host); users and items are rounded
+down to a multiple of R, and rank 0's result is the line.
+``--save-model PATH`` (the port's own flag) writes the final
+tables as the ``.npz`` that ``python -m sml_tpu_torch rank`` serves.
+Diagnostics go to stderr, among them, per rank, the peak device memory
 (``torch.cuda.max_memory_allocated``) after init, after each phase and
-after the evaluation, per rank.
+after the evaluation, its place on the mesh and the bytes it handed to
+each axis's collectives.
 """
 
 from __future__ import annotations
@@ -71,8 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--snapshot-dtype", default="float32")
     ap.add_argument("--latent", type=int, default=64)
     ap.add_argument("--devices", type=int, default=0,
-                    help="row-shard tables over an N-rank (1, N) mesh, one "
+                    help="row-shard tables over N ranks' global mesh, one "
                          "process per rank")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="spawn the --devices ranks as this many simulated "
+                         "hosts (mesh (hosts, devices / hosts))")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--key", default="scale_5m_chip")
     ap.add_argument("--out", default=None,
@@ -120,14 +131,16 @@ def _save_tables(engine, state, path: str) -> None:
 
 def run_scale(args, device="cuda", mesh=None) -> ScaleRun:
     """The JAX script's run through the port's engine on ``device``; under
-    ``mesh`` (a ``(1, R)`` mesh of a running world) the state is born
+    ``mesh`` (the global mesh of a running world) the state is born
     row-sharded."""
     from sml_tpu_torch.config import SMLConfig, TransferConfig
     from sml_tpu_torch.device import resolve_device
     from sml_tpu_torch.train.engine import SMLEngine
 
     dev = resolve_device(device)
-    tag = "" if mesh is None else f"[rank {mesh.index('model')}] "
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.multihost import process_index
+    tag = "" if mesh is None else f"[rank {process_index()}] "
     U, I = args.users, args.items
     if args.devices:
         U = (U // args.devices) * args.devices
@@ -244,16 +257,24 @@ def run_scale(args, device="cuda", mesh=None) -> ScaleRun:
             "outer_steps": -(-padded_tt.n_real // args.batch),
             "init_seconds": init_s, "peak_bytes": peaks,
             "losses": losses, "test_rows": test_rows,
-            "device": str(dev)}
+            "device": str(dev),
+            "mesh": (None if mesh is None
+                     else [mesh.shape["data"], mesh.shape["model"]]),
+            # bytes this rank handed to each axis's collectives (phases,
+            # test and the gather of --save-model)
+            "bytes": (None if mesh is None
+                      else {a: collective.traffic(mesh.group(a))
+                            for a in ("data", "model")})}
     return ScaleRun(engine, state, res, info)
 
 
 def rank_main(device: str, argd: dict):
-    """One rank of ``--devices R``: :func:`run_scale` on a ``(1, R)`` mesh;
-    returns the result and the diagnostics (the test rows left out)."""
-    from sml_tpu_torch.parallel.sharding import make_mesh
+    """One rank of ``--devices R``: :func:`run_scale` on the world's global
+    mesh; returns the result and the diagnostics (the test rows left
+    out)."""
+    from sml_tpu_torch.parallel.multihost import make_global_mesh
     args = argparse.Namespace(**argd)
-    run = run_scale(args, device, make_mesh(1, args.devices))
+    run = run_scale(args, device, make_global_mesh())
     info = {k: v for k, v in run.info.items() if k != "test_rows"}
     return run.result, info
 
@@ -266,7 +287,8 @@ def run(args):
         from sml_tpu_torch.parallel.dryrun import run_world
         ranks = run_world(
             "sml_tpu_torch.scripts.scale_engine_run:rank_main",
-            args.devices, args.device, (vars(args),), WORLD_TIMEOUT_S)
+            args.devices, args.device, (vars(args),), WORLD_TIMEOUT_S,
+            hosts=args.hosts)
         result, info = ranks[0]
         return result, {**info, "ranks": [r[1] for r in ranks]}
     out = run_scale(args, args.device)
@@ -277,10 +299,12 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     result, info = run(args)
     for r, rank_info in enumerate(info.get("ranks", [info])):
-        _log(f"rank {r} on {rank_info['device']}: init "
+        _log(f"rank {r} on {rank_info['device']} (mesh "
+             f"{rank_info['mesh']}): init "
              f"{rank_info['init_seconds']:.1f}s, peak device memory "
              + ", ".join(f"{k} {_gib(v)}"
-                         for k, v in rank_info["peak_bytes"].items()))
+                         for k, v in rank_info["peak_bytes"].items())
+             + f"; bytes to collectives by axis {rank_info['bytes']}")
     print(json.dumps(result), flush=True)
     if args.out:
         from sml_tpu_torch.utils.results import record

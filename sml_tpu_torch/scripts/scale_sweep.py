@@ -3,8 +3,10 @@
 
 For one shape the parent process writes a synthetic dataset once
 (``generate_synthetic_dataset``); then each rank runs the sweep twice from
-the same seed, on state born row-sharded (``init_state_sharded`` on a
-``(1, R)`` NCCL mesh, one card a rank; ``init_state`` with one rank):
+the same seed, on state born row-sharded (``init_state_sharded`` on the
+R ranks' global mesh, ``(H, R/H)`` over ``--hosts H`` simulated hosts,
+``(1, R)`` on one, NCCL with one card a rank; ``init_state`` with one
+rank):
 eager (``fuse_phases=False``: no program at all), then fused (``"auto"``
 on the card, where it captures the period program once per rank;
 ``fuse_period=True`` on the CPU, where "auto" stays unfused and the
@@ -18,6 +20,10 @@ the bytes, read back block by block, and its test hits and losses.
     four cards, 50M x 5M f32 on a (1, 4) NCCL mesh (B):
       python -m sml_tpu_torch.scripts.scale_sweep --users 50000000 \\
           --items 5000000 --devices 4
+    the same as two simulated hosts of two cards, a (2, 2) mesh with
+    'data' across the hosts (BASELINE.json config 5's layout):
+      python -m sml_tpu_torch.scripts.scale_sweep --users 50000000 \\
+          --items 5000000 --devices 4 --hosts 2
     one card, 50M x 5M, bf16 snapshots, no saddle guard (D: its restart
     copy of the 52.4 GiB state would not fit the card):
       python -m sml_tpu_torch.scripts.scale_sweep --users 50000000 \\
@@ -37,8 +43,10 @@ seconds, the peak device memory (reset between the runs), the graphs'
 counts, the K1/K2/K3 launches (replays counted) against those derived from
 the configuration, the data and the guard's retries (``sweep_launches``,
 which ``chip_smoke.py`` also derives its sweeps' launches with), the bytes copied into the programs'
-state slot per period (``SMLEngine.slot_copies``), the route "auto" took
-and the tests' recall@20; and the checks. A run that runs out of device
+state slot per period (``SMLEngine.slot_copies``), the bytes the rank
+handed to each mesh axis's collectives (counted at each call: the fused
+run's at its capture and its eager calls, not per replay), the route
+"auto" took and the tests' recall@20; and the checks. A run that runs out of device
 memory reports the allocator's message and its peak instead, and fails
 the check that both runs complete. Diagnostics go to stderr. Exit 1 when
 a check fails.
@@ -90,8 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["float32", "bfloat16"])
     ap.add_argument("--saddle-retries", type=int, default=2)
     ap.add_argument("--devices", type=int, default=0,
-                    help="row-shard the state over an R-rank (1, R) mesh, "
+                    help="row-shard the state over R ranks' global mesh, "
                          "one process per rank")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="spawn the --devices ranks as this many simulated "
+                         "hosts (mesh (hosts, devices / hosts))")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=2000)
     return ap
@@ -233,6 +244,7 @@ def run_sweep(args, spec, device, mesh, run: str) -> dict:
     """One sweep (``run`` "eager" or "fused") on this rank: its figures,
     its losses per period and phase, its hits and its state's digest."""
     from sml_tpu_torch.data.formats import row_count
+    from sml_tpu_torch.parallel import collective
     from sml_tpu_torch.scripts.program_stress import state_tensors
     from sml_tpu_torch.train.driver import SMLDriver, fusion_route
     from sml_tpu_torch.utils.logging import MetricsLogger
@@ -287,6 +299,9 @@ def run_sweep(args, spec, device, mesh, run: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     before = {k: c.launches for k, c in counters.items()}
+    axes = {} if mesh is None else {a: mesh.group(a)
+                                    for a in ("data", "model")}
+    sent = {a: collective.traffic(g) for a, g in axes.items()}
     t0 = time.perf_counter()
     held = [eng.init_state() if mesh is None
             else eng.init_state_sharded(mesh)]
@@ -317,6 +332,7 @@ def run_sweep(args, spec, device, mesh, run: str) -> dict:
         torch.cuda.empty_cache()
         return {"info": info, "oom": True}
     launches = {k: c.launches - before[k] for k, c in counters.items()}
+    sent = {a: collective.traffic(g) - sent[a] for a, g in axes.items()}
     route = fusion_route(cfg, eng)
     refusal = eng.capture_refusal()
     graphs = dict(eng.graph_stats)
@@ -382,6 +398,7 @@ def run_sweep(args, spec, device, mesh, run: str) -> dict:
                  "route": "fused" if route else "unfused",
                  "refusal": refusal, "graphs": graphs,
                  "launches": launches, "derived_launches": want,
+                 "bytes_by_axis": sent,
                  "phases_per_period": [len(p["phases"]) for p in periods],
                  "inner_steps_per_period": inner_steps(spec, cfg, rows),
                  "slot_copies_per_period": [p["copies"] for p in periods],
@@ -451,10 +468,11 @@ def rank_main(device, argd: dict, spec):
     args = argparse.Namespace(**argd)
     mesh = None
     if args.devices and args.devices > 1:
-        from sml_tpu_torch.parallel.sharding import make_mesh
-        mesh = make_mesh(1, args.devices)
+        from sml_tpu_torch.parallel.multihost import (make_global_mesh,
+                                                      process_index)
+        mesh = make_global_mesh()
     dev = torch.device(device) if isinstance(device, str) else device
-    tag = "" if mesh is None else f"[rank {mesh.index('model')}] "
+    tag = "" if mesh is None else f"[rank {process_index()}] "
     runs = {}
     for run in RUNS:
         runs[run] = run_sweep(args, spec, dev, mesh, run)
@@ -462,7 +480,9 @@ def rank_main(device, argd: dict, spec):
         _log(f"{tag}{run}: periods {info.get('period_s')} s, init "
              f"{info['init_s']:.1f} s, peak {info['peak_gib']} GiB, graphs "
              f"{info['graphs']}, out of memory: {info.get('out_of_memory')}")
-    out = {"device": str(dev), "checks": checks(runs, dev)}
+    out = {"device": str(dev), "checks": checks(runs, dev),
+           "mesh": (None if mesh is None
+                    else [mesh.shape["data"], mesh.shape["model"]])}
     for run in RUNS:
         out[run] = dict(runs[run]["info"])
         if "digest" in runs[run]:
@@ -485,7 +505,7 @@ def run(args) -> dict:
             from sml_tpu_torch.parallel.dryrun import run_world
             ranks = run_world("sml_tpu_torch.scripts.scale_sweep:rank_main",
                               args.devices, args.device, (vars(args), spec),
-                              WORLD_TIMEOUT_S)
+                              WORLD_TIMEOUT_S, hosts=args.hosts)
         else:
             ranks = [rank_main(args.device, vars(args), spec)]
     finally:
@@ -495,7 +515,8 @@ def run(args) -> dict:
                      for k in rk["checks"]["failed"]})
     return {"users": users, "items": items, "latent": args.latent,
             "snapshot_dtype": args.snapshot_dtype,
-            "devices": max(args.devices, 1), "periods": args.periods,
+            "devices": max(args.devices, 1), "hosts": args.hosts,
+            "periods": args.periods,
             "inter": args.inter, "first_test": args.first_test,
             "multi_num": args.multi_num,
             "saddle_retries": args.saddle_retries, "data_s": data_s,

@@ -12,8 +12,10 @@ import torch
 
 
 def _mesh(shape):
-    from sml_tpu_torch.parallel.sharding import make_mesh
-    return make_mesh(*shape)
+    """A ``(data, model)`` mesh over the world, or ``"global"``: the hosts'
+    layout (``make_global_mesh``)."""
+    from sml_tpu_torch.parallel.dryrun import spec_mesh
+    return spec_mesh(shape)
 
 
 def _block(n, mesh):
@@ -471,4 +473,112 @@ def split_slots(device, cfgs, n_users, n_items, mesh_shape, n_rows):
                                        for e in events),
                     "inside": inside})
         events.clear()
+    return out
+
+
+def host_layout(device):
+    """The world's hosts as this rank sees them: the global mesh's shape,
+    each axis's ranks and transport, this rank's local rank, host and
+    card, the world's backend, and a sum over each axis."""
+    import torch.distributed as dist
+
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.multihost import make_global_mesh
+    world = collective.WORLD
+    mesh = make_global_mesh()
+    rank = dist.get_rank()
+    out = {"shape": (mesh.shape["data"], mesh.shape["model"]),
+           "coords": (mesh.index("data"), mesh.index("model")),
+           "local_rank": world["local_rank"],
+           "local_world": world["local_world"], "hosts": world["hosts"],
+           "cards": world["cards"], "backend": world["backend"],
+           "device": str(world["device"])}
+    for axis in ("data", "model"):
+        g = mesh.group(axis)
+        out[f"ranks_{axis}"] = dist.get_process_group_ranks(g)
+        out[f"transport_{axis}"] = collective.transport(g)
+        out[f"sum_{axis}"] = float(collective.all_reduce(
+            torch.full((1,), float(rank), device=device), g))
+    return out
+
+
+def bad_layouts(device):
+    """The errors ``make_global_mesh`` raises on this rank when the world's
+    hosts are made uneven or interleaved (restored after)."""
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.multihost import make_global_mesh
+    world = collective.WORLD
+    hosts, n = world["hosts"], len(world["hosts"])
+    made_up = {"uneven": [hosts[0]] * (n - 1) + [hosts[-1]],
+               "interleaved": [hosts[r % 2 * (n - 1)] for r in range(n)]}
+    errors = {}
+    try:
+        for name, fake in made_up.items():
+            world["hosts"] = fake
+            try:
+                make_global_mesh()
+                errors[name] = None
+            except ValueError as exc:
+                errors[name] = str(exc)
+    finally:
+        world["hosts"] = hosts
+    return errors
+
+
+def two_hosts(device, replay_args, sampled_args):
+    """One world of two simulated hosts: :func:`host_layout` and
+    :func:`bad_layouts`, then :func:`replay_phases` and
+    :func:`sampled_run` (rank 0 also alone) on the global mesh."""
+    return {"layout": host_layout(device), "errors": bad_layouts(device),
+            "replay": replay_phases(device, *replay_args, "global"),
+            "sampled": sampled_run(device, *sampled_args, "global", True)}
+
+
+def data_axis_capture(device):
+    """An all-reduce and an all-gather over the global mesh's 'data' axis
+    run eagerly, then captured in one CUDA graph (``graphs.CapturedCall``)
+    and replayed: both results, each bit-equal to the eager run's and to
+    the exact values (integer-valued f32), with the world's layout
+    (:func:`host_layout`). The graph is freed before the world ends."""
+    import gc
+
+    import torch.distributed as dist
+
+    from sml_tpu_torch.parallel import collective
+    from sml_tpu_torch.parallel.multihost import make_global_mesh
+    from sml_tpu_torch.train import graphs
+    out = host_layout(device)
+    mesh = make_global_mesh()
+    group, dev = mesh.group("data"), torch.device(device)
+    rank, n = dist.get_rank(), 4096
+    ranks = dist.get_process_group_ranks(group)
+    x = torch.arange(n, dtype=torch.float32, device=dev) * (rank + 1)
+    summed = torch.empty_like(x)
+    gathered = torch.empty(len(ranks) * n, device=dev)
+
+    def body():
+        summed.copy_(x)
+        collective.all_reduce(summed, group)
+        gathered.copy_(collective.all_gather(x, group))
+    side = torch.cuda.Stream(dev)
+    graphs.run_on(side, body)
+    torch.cuda.synchronize(dev)
+    eager = (summed.clone(), gathered.clone())
+    summed.fill_(-1.0)
+    gathered.fill_(-1.0)
+    captured = graphs.CapturedCall(body, side)
+    captured.replay()
+    torch.cuda.synchronize(dev)
+    base = torch.arange(n, dtype=torch.float32)
+    want_sum = base * sum(r + 1 for r in ranks)
+    want_cat = torch.cat([base * (r + 1) for r in ranks])
+    out.update(
+        eager_exact=bool(torch.equal(eager[0].cpu(), want_sum)
+                         and torch.equal(eager[1].cpu(), want_cat)),
+        replay_equal=bool(torch.equal(summed, eager[0])
+                          and torch.equal(gathered, eager[1])),
+        if_nodes=captured.if_nodes)
+    del captured
+    gc.collect()
+    torch.cuda.synchronize(dev)
     return out
