@@ -8,6 +8,8 @@ runs in the worker right after a period is read; the driver uses it to pad
 and upload the period's eval sets early. Those uploads go to PyTorch's
 default stream of the worker (the same default stream the training thread
 uses), so they are ordered with the training work without extra events.
+A read queued while the training thread records spans records its own
+spans on the worker (``utils/profiling.carry``).
 
 Periods must be requested in strictly increasing ``d_time`` order between
 ``reinit()`` calls: the inner feeder's test cursor advances on every read,
@@ -20,6 +22,8 @@ from __future__ import annotations
 import logging
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
+
+from sml_tpu_torch.utils.profiling import carry
 
 _log = logging.getLogger(__name__)
 
@@ -73,7 +77,8 @@ class PrefetchingFeeder:
             sd = self._inner.next_train(d_time)
         if sd.set_t is not None:
             self._pending_time = d_time + 1
-            self._pending = self._pool.submit(self._fetch, d_time + 1)
+            self._pending = self._pool.submit(carry(self._fetch),
+                                              d_time + 1)
         return sd
 
     def _fetch(self, d_time: int):

@@ -23,6 +23,7 @@ import torch
 
 from sml_tpu_torch.models.mf import MFParams
 from sml_tpu_torch.parallel import collective
+from sml_tpu_torch.utils.profiling import annotate
 
 TOPK_METHODS = ("exact", "exact_sort", "exact_bucket", "approx", "approx99")
 
@@ -44,13 +45,17 @@ def dense_full_topk(user_emb_rows: torch.Tensor, item_table: torch.Tensor,
     (B, k)). ``mask_scores``: an optional (B, I) additive mask added to the
     scores before the top-K (-inf excludes an item: the serving filter of
     a user's already-seen items). ``compute_dtype`` rounds the product's
-    inputs (e.g. ``torch.bfloat16``); scores accumulate and rank in f32."""
+    inputs (e.g. ``torch.bfloat16``); scores accumulate and rank in f32.
+    Spans: ``recommend_score`` (the product and the mask),
+    ``recommend_select`` (the top-K)."""
     with torch.no_grad():
-        scores = _scores(user_emb_rows, item_table, compute_dtype,
-                         topk_method)
-        if mask_scores is not None:
-            scores = scores + mask_scores
-        return torch.topk(scores, k, dim=1)
+        with annotate("recommend_score"):
+            scores = _scores(user_emb_rows, item_table, compute_dtype,
+                             topk_method)
+            if mask_scores is not None:
+                scores = scores + mask_scores
+        with annotate("recommend_select"):
+            return torch.topk(scores, k, dim=1)
 
 
 def make_sharded_full_topk(mesh, k: int, compute_dtype=None,
@@ -68,21 +73,23 @@ def make_sharded_full_topk(mesh, k: int, compute_dtype=None,
     def topk(user_rows: torch.Tensor, item_shard: torch.Tensor):
         with torch.no_grad():
             rows_per = item_shard.shape[0]
-            scores = _scores(user_rows, item_shard, compute_dtype,
-                             topk_method)
-            if rows_per < k:       # fewer rows than k: pad with -inf
-                scores = torch.nn.functional.pad(
-                    scores, (0, k - rows_per), value=float("-inf"))
-            ls, li = torch.topk(scores, k, dim=1)
-            gids = li + collective.group_rank(group) * rows_per
-            # (M·B, k) in rank order -> (B, M·k)
-            b = ls.shape[0]
-            all_s = collective.all_gather(ls, group).view(n_model, b, k)
-            all_i = collective.all_gather(gids, group).view(n_model, b, k)
-            all_s = all_s.permute(1, 0, 2).reshape(b, n_model * k)
-            all_i = all_i.permute(1, 0, 2).reshape(b, n_model * k)
-            ms, sel = torch.topk(all_s, k, dim=1)
-            return ms, torch.gather(all_i, 1, sel)
+            with annotate("recommend_score"):
+                scores = _scores(user_rows, item_shard, compute_dtype,
+                                 topk_method)
+            with annotate("recommend_select"):
+                if rows_per < k:       # fewer rows than k: pad with -inf
+                    scores = torch.nn.functional.pad(
+                        scores, (0, k - rows_per), value=float("-inf"))
+                ls, li = torch.topk(scores, k, dim=1)
+                gids = li + collective.group_rank(group) * rows_per
+                # (M·B, k) in rank order -> (B, M·k)
+                b = ls.shape[0]
+                all_s = collective.all_gather(ls, group).view(n_model, b, k)
+                all_i = collective.all_gather(gids, group).view(n_model, b, k)
+                all_s = all_s.permute(1, 0, 2).reshape(b, n_model * k)
+                all_i = all_i.permute(1, 0, 2).reshape(b, n_model * k)
+                ms, sel = torch.topk(all_s, k, dim=1)
+                return ms, torch.gather(all_i, 1, sel)
 
     return topk
 
@@ -92,10 +99,18 @@ def recommend(mf: MFParams, users: torch.Tensor, k: int, mesh=None,
     """Top-K catalog recommendation for a user batch (serving entry). With
     a ``mesh`` whose ``model`` axis is larger than 1, ``mf.item_emb`` is
     this rank's row block of the item table and the merge runs over the
-    axis; ``mf.user_emb`` is the whole user table."""
-    rows = mf.user_emb[users.to(mf.user_emb.device).long()]
-    if mesh is not None and mesh.shape["model"] > 1:
-        return make_sharded_full_topk(mesh, k, compute_dtype,
-                                      topk_method)(rows, mf.item_emb)
-    return dense_full_topk(rows, mf.item_emb, k, compute_dtype=compute_dtype,
-                           topk_method=topk_method)
+    axis; ``mf.user_emb`` is the whole user table. Spans: ``recommend``,
+    inside it ``recommend_upload`` (the ids to the table's device),
+    ``recommend_gather`` (their rows), then the top-K's score and select
+    spans."""
+    with annotate("recommend"):
+        with annotate("recommend_upload"):
+            users = users.to(mf.user_emb.device).long()
+        with annotate("recommend_gather"):
+            rows = mf.user_emb[users]
+        if mesh is not None and mesh.shape["model"] > 1:
+            return make_sharded_full_topk(mesh, k, compute_dtype,
+                                          topk_method)(rows, mf.item_emb)
+        return dense_full_topk(rows, mf.item_emb, k,
+                               compute_dtype=compute_dtype,
+                               topk_method=topk_method)

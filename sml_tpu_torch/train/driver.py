@@ -21,9 +21,12 @@ than the main one a logger that writes nothing (as ``sml`` does). With
 ``cfg.attributed_eval`` and the dataset's new-entity id files, each test is
 the attributed evaluation (its base sums make the ``test`` record) and adds
 a ``test_attribution`` record; with ``cfg.profile_dir`` period
-``cfg.profile_period`` is traced by ``torch.profiler``, with one span per
-engine call (``refresh``, ``make_eval_set``, ``evaluate``,
-``inner_epoch``, ``outer_epoch``, and for the fused programs
+``cfg.profile_period`` is traced by ``torch.profiler``. Whenever a
+profiler records (``utils/profiling.py``) the driver's spans are the
+period (``period``), its branch (``branch_a``, ``branch_b``,
+``branch_c``, and in C its eager ``phase0``), ``record_test``,
+``flush_evals``, and one per engine call (``refresh``, ``make_eval_set``,
+``evaluate``, ``inner_epoch``, ``outer_epoch``, and for the fused programs
 ``period_step`` and ``phase_step``: a replay enters no per-epoch span).
 
 The fused branches are the JAX package's (``cfg.fuse_phases``,
@@ -343,6 +346,46 @@ class SMLDriver:
                 return state, True
         return state, False
 
+    def _warmup_period(self, state: SMLState, prep_t, prep_tt, val,
+                       d_time: int) -> SMLState:
+        """Branch A's phases, fused or not, then the final refresh; in
+        period 0 under the saddle guard, each stalled attempt restarts
+        from the period's start with a re-rolled (Θ init, data stream)."""
+        budget = self.cfg.saddle_retries if d_time == 0 else 0
+        fused = self._can_fuse_period(prep_tt)
+        # the guard's restart point: its one copy of the state
+        state0 = copy_state(state) if budget > 0 else None
+        attempt = 0
+        while True:
+            if fused:
+                state, stalled = self._fused_period(
+                    state, prep_t, prep_tt, val, self.cfg.multi_num,
+                    d_time, guard=attempt < budget)
+            else:
+                state, stalled = self._warmup_phases(
+                    state, prep_t, prep_tt, val, d_time,
+                    guard=attempt < budget)
+            if not stalled:
+                break
+            attempt += 1
+            self.report.saddle_retries_used += 1
+            self._flush_evals()   # the aborted attempt's eval rows
+            escalate = (attempt == budget
+                        and self.cfg.saddle_escalate_warmstart)
+            self.logger.log(kind="saddle_retry", d_time=d_time,
+                            attempt=attempt, mode=self.cfg.saddle_mode,
+                            escalated=escalate,
+                            outer_loss=self._last_outer_loss)
+            # re-roll the (Θ init, data stream) pair from the restart
+            # point, written into the stalled attempt's buffers
+            restart = self.engine.restore_state(state, state0)
+            restart = restart._replace(
+                gen=self.engine.fold_generator(state0.gen, attempt))
+            state = self.engine.reinit_theta(restart, salt=attempt,
+                                             warmstart=escalate)
+        state0 = None   # the restart copy goes before the refresh allocates
+        return self._refresh(state)
+
     def _log_phase(self, state: SMLState, d_time: int, phase: int) -> None:
         if not self.cfg.log_norms:
             return
@@ -424,22 +467,25 @@ class SMLDriver:
 
     def _record_test(self, state: SMLState, now_test: np.ndarray,
                      period: int) -> None:
-        padded = self._eval_cache.pop((period, "test"), None)
-        if padded is None:
-            padded = self._make_eval_set(now_test)
-        n_real = int(now_test.shape[0])
-        if self._is_new_user is not None:
-            # the attributed evaluation's base sums are the test's: no
-            # second scoring pass
-            with annotate("evaluate"):
-                attr, n = self.engine.evaluate_attributed_deferred(
-                    state.mf, padded, self._is_new_user, self._is_new_item)
-            self._pending_tests.append((period, n_real, (attr["base"], n)))
-            self._pending_attr.append((period, (attr, n)))
-        else:
-            with annotate("evaluate"):
-                sums = self.engine.evaluate_deferred(state.mf, padded)
-            self._pending_tests.append((period, n_real, sums))
+        with annotate("record_test"):
+            padded = self._eval_cache.pop((period, "test"), None)
+            if padded is None:
+                padded = self._make_eval_set(now_test)
+            n_real = int(now_test.shape[0])
+            if self._is_new_user is not None:
+                # the attributed evaluation's base sums are the test's: no
+                # second scoring pass
+                with annotate("evaluate"):
+                    attr, n = self.engine.evaluate_attributed_deferred(
+                        state.mf, padded, self._is_new_user,
+                        self._is_new_item)
+                self._pending_tests.append((period, n_real,
+                                            (attr["base"], n)))
+                self._pending_attr.append((period, (attr, n)))
+            else:
+                with annotate("evaluate"):
+                    sums = self.engine.evaluate_deferred(state.mf, padded)
+                self._pending_tests.append((period, n_real, sums))
 
     # ----------------------------------------------------------------- periods
     def run_period(self, state: SMLState, d_time: int):
@@ -447,7 +493,7 @@ class SMLDriver:
         ``cfg.profile_period`` is traced into ``cfg.profile_dir``."""
         trace_dir = (self.cfg.profile_dir
                      if d_time == self.cfg.profile_period else None)
-        with maybe_trace(trace_dir, self.engine.device):
+        with maybe_trace(trace_dir, self.engine.device), annotate("period"):
             return self._run_period(state, d_time)
 
     def _run_period(self, state: SMLState, d_time: int):
@@ -471,71 +517,45 @@ class SMLDriver:
 
         if sd.now_test is None:
             # branch A: warm-up, with the optional first-period saddle guard
-            budget = self.cfg.saddle_retries if d_time == 0 else 0
-            fused = self._can_fuse_period(prep_tt)
-            # the guard's restart point: its one copy of the state
-            state0 = copy_state(state) if budget > 0 else None
-            attempt = 0
-            while True:
-                if fused:
-                    state, stalled = self._fused_period(
-                        state, prep_t, prep_tt, sd.val, self.cfg.multi_num,
-                        d_time, guard=attempt < budget)
-                else:
-                    state, stalled = self._warmup_phases(
-                        state, prep_t, prep_tt, sd.val, d_time,
-                        guard=attempt < budget)
-                if not stalled:
-                    break
-                attempt += 1
-                self.report.saddle_retries_used += 1
-                self._flush_evals()   # the aborted attempt's eval rows
-                escalate = (attempt == budget
-                            and self.cfg.saddle_escalate_warmstart)
-                self.logger.log(kind="saddle_retry", d_time=d_time,
-                                attempt=attempt, mode=self.cfg.saddle_mode,
-                                escalated=escalate,
-                                outer_loss=self._last_outer_loss)
-                # re-roll the (Θ init, data stream) pair from the restart
-                # point, written into the stalled attempt's buffers
-                restart = self.engine.restore_state(state, state0)
-                restart = restart._replace(
-                    gen=self.engine.fold_generator(state0.gen, attempt))
-                state = self.engine.reinit_theta(restart, salt=attempt,
-                                                 warmstart=escalate)
-            state0 = None
-            state = self._refresh(state)
+            with annotate("branch_a"):
+                state = self._warmup_period(state, prep_t, prep_tt, sd.val,
+                                            d_time)
         elif sd.set_tt is None:
-            # branch B: tr_stop during the test span
-            state = self._inner_block(state, prep_t,
-                                      self.cfg.mf_epochs_when_tr_stopped,
-                                      sd.val)
-            state = self.engine.snapshot_hat(state)
-            state = self._refresh(state)
-            self._record_test(state, sd.now_test, d_time)
+            with annotate("branch_b"):
+                # branch B: tr_stop during the test span
+                state = self._inner_block(state, prep_t,
+                                          self.cfg.mf_epochs_when_tr_stopped,
+                                          sd.val)
+                state = self.engine.snapshot_hat(state)
+                state = self._refresh(state)
+                self._record_test(state, sd.now_test, d_time)
         else:
             # branch C: test and keep training Θ. The test scores the
             # post-refresh tables of phase 0 BEFORE its outer epochs
             # refresh them again.
-            state = self._inner_block(state, prep_t, self.cfg.mf_epochs,
-                                      sd.val)
-            state = self.engine.snapshot_hat(state)
-            state = self._refresh(state)
-            self._record_test(state, sd.now_test, d_time)
-            state = self._outer_block(state, prep_tt, sd.val)
-            self._log_phase(state, d_time, 0)
-            rest = self.cfg.multi_num - 1
-            if rest > 0 and self._can_fuse_period(prep_tt):
-                state, _ = self._fused_period(state, prep_t, prep_tt,
-                                              sd.val, rest, d_time,
-                                              start_phase=1)
-            else:
-                for phase in range(1, self.cfg.multi_num):
-                    state = self._one_phase(state, prep_t, prep_tt, sd.val)
-                    self._log_phase(state, d_time, phase)
-            state = self._refresh(state)
+            with annotate("branch_c"):
+                with annotate("phase0"):
+                    state = self._inner_block(state, prep_t,
+                                              self.cfg.mf_epochs, sd.val)
+                    state = self.engine.snapshot_hat(state)
+                    state = self._refresh(state)
+                    self._record_test(state, sd.now_test, d_time)
+                    state = self._outer_block(state, prep_tt, sd.val)
+                self._log_phase(state, d_time, 0)
+                rest = self.cfg.multi_num - 1
+                if rest > 0 and self._can_fuse_period(prep_tt):
+                    state, _ = self._fused_period(state, prep_t, prep_tt,
+                                                  sd.val, rest, d_time,
+                                                  start_phase=1)
+                else:
+                    for phase in range(1, self.cfg.multi_num):
+                        state = self._one_phase(state, prep_t, prep_tt,
+                                                sd.val)
+                        self._log_phase(state, d_time, phase)
+                state = self._refresh(state)
 
-        self._flush_evals(force=False)
+        with annotate("flush_evals"):
+            self._flush_evals(force=False)
         dt = time.time() - t0
         self.report.period_seconds.append(dt)
         self.logger.log(kind="period", d_time=d_time, seconds=dt)

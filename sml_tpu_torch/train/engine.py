@@ -382,40 +382,55 @@ class SMLEngine:
         the same eval-format matrix the eval path uploads, so it is served
         from the upload cache. Under a mesh every rank holds the whole
         epoch (it makes the whole batch's draws); each step keeps its
-        rank's block (``train/steps.py``)."""
-        bound = self.shape_targets.get("set_t", 0)
-        # under a mesh the eval sets hold one data block while every rank
-        # trains on the whole epoch, so the upload is not shared there
-        if (self.cfg.mf_sample == "all" and bound and self.layout is None
-                and self.cfg.upload_dedup
-                and bound == self.shape_targets.get("eval")
-                and self.cfg.mf_batch_size == self.cfg.eval_batch_size):
-            key = _content_key(set_t)
-            padded = self._upload_cache.get(key)
-            if padded is None:
+        rank's block (``train/steps.py``). Spans: ``prep_inner``, inside
+        it ``eval_set_hash`` (the cache's key), ``pad_upload`` and
+        ``period_index``."""
+        with annotate("prep_inner"):
+            bound = self.shape_targets.get("set_t", 0)
+            # under a mesh the eval sets hold one data block while every
+            # rank trains on the whole epoch, so the upload is not shared
+            if (self.cfg.mf_sample == "all" and bound
+                    and self.layout is None and self.cfg.upload_dedup
+                    and bound == self.shape_targets.get("eval")
+                    and self.cfg.mf_batch_size == self.cfg.eval_batch_size):
+                with annotate("eval_set_hash"):
+                    key = _content_key(set_t)
+                padded = self._upload_cache.get(key)
+                if padded is None:
+                    with annotate("pad_upload"):
+                        padded = pad_rows(set_t, self.cfg.mf_batch_size,
+                                          pad_to=bound, device=self.device)
+                    self._cache_upload(key, padded)
+                return padded, None
+            with annotate("pad_upload"):
                 padded = pad_rows(set_t, self.cfg.mf_batch_size,
                                   pad_to=bound, device=self.device)
-                self._cache_upload(key, padded)
-            return padded, None
-        padded = pad_rows(set_t, self.cfg.mf_batch_size, pad_to=bound,
-                          device=self.device)
-        index = (build_period_index(set_t, self.n_items, min_rows=bound,
-                                    device=self.device)
-                 if self.cfg.mf_sample == "alone"
-                 and not self.cfg.replay_mode else None)
-        self._probe_sampler("inner", index, set_t)
-        return padded, index
+            index = None
+            if self.cfg.mf_sample == "alone" and not self.cfg.replay_mode:
+                with annotate("period_index"):
+                    index = build_period_index(set_t, self.n_items,
+                                               min_rows=bound,
+                                               device=self.device)
+            self._probe_sampler("inner", index, set_t)
+            return padded, index
 
     def prep_outer(self, set_tt: np.ndarray):
-        bound = self.shape_targets.get("set_tt", 0)
-        padded = pad_rows(set_tt, self.cfg.tr_batch_size, pad_to=bound,
-                          device=self.device)
-        index = (build_period_index(set_tt, self.n_items, min_rows=bound,
-                                    device=self.device)
-                 if self.cfg.tr_sample_type == "alone"
-                 and not self.cfg.replay_mode else None)
-        self._probe_sampler("outer", index, set_tt)
-        return padded, index
+        """:meth:`prep_inner` for the outer pool (span ``prep_outer``),
+        never shared with an eval set."""
+        with annotate("prep_outer"):
+            bound = self.shape_targets.get("set_tt", 0)
+            with annotate("pad_upload"):
+                padded = pad_rows(set_tt, self.cfg.tr_batch_size,
+                                  pad_to=bound, device=self.device)
+            index = None
+            if (self.cfg.tr_sample_type == "alone"
+                    and not self.cfg.replay_mode):
+                with annotate("period_index"):
+                    index = build_period_index(set_tt, self.n_items,
+                                               min_rows=bound,
+                                               device=self.device)
+            self._probe_sampler("outer", index, set_tt)
+            return padded, index
 
     def _probe_sampler(self, tag: str, index: Optional[PeriodIndex],
                        rows: np.ndarray, cap: int = 8192) -> None:
@@ -768,10 +783,11 @@ class SMLEngine:
         """Pad and upload an eval set once; reuse it across ``evaluate``
         calls. ``build_mask`` also attaches the packed negative mask
         (honoured only when the engine's policy wants masks); a cached
-        entry without one is upgraded in place. Inside a trace, the
-        content hash, the padding and upload and the mask are spans of
-        their own (``eval_set_check``, ``eval_set_hash``,
-        ``eval_set_pad_upload``, ``eval_set_mask``). A user or candidate
+        entry without one is upgraded in place. The id check, the content
+        hash, the padding and upload and the mask are spans of their own
+        (``eval_set_check``, ``eval_set_hash``, ``eval_set_pad_upload``,
+        ``eval_set_mask``), recorded on whichever thread runs them (the
+        prefetch worker's too, ``utils/profiling.py``). A user or candidate
         id outside the tables raises ``ValueError`` before anything is
         uploaded (:func:`check_eval_ids`)."""
         with annotate("eval_set_check"):
@@ -1113,28 +1129,32 @@ class _PhaseProgram(graphs.Program):
 
     def load_inputs(self, prep_t, prep_tt, ev) -> None:
         """Copy a period's prepared inputs into the program's buffers and
-        mark each epoch's real batches (``ceil(n_real/B)``) taken. Under a
-        mesh every rank holds the whole batch, so the slots come from the
-        global counts; the ranks' slot counts are compared on the host
-        first, since a rank that skipped a step slot another rank takes
-        would sum its zeros into that rank's step (and an unfused rank
-        would leave it waiting in the step's collectives)."""
-        dst = [x for x in (*_prep_tensors(self.t), *_prep_tensors(self.tt),
-                           *(self.ev or ())) if x is not None]
-        src = [x for x in (*_prep_tensors(prep_t), *_prep_tensors(prep_tt),
-                           *(ev or ())) if x is not None]
-        self.eng.slot_copies["inputs"] += graphs.load_into(dst, src)
-        cfg = self.cfg
-        self.taken = (
-            min(num_batches(prep_t[0].n_real, cfg.mf_batch_size),
-                self.t_slots.host.shape[0]),
-            min(num_batches(prep_tt[0].n_real, cfg.tr_batch_size),
-                self.tt_slots.host.shape[0]))
-        if self.eng.mesh is not None:
-            collective.check_same(
-                self.taken, "the step slots a phase takes (inner, outer)")
-        self.t_slots.fill(self.taken[0])
-        self.tt_slots.fill(self.taken[1])
+        mark each epoch's real batches (``ceil(n_real/B)``) taken (span
+        ``program_inputs``). Under a mesh every rank holds the whole
+        batch, so the slots come from the global counts; the ranks' slot
+        counts are compared on the host first, since a rank that skipped a
+        step slot another rank takes would sum its zeros into that rank's
+        step (and an unfused rank would leave it waiting in the step's
+        collectives)."""
+        with annotate("program_inputs"):
+            dst = [x for x in (*_prep_tensors(self.t),
+                               *_prep_tensors(self.tt), *(self.ev or ()))
+                   if x is not None]
+            src = [x for x in (*_prep_tensors(prep_t),
+                               *_prep_tensors(prep_tt), *(ev or ()))
+                   if x is not None]
+            self.eng.slot_copies["inputs"] += graphs.load_into(dst, src)
+            cfg = self.cfg
+            self.taken = (
+                min(num_batches(prep_t[0].n_real, cfg.mf_batch_size),
+                    self.t_slots.host.shape[0]),
+                min(num_batches(prep_tt[0].n_real, cfg.tr_batch_size),
+                    self.tt_slots.host.shape[0]))
+            if self.eng.mesh is not None:
+                collective.check_same(
+                    self.taken, "the step slots a phase takes (inner, outer)")
+            self.t_slots.fill(self.taken[0])
+            self.tt_slots.fill(self.taken[1])
 
     def _eval_into(self, buf: torch.Tensor, mf: MFParams) -> None:
         """The val eval's sums, as ``evaluate_deferred`` makes them (under
@@ -1187,11 +1207,13 @@ class _PhaseProgram(graphs.Program):
     def run(self, state: SMLState) -> SMLState:
         """One phase from ``state`` on the loaded inputs; returns the state
         after it (the slot's buffers, ``state``'s generator advanced), its
-        step counts advanced by the real steps."""
-        slot = self.eng.adopt(state)
+        step counts advanced by the real steps. The state's copy into the
+        slot and the bias tables' fill are the span ``program_inputs``."""
         c_mf, c_tr = state.mf_opt.count, state.tr_opt.count
-        self.mf_bias.fill(c_mf, self.taken[0])
-        self.tr_bias.fill(c_tr, self.taken[1])
+        with annotate("program_inputs"):
+            slot = self.eng.adopt(state)
+            self.mf_bias.fill(c_mf, self.taken[0])
+            self.tr_bias.fill(c_tr, self.taken[1])
         self.launch(state.gen)
         return slot._replace(
             gen=state.gen,

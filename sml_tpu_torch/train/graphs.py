@@ -43,7 +43,8 @@ The rules it keeps:
   replay advances the generator by every offset the capture reserved, the
   skipped slots' too; the eager epochs skip ahead by as much
   (``train/steps.py``), as the JAX package splits ``nb_max`` keys.
-* A replay runs on the current stream, ordered with everything else there.
+* A replay runs on the current stream, ordered with everything else there;
+  its host call is the span ``graph_launch`` (``utils/profiling.py``).
 * Launch counts stay honest: the kernel wrappers count Python calls
   (``<wrapper>.launches``), so a capture would count launches that never
   ran and a replay none that did. A capture records the launches of each
@@ -80,6 +81,7 @@ import numpy as np
 import torch
 
 from sml_tpu_torch import _build
+from sml_tpu_torch.utils.profiling import annotate
 
 # the captures in progress (a :class:`_Capture` each, innermost last)
 _CAPTURES: List["_Capture"] = []
@@ -363,7 +365,8 @@ class Program:
             stats["capture_s"] += time.perf_counter() - t0
             stats["if_nodes"] += self.call.if_nodes
             stats["step_slots"] += self.call.step_slots
-        self.call.replay(sources=(gen,))
+        with annotate("graph_launch"):
+            self.call.replay(sources=(gen,))
         stats["replays"] += 1
 
     def release(self) -> None:

@@ -7,7 +7,9 @@ no phantom step ever decays the Adam moments. The returned loss vector is
 the same vector the JAX scan returns. Eagerly the loop runs the real
 batches; inside a program (``slots=``) every one of the ``nb_max`` step
 slots is a ``graphs.step_if`` on a device predicate, as the JAX scan's
-``lax.cond``, so one CUDA graph serves any ``n_real``.
+``lax.cond``, so one CUDA graph serves any ``n_real``. A single-rank SML
+step is a span (``inner_step``, ``outer_step``; ``utils/profiling.py``):
+eagerly one a step, in a program one a step slot at its capture.
 
 Gradient flow, as in the JAX package:
 
@@ -94,6 +96,7 @@ from sml_tpu_torch.parallel import collective
 from sml_tpu_torch.train import graphs
 from sml_tpu_torch.train.optim import (AdamState, BiasTable, TableGrad,
                                        adam_update, sparse_dense_adam_update)
+from sml_tpu_torch.utils.profiling import annotate
 
 
 def scan_epoch(carry, rows: torch.Tensor, mask: torch.Tensor, n_real: int,
@@ -425,33 +428,36 @@ def make_inner_epoch(cfg: SMLConfig, layout=None):
                              + mf.item_emb.numel(), rows.device))
 
         def step(opt, r, m, gen):
-            u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
             if layout is not None:
-                return sharded_step(mf, opt, theta, last_u, last_i, u, i, j,
-                                    m, cuts)
-            lu, li, lj = _g32(last_u, u), _g32(last_i, i), _g32(last_i, j)
-            if cfg.fast_table_adam:
-                xs = [mf.user_emb[u].requires_grad_(),
-                      mf.item_emb[i].requires_grad_(),
-                      mf.item_emb[j].requires_grad_()]
+                return sharded_step(mf, opt, theta, last_u, last_i,
+                                    *_triple(r, mode, index, gen,
+                                             cfg.neg_tries), m, cuts)
+            with annotate("inner_step"):
+                u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
+                lu, li, lj = _g32(last_u, u), _g32(last_i, i), _g32(last_i, j)
+                if cfg.fast_table_adam:
+                    xs = [mf.user_emb[u].requires_grad_(),
+                          mf.item_emb[i].requires_grad_(),
+                          mf.item_emb[j].requires_grad_()]
+                    with torch.enable_grad():
+                        loss = row_loss(*xs, theta, lu, li, lj, m)
+                        gu, gi, gj = torch.autograd.grad(loss, xs)
+                    sparse = {"user_emb": TableGrad(u, gu),
+                              "item_emb": TableGrad(
+                                  torch.cat([i, j]),
+                                  torch.cat([gi, gj], dim=0))}
+                    opt = sparse_dense_adam_update(mf, opt, sparse,
+                                                   lr=cfg.mf_lr)
+                    return opt, loss
+                tabs = {f: getattr(mf, f).detach().requires_grad_()
+                        for f in ("user_emb", "item_emb")}
                 with torch.enable_grad():
-                    loss = row_loss(*xs, theta, lu, li, lj, m)
-                    gu, gi, gj = torch.autograd.grad(loss, xs)
-                sparse = {"user_emb": TableGrad(u, gu),
-                          "item_emb": TableGrad(torch.cat([i, j]),
-                                                torch.cat([gi, gj], dim=0))}
-                opt = sparse_dense_adam_update(mf, opt, sparse,
-                                               lr=cfg.mf_lr)
+                    loss = row_loss(tabs["user_emb"][u], tabs["item_emb"][i],
+                                    tabs["item_emb"][j], theta, lu, li, lj, m)
+                    grads = dict(zip(tabs, torch.autograd.grad(
+                        loss, list(tabs.values()))))
+                opt = adam_update(mf._asdict(), grads, opt, lr=cfg.mf_lr)
                 return opt, loss
-            tabs = {f: getattr(mf, f).detach().requires_grad_()
-                    for f in ("user_emb", "item_emb")}
-            with torch.enable_grad():
-                loss = row_loss(tabs["user_emb"][u], tabs["item_emb"][i],
-                                tabs["item_emb"][j], theta, lu, li, lj, m)
-                grads = dict(zip(tabs, torch.autograd.grad(
-                    loss, list(tabs.values()))))
-            opt = adam_update(mf._asdict(), grads, opt, lr=cfg.mf_lr)
-            return opt, loss
 
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
                                  step, shuffle=mode != "replay",
@@ -504,19 +510,21 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
             return opt, loss
 
         def step(opt, r, m, gen):
-            u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
             if layout is not None:
-                return sharded_step(opt, u, i, j, m)
-            with torch.enable_grad():
-                loss = transferred_pair_loss(
-                    theta, tcfg, _g32(last_u, u), _g32(last_i, i),
-                    _g32(last_i, j), _g32(hat_u, u), _g32(hat_i, i),
-                    _g32(hat_i, j), m, cfg.use_bce)
-                grads = dict(zip(leaves, torch.autograd.grad(
-                    loss, list(leaves.values()))))
-            opt = adam_update(leaves, grads, opt, lr=cfg.tr_lr,
-                              weight_decay=cfg.tr_l2)
-            return opt, loss
+                return sharded_step(opt, *_triple(r, mode, index, gen,
+                                                  cfg.neg_tries), m)
+            with annotate("outer_step"):
+                u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
+                with torch.enable_grad():
+                    loss = transferred_pair_loss(
+                        theta, tcfg, _g32(last_u, u), _g32(last_i, i),
+                        _g32(last_i, j), _g32(hat_u, u), _g32(hat_i, i),
+                        _g32(hat_i, j), m, cfg.use_bce)
+                    grads = dict(zip(leaves, torch.autograd.grad(
+                        loss, list(leaves.values()))))
+                opt = adam_update(leaves, grads, opt, lr=cfg.tr_lr,
+                                  weight_decay=cfg.tr_l2)
+                return opt, loss
 
         opt, losses = scan_epoch(opt, rows, mask, n_real, generator, batch,
                                  step, shuffle=mode != "replay",
