@@ -94,13 +94,15 @@ Phases, one JSON line each:
 9b. fused-sweep  the same dataset, seed and configuration with the
             default ``fuse_period="auto"``, which fuses on the card: each
             period's phases through ``SMLEngine.period_step`` (branch C's
-            phase 0 unfused), the run's first phase eagerly on the capture
-            stream, then one CUDA graph for the whole sweep, replayed in
-            every period whatever its step counts (the steps past a
-            period's real batches are IF nodes the card skips). It prints
-            the programs, captures, replays and warm-ups (one program, one
-            capture and one warm-up for the sweep, a replay for every
-            other fused phase), each period's inner and outer step counts
+            phase 0 epoch by epoch, each epoch a replay of an epoch
+            program of its own, the test between them), the run's first
+            phase eagerly on the capture stream, then one CUDA graph for
+            the whole sweep, replayed in every period whatever its step
+            counts (the steps past a period's real batches are IF nodes
+            the card skips). It prints the programs, captures, replays and
+            warm-ups (three programs, a capture each and one warm-up for
+            the sweep, a replay for every other fused phase and every
+            phase-0 epoch), each period's inner and outer step counts
             (all different), both sweeps' period and
             sweep walls, the max differences of the final tables,
             snapshots, Θ and Adam moments against the unfused sweep
@@ -145,9 +147,11 @@ Phases, one JSON line each:
             one: state within ``FUSED_ATOL`` (bit equality expected),
             counts and generators equal, every phase and test record
             within ``LOSS_RTOL``, launches equal to each other and to
-            those derived from the data; one program, one capture and one
-            warm-up, a replay for every other fused phase, three IF nodes
-            per step slot (printed, with the capture's seconds). Then
+            those derived from the data; three programs (the phase program
+            and phase 0's epoch programs), a capture each and one warm-up,
+            a replay for every other fused phase and every phase-0 epoch,
+            three IF nodes per step slot (printed, with the captures'
+            seconds). Then
             the graphs are released and the process group destroyed.
 10. P1      every instantiation of the dense ``masked_rank_kernel`` that
             the eval-design probe ``eval_kernel_probe`` runs (rows per
@@ -305,12 +309,13 @@ Phases, one JSON line each:
             through their phase functions at the protocols' full widths
             and a cut depth (``PROTO_ADRESSA_CUT``, ``PROTO_YELP_CUT``):
             gen and pretrain, then the sweep with ``--fuse-period on``
-            (one program for the run) and ``off`` (the eager path, no
+            (one phase program for the run, and phase 0's inner and
+            outer epoch programs) and ``off`` (the eager path, no
             program), each with its jsonl records: records and
             ``results.json`` entries equal but for clocks, final state
             (tables, snapshots, Θ, moments, counts, generator) bit-equal,
-            one program and one capture for the fused run and none for
-            the eager one, and in both runs the K1 and K2
+            three programs and a capture each for the fused run and none
+            for the eager one, and in both runs the K1 and K2
             launches the configuration implies (K1 two per refresh; K2 one
             per batch of every in-training eval and test: Yelp-scale only,
             whose 21,000 items take packed masks; K3 none, the auto rule
@@ -360,8 +365,9 @@ Phases, one JSON line each:
             still running crashed the later traced replay of a program
             with IF nodes; ROADMAP §3, fault 8): a fused run of the
             sweep's first two periods
-            with period 1 traced (phase 0 and the test unfused, then nine
-            replays of the program period 0 captured): the device's busy
+            with period 1 traced (phase 0's epochs captured and replayed
+            as epoch programs, the test between them, then nine replays of
+            the program period 0 captured): the device's busy
             share over the traced and
             the untraced period's wall, the kernels' busy ms inside the
             ``period_step`` span per replay against the untraced wall ms
@@ -1413,10 +1419,10 @@ def phase_train_sweep(torch, root: str, data_s: float):
     losses = []
 
     def timed(kind, fn, batch):
-        def run(state, padded, index):
+        def run(state, padded, index, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            state, lo = fn(state, padded, index)
+            state, lo = fn(state, padded, index, **kw)
             torch.cuda.synchronize()
             steps = -(-padded.n_real // batch)
             step_ms[kind].append((time.perf_counter() - t) * 1e3 / steps)
@@ -1552,10 +1558,16 @@ def phase_fused_sweep(torch, root: str, ref: dict):
           and fused_phases == (SWEEP_PERIODS - 1) * cfg.multi_num - 2,
           f"expected one period_step per period (branch C's phase 0 "
           f"unfused): {[n for _, n, _, _ in stacks]}")
-    check(stats["programs"] == 1 and stats["captures"] == 1
-          and stats["warmups"] == 1 and stats["replays"] == fused_phases - 1,
+    # the two branch-C periods run phase 0's epochs through an inner and
+    # an outer epoch program, captured once each and replayed every epoch
+    phase0 = 2 * (cfg.mf_epochs + cfg.tr_epochs)
+    check(stats["programs"] == 3 and stats["captures"] == 3
+          and stats["warmups"] == 1
+          and stats["program_phase0_epochs"] == phase0
+          and stats["replays"] == fused_phases - 1 + phase0,
           f"programs/captures/replays: {stats} for {fused_phases} fused "
-          f"phases (one program and one capture for the sweep expected)")
+          f"phases and {phase0} phase-0 epochs (three programs, one "
+          f"capture each, expected)")
     step_counts = [(-(-n_t // cfg.mf_batch_size),
                     -(-n_tt // cfg.tr_batch_size))
                    for _, _, n_t, n_tt in stacks]
@@ -1785,8 +1797,10 @@ def phase_mesh_fused(torch, root: str) -> dict:
     with its step slots split at their collectives (three IF nodes a
     slot, the collectives, local on one rank, between them). Held to the
     unfused run: state, counts, generators, every phase and test record,
-    launches; one program, one capture and one warm-up, a replay for every
-    other fused phase. The graphs are released and the process group is
+    launches; three programs (the phase program and phase 0's epoch
+    programs), a capture each and one warm-up, a replay for every
+    phase-0 epoch and for every other fused phase. The graphs are
+    released and the process group is
     destroyed after, so that the parallel phase's worlds start clean.
     Returns the launches of both runs."""
     import socket
@@ -1826,7 +1840,7 @@ def phase_mesh_fused(torch, root: str) -> dict:
             t0 = time.perf_counter()
             report = driver.run(state)
             torch.cuda.synchronize()
-            runs[name] = {"wall_s": time.perf_counter() - t0,
+            runs[name] = {"wall_s": time.perf_counter() - t0, "cfg": cfg,
                           "period_s": report.period_seconds,
                           "fused": fused, "graphs": dict(eng.graph_stats),
                           "launches": kernel_counts(ak, tk, ek),
@@ -1868,11 +1882,14 @@ def phase_mesh_fused(torch, root: str) -> dict:
     check(f["launches"] == u["launches"] == u["derived_launches"],
           f"mesh launches: fused {f['launches']}, unfused "
           f"{u['launches']}, derived {u['derived_launches']}")
+    # and phase 0's epochs of the branch-C periods, each an epoch program
+    phase0 = (MESH_PERIODS - 1) * (f["cfg"].mf_epochs + f["cfg"].tr_epochs)
     check([f["graphs"][k] for k in ("programs", "captures", "warmups",
-                                    "replays")]
-          == [1, 1, 1, fused_phases - 1],
-          f"mesh programs/captures/warm-ups/replays: {f['graphs']} for "
-          f"{fused_phases} fused phases")
+                                    "replays", "program_phase0_epochs")]
+          == [3, 3, 1, fused_phases - 1 + phase0, phase0],
+          f"mesh programs/captures/warm-ups/replays/phase-0 epochs: "
+          f"{f['graphs']} for {fused_phases} fused phases and {phase0} "
+          f"phase-0 epochs")
     check(if_nodes_per_slot == 3,
           f"the mesh's step slots are not split at their two cuts: "
           f"{if_nodes_per_slot} IF nodes per slot ({f['graphs']})")
@@ -1898,8 +1915,9 @@ def phase_mesh_fused(torch, root: str) -> dict:
 def phase_fused_trace(torch, root: str, untraced_s: float,
                       untraced_call: dict):
     """One traced fused period: a fused run of the sweep's first two
-    periods with period 1 traced (branch C: phase 0 and the test unfused,
-    then nine replays of the program period 0 captured). Its ~1.3M kernel
+    periods with period 1 traced (branch C: phase 0's epoch programs
+    captured and replayed, the test between them, then nine replays of
+    the program period 0 captured). Its ~1.3M kernel
     events are the script's largest trace, so it runs last, after every
     other phase that profiles."""
     import re
@@ -3469,8 +3487,9 @@ def protocol_pair(torch, run_phase, args, proto, key: str, root: str,
     """One protocol sweep fused (``--fuse-period on``) and on the eager
     path (``off``), each with its records (``--log``) and its launches
     counted: records and ``results.json`` entries equal but for clocks
-    (``protocol_runs.compare_pair``) and final state bit-equal, one program
-    and one capture for the fused run and none for the eager one, launches
+    (``protocol_runs.compare_pair``) and final state bit-equal, three
+    programs (the phase program and phase 0's epoch programs) and a
+    capture each for the fused run and none for the eager one, launches
     equal to ``want`` in both."""
     from sml_tpu_torch.ops import adam_kernel as ak
     from sml_tpu_torch.ops import eval_kernel as ek
@@ -3507,10 +3526,10 @@ def protocol_pair(torch, run_phase, args, proto, key: str, root: str,
                                           "moments"))
           and errors["counts_equal"] and errors["generator_equal"],
           f"{key}: the fused and eager final states differ: {errors}")
-    check(graphs["programs"] == graphs["captures"] == 1
+    check(graphs["programs"] == graphs["captures"] == 3
           and out["off"]["graphs"]["programs"] == 0,
-          f"{key}: the fused run made {graphs} (one program, one capture), "
-          f"the eager one {out['off']['graphs']} (none)")
+          f"{key}: the fused run made {graphs} (three programs, a capture "
+          f"each), the eager one {out['off']['graphs']} (none)")
     metrics = {k: v for k, v in out["summary"].items()
                if k != "total_seconds"}
     check(bool(metrics) and all(0.0 <= v <= 1.0 for v in metrics.values()),

@@ -223,6 +223,16 @@ def theta_leaves(theta: TransferParams) -> Dict[str, nn.Parameter]:
             for f in getattr(theta, side).FIELDS}
 
 
+def theta_alias(theta: TransferParams) -> TransferParams:
+    """Θ as new parameters on ``theta``'s own storage: a step that
+    differentiates these writes ``theta``'s values in place, and no autograd
+    graph into ``theta``'s parameters (a copy made with gradients on) reaches
+    it."""
+    return TransferParams(*(type(tw)(*(getattr(tw, f).detach()
+                                        for f in tw.FIELDS))
+                            for tw in (theta.user, theta.item)))
+
+
 def conv_tower_apply(tw: ConvTower, stack: torch.Tensor) -> torch.Tensor:
     """Apply one conv tower to a stacked batch ``(N, K, d)`` -> ``(N, d)``."""
     n = stack.shape[0]

@@ -22,7 +22,7 @@ host, as the CLI takes its host from the machine.
    (100,000 x 20,000, d=64, C1=10, C2=5, H=512; on the CPU at a tiny
    size), on the R ranks' global mesh (``(1, R)`` on one host) unfused
    and fused
-   (``fuse_period="auto"``, which on cards over NCCL captures the
+   (``fuse_period="auto"``, which on cards over NCCL captures each
    program once per rank, its step slots split at their collectives;
    ``True`` on the CPU, where a program runs eagerly on the mesh), then
    fused on rank 0 alone (one card: captured): the mesh's second sweep
@@ -314,7 +314,8 @@ def fused_sweep_part(root: str, n: int, device: str,
            "fused_vs_one_hit_diff": hit_diff(r0["fused"], r0["one"]),
            "tests": len(r0["fused"]["tests"]["counts"])}
     # the programs run on the mesh eagerly on the CPU; on cards every rank
-    # of the mesh captures its program once, and rank 0 alone once more
+    # of the mesh captures its programs once (the phase program and the
+    # test periods' phase-0 epoch programs), and rank 0 alone once more
     captures = [g["captures"] for g in rep["graphs"] + [rep["one_graphs"]]]
     failed = []
     if (rep["fused_vs_unfused_table_err"] != 0.0
@@ -322,7 +323,7 @@ def fused_sweep_part(root: str, n: int, device: str,
             or rep["fused_vs_one_table_err"] > TABLE_ATOL
             or rep["fused_vs_one_hit_diff"] > HIT_TOL or rep["tests"] < 1
             or rep["fused_route"] is not True
-            or captures != [int(device == "cuda")] * (n + 1)):
+            or captures != [3 * int(device == "cuda")] * (n + 1)):
         failed.append("fused_sweep")
     return rep, failed
 

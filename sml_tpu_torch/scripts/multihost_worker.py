@@ -27,9 +27,9 @@ H=512, the row-sparse table Adam, 40,000 draws a period). Then each runs
 ``SMLDriver``'s sweep of that width (``multicard_check.SWEEPS``: four
 periods, three phases a period; in ``yelp`` the Yelp widths, in ``tiny``
 multicard_check's CPU size) on the same world unfused and with
-``fuse_period="auto"`` (on cards over NCCL: captured once a rank; over
-gloo, ranks sharing a card, unfused; on the CPU ``True``, the program
-run eagerly). Fused and unfused must agree bit
+``fuse_period="auto"`` (on cards over NCCL: each program captured once a
+rank; over gloo, ranks sharing a card, unfused; on the CPU ``True``, the
+programs run eagerly). Fused and unfused must agree bit
 for bit in every rank's digests of every leaf's blocks
 (``scale_sweep.state_digest``) and hits. Rank 0 then runs the phases (and
 the fused sweep) alone, and the world is held to it: tables and Θ within
@@ -336,11 +336,12 @@ def check(ranks: list, device: str, width: str) -> tuple:
         if rk["fused"]["hits"] != rk["unfused"]["hits"]:
             failed.append(f"rank{r}:hits")
         # ranks sharing a card (gloo) stay unfused under "auto"; else one
-        # capture a rank on the card (none on the CPU)
+        # capture a program and rank on the card (the phase program and
+        # the test periods' phase-0 epoch programs; none on the CPU)
         refused = rk["fused"]["refusal"] is not None
         if (rk["fused"]["fused"] is refused
                 or rk["fused"]["graphs"]["captures"]
-                != int(device == "cuda" and not refused)):
+                != 3 * int(device == "cuda" and not refused)):
             failed.append(f"rank{r}:one_capture")
     one = r0["one"]
     report = {"phases_vs_one": _differences(r0["phases"], one["phases"]),
@@ -361,7 +362,8 @@ def check(ranks: list, device: str, width: str) -> tuple:
     if one["fused"]["launches"] != one["fused"]["derived"]:
         failed.append("one_launches")
     if (one["fused"]["fused"] is not True
-            or one["fused"]["graphs"]["captures"] != int(device == "cuda")):
+            or one["fused"]["graphs"]["captures"]
+            != 3 * int(device == "cuda")):
         failed.append("one_capture")
     return report, failed
 

@@ -9,9 +9,9 @@ bias corrections read through device pointers), makes each call
 a race that loses now and then shows as a difference), and holds the
 result against the kernel's plain PyTorch version. The program target
 runs the ragged fused sweep of ``tests/test_torch_cuda.py``'s
-``test_one_capture_serves_a_ragged_sweep`` (one capture, replays with
-skipped step slots, the saddle retry, ``close()``) against the unfused
-sweep, bit for bit.
+``test_one_capture_serves_a_ragged_sweep`` (one capture a program,
+replays with skipped step slots, the saddle retry, ``close()``) against
+the unfused sweep, bit for bit.
 
     python -m sml_tpu_torch.scripts.sanitize --target k1 [--device cpu]
     python -m sml_tpu_torch.scripts.sanitize --target k1 --fence tail
@@ -377,9 +377,9 @@ def target_p3(device, repeats: int) -> dict:
 
 def target_program(device, repeats: int) -> dict:
     """The ragged sweep with evals, norms and the saddle retry, fused (on
-    the card: one capture, replays with skipped slots) against unfused,
-    each driver closed; ``repeats`` is not used (the sweep runs each of
-    its periods' programs many times)."""
+    the card: one capture a program, replays with skipped slots) against
+    unfused, each driver closed; ``repeats`` is not used (the sweep runs
+    each of its periods' programs many times)."""
     from sml_tpu_torch.ops import adam_kernel as ak
     from sml_tpu_torch.ops import eval_kernel as ek
     from sml_tpu_torch.ops import transfer_kernel as tk
@@ -398,11 +398,12 @@ def target_program(device, repeats: int) -> dict:
                            f"one in {bad}")
     stats = fused["stats"]
     if device.type == "cuda":
+        # the phase program and branch C's inner and outer epoch programs
         if [stats[k] for k in ("programs", "captures", "warmups")] != \
-                [1, 1, 1] or stats["if_nodes"] == 0:
-            raise RuntimeError(f"the fused sweep made {stats}, not one "
-                               "program, one capture and one warm-up with "
-                               "IF nodes")
+                [3, 3, 1] or stats["if_nodes"] == 0:
+            raise RuntimeError(f"the fused sweep made {stats}, not three "
+                               "programs, a capture each and one warm-up "
+                               "with IF nodes")
         if min(launched) == 0:
             raise RuntimeError(f"the fused sweep launched K1/K2/K3 "
                                f"{launched} times")

@@ -24,7 +24,7 @@ a ``test_attribution`` record; with ``cfg.profile_dir`` period
 ``cfg.profile_period`` is traced by ``torch.profiler``. Whenever a
 profiler records (``utils/profiling.py``) the driver's spans are the
 period (``period``), its branch (``branch_a``, ``branch_b``,
-``branch_c``, and in C its eager ``phase0``), ``record_test``,
+``branch_c``, and in C its ``phase0``), ``record_test``,
 ``flush_evals``, and one per engine call (``refresh``, ``make_eval_set``,
 ``evaluate``, ``inner_epoch``, ``outer_epoch``, and for the fused programs
 ``period_step`` and ``phase_step``: a replay enters no per-epoch span).
@@ -32,8 +32,13 @@ period (``period``), its branch (``branch_a``, ``branch_b``,
 The fused branches are the JAX package's (``cfg.fuse_phases``,
 ``cfg.fuse_period``): a fused period runs its phases through
 ``SMLEngine.period_step`` (on the card, CUDA-graph replays), branch A
-whole, branch C after its unfused phase 0 (the test must score the
-post-refresh tables before the outer epochs refresh them again); the
+whole, branch C after its phase 0, which is not one program (the test
+must score the post-refresh tables before the outer epochs refresh them
+again): on the fused route each of its inner and outer epochs replays an
+epoch program of its own (``SMLEngine.inner_epoch(..., program=True)``,
+span ``epoch_launch``) and the hat snapshot, the refresh and the test run
+eagerly between them (``graph_stats["program_phase0_epochs"]`` counts
+those epochs); the
 saddle guard replays its rule on the returned outer-loss stack, and the
 in-program evals are logged as the records the unfused path logs, in its
 order. ``fuse_period="auto"`` fuses on a CUDA engine that can capture its
@@ -45,14 +50,15 @@ unfused. Under a mesh the fused programs run on the rank's row blocks, as
 the JAX package's do: on the CPU eagerly, on any mesh; on cards captured,
 each step slot split at its collectives. Every route gives
 the unfused path's numbers, draws and records. One phase program serves
-the whole run (on the card one capture, replayed in every period), on the
-state's own buffers: :meth:`SMLDriver.run` consumes the state it is
+the whole run, with an inner and an outer epoch program where it tests (on
+the card one capture each, replayed in every period), on the state's own
+buffers: :meth:`SMLDriver.run` consumes the state it is
 given (``SMLEngine.adopt``: its buffers become the engine's state slot,
 as the JAX package donates its state), every route's eager calls write
 into the slot, and the saddle guard restores its one restart copy into it
 (a retry copies only its re-rolled Θ and Θ moments in), so a run holds
 one copy of the state, two in period 0 with the guard on; :meth:`run`
-and :meth:`SMLDriver.close` drop the program and let go of the slot.
+and :meth:`SMLDriver.close` drop the programs and let go of the slot.
 """
 
 from __future__ import annotations
@@ -180,13 +186,16 @@ class SMLDriver:
 
     # ------------------------------------------------------------------ phases
     def _inner_block(self, state: SMLState, prep, epochs: int,
-                     val) -> SMLState:
+                     val, program: bool = False) -> SMLState:
         """``MF_train_onestage``; ``prep`` is the period's ``prep_inner``
-        result, built once per period."""
+        result, built once per period; ``program``: each epoch through
+        the engine's epoch program (branch C's phase 0 on the fused
+        route)."""
         padded, index = prep
         for e in range(epochs):
             with annotate("inner_epoch"):
-                state, losses = self.engine.inner_epoch(state, padded, index)
+                state, losses = self.engine.inner_epoch(
+                    state, padded, index, program=program)
             if self._track_losses:
                 self._last_inner_loss = _mean_loss(
                     losses, padded.n_real, self.cfg.mf_batch_size)
@@ -194,13 +203,15 @@ class SMLDriver:
                 self._defer_eval("inner_eval", e, state, val)
         return state
 
-    def _outer_block(self, state: SMLState, prep, val) -> SMLState:
+    def _outer_block(self, state: SMLState, prep, val,
+                     program: bool = False) -> SMLState:
         """``transfer_train_onestage``, with the refresh after each outer
-        epoch."""
+        epoch; ``program`` as in :meth:`_inner_block`."""
         padded, index = prep
         for e in range(self.cfg.tr_epochs):
             with annotate("outer_epoch"):
-                state, losses = self.engine.outer_epoch(state, padded, index)
+                state, losses = self.engine.outer_epoch(
+                    state, padded, index, program=program)
             if self._track_losses:
                 self._last_outer_loss = _mean_loss(
                     losses, padded.n_real, self.cfg.tr_batch_size)
@@ -532,18 +543,22 @@ class SMLDriver:
         else:
             # branch C: test and keep training Θ. The test scores the
             # post-refresh tables of phase 0 BEFORE its outer epochs
-            # refresh them again.
+            # refresh them again, so phase 0 is not one program: where
+            # the period fuses, each of its epochs is a program of its own
+            fused = self._can_fuse_period(prep_tt)
             with annotate("branch_c"):
                 with annotate("phase0"):
                     state = self._inner_block(state, prep_t,
-                                              self.cfg.mf_epochs, sd.val)
+                                              self.cfg.mf_epochs, sd.val,
+                                              program=fused)
                     state = self.engine.snapshot_hat(state)
                     state = self._refresh(state)
                     self._record_test(state, sd.now_test, d_time)
-                    state = self._outer_block(state, prep_tt, sd.val)
+                    state = self._outer_block(state, prep_tt, sd.val,
+                                              program=fused)
                 self._log_phase(state, d_time, 0)
                 rest = self.cfg.multi_num - 1
-                if rest > 0 and self._can_fuse_period(prep_tt):
+                if rest > 0 and fused:
                     state, _ = self._fused_period(state, prep_t, prep_tt,
                                                   sd.val, rest, d_time,
                                                   start_phase=1)
@@ -601,7 +616,7 @@ class SMLDriver:
         return self.report
 
     def close(self) -> None:
-        """Drop the engine's phase programs and stop the prefetch worker."""
+        """Drop the engine's programs and stop the prefetch worker."""
         self.engine.release_programs()
         if hasattr(self.feeder, "close"):
             self.feeder.close()

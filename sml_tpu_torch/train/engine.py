@@ -15,10 +15,13 @@ operations the driver's unfused path calls, the engine has the JAX
 package's fused programs: :meth:`SMLEngine.phase_step` runs one SML phase
 (inner epochs -> hat snapshot -> refresh -> outer epochs, each with its
 refresh, the val evals inside when given) and :meth:`SMLEngine.period_step`
-a period's phases, stacking their losses, eval sums and weight norms. The
+a period's phases, stacking their losses, eval sums and weight norms;
+``inner_epoch`` / ``outer_epoch`` with ``program=True`` run one epoch as a
+program of its own (branch C's phase 0 on the fused route). The
 phase is the same calls in the same order as the unfused driver's, on
-fixed buffers: the state's own, and input buffers the program owns, copied
-into before each run; the refresh and the snapshot write into the slot's
+fixed buffers: the state's own, and input buffers the engine keeps per
+epoch kind and shape for every program that runs such an epoch, copied
+into once per period; the refresh and the snapshot write into the slot's
 tables, the Adam steps read their bias corrections and the epochs which
 step slots run from device tables. The state's buffers are the engine's
 slot (:meth:`SMLEngine.adopt`; the JAX package donates its state to both
@@ -56,6 +59,7 @@ from __future__ import annotations
 import copy
 import hashlib
 import threading
+import weakref
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -180,14 +184,18 @@ class SMLEngine:
         self.layout: Optional[TableLayout] = None
         self.plan = None
         self._placement = None
-        # the fused phase programs, by their inputs' shapes (one per sweep
-        # under uniform shapes), and the site their graphs run on; its
-        # counts: programs made, eager warm-up phases on the capture
-        # stream, captures, replays, and the host seconds spent in warm-ups
-        # and captures
-        self._programs: Dict[tuple, _PhaseProgram] = {}
+        # the fused phase programs and branch C's phase-0 epoch programs,
+        # by their inputs' shapes (one of each per sweep under uniform
+        # shapes), the input buffers they share by epoch kind and shape,
+        # and the site their graphs run on; its counts: programs made,
+        # eager warm-up phases on the capture stream, captures, replays,
+        # and the host seconds spent in warm-ups and captures; and the
+        # epochs run through an epoch program
+        self._programs: Dict[tuple, graphs.Program] = {}
+        self._buffers: Dict[tuple, _EpochBuffers] = {}
         self._site = graphs.GraphSite(self.device)
         self.graph_stats = self._site.stats
+        self.graph_stats["program_phase0_epochs"] = 0
         # the state buffers every program runs on and the eager calls
         # write into (the adopted state's own), their addresses, and the
         # bytes copied into them (and into the programs' input buffers)
@@ -521,11 +529,17 @@ class SMLEngine:
             gen=clone_generator(saved.gen))
 
     def inner_epoch(self, state: SMLState, padded: PaddedRows,
-                    index: Optional[PeriodIndex]):
+                    index: Optional[PeriodIndex], program: bool = False):
         """One inner (MF) epoch through the frozen Θ: ``ceil(n_real /
         mf_batch_size)`` Adam steps on the tables. Returns ``(state,
         losses)``, ``losses`` the per-batch losses (0 past the real
-        batches)."""
+        batches). With ``program`` the epoch runs through its epoch
+        program on the state slot (:class:`_EpochProgram`: on the card a
+        replay of one capture), the same numbers and draws, counted in
+        ``graph_stats["program_phase0_epochs"]``; ``losses`` is then a copy
+        of the program's buffer, which the next run overwrites."""
+        if program:
+            return self._epoch_by_program("inner", state, (padded, index))
         mf, opt, losses = self._inner(
             state.mf, state.mf_opt, state.theta, state.last_user,
             state.last_item, padded.rows, padded.mask, padded.n_real,
@@ -533,8 +547,11 @@ class SMLEngine:
         return state._replace(mf=mf, mf_opt=opt), losses
 
     def outer_epoch(self, state: SMLState, padded: PaddedRows,
-                    index: Optional[PeriodIndex]):
-        """One outer (Θ) epoch on the detached snapshots."""
+                    index: Optional[PeriodIndex], program: bool = False):
+        """One outer (Θ) epoch on the detached snapshots; ``program`` as
+        in :meth:`inner_epoch`."""
+        if program:
+            return self._epoch_by_program("outer", state, (padded, index))
         theta, opt, losses = self._outer(
             state.theta, state.tr_opt, state.last_user, state.last_item,
             state.hat_user, state.hat_item, padded.rows, padded.mask,
@@ -572,18 +589,47 @@ class SMLEngine:
         ``uniform_shapes`` gives every period one shape, so a sweep makes
         one (replay mode, whose shapes differ by period, one per
         shape)."""
+        key = (want_diag, ev is not None,
+               graphs.shape_key(*_prep_tensors(prep_t),
+                                *_prep_tensors(prep_tt), *(ev or ())))
+        prog = self._kept(key, lambda: _PhaseProgram(
+            self, self._epoch_buffers("inner", prep_t),
+            self._epoch_buffers("outer", prep_tt), ev, want_diag))
+        prog.load_inputs(prep_t, prep_tt, ev)
+        return prog
+
+    def _epoch_by_program(self, kind: str, state: SMLState, prep):
+        """One ``kind`` ("inner" or "outer") epoch from ``state`` through
+        the epoch program for a ``prep_inner`` / ``prep_outer`` result of
+        this shape (made on first use and kept beside the phase programs),
+        counted in ``graph_stats``: ``(state, a copy of its losses)``."""
+        key = (kind, graphs.shape_key(*_prep_tensors(prep)))
+        prog = self._kept(key, lambda: _EpochProgram(
+            self, self._epoch_buffers(kind, prep)))
+        prog.load_inputs(prep)
+        state = prog.run(state)
+        self.graph_stats["program_phase0_epochs"] += 1
+        return state, prog.buf.losses.clone()
+
+    def _epoch_buffers(self, kind: str, prep) -> "_EpochBuffers":
+        """The input buffers of ``kind`` epochs at this ``prep``'s shape,
+        made on first use and shared by every program that runs such an
+        epoch (the phase programs and the epoch program)."""
+        key = (kind, graphs.shape_key(*_prep_tensors(prep)))
+        if key not in self._buffers:
+            self._buffers[key] = _EpochBuffers(self, kind, prep)
+        return self._buffers[key]
+
+    def _kept(self, key: tuple, make) -> graphs.Program:
+        """The program under ``key``, ``make()`` on first use; raises where
+        the engine's programs cannot be captured."""
         why = self.capture_refusal()
         if why is not None:
             raise ValueError(
                 f"{why}. Run unfused (fuse_period=False), or on one rank")
-        key = (want_diag, ev is not None,
-               graphs.shape_key(*_prep_tensors(prep_t),
-                                *_prep_tensors(prep_tt), *(ev or ())))
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = _PhaseProgram(
-                self, prep_t, prep_tt, ev, want_diag)
-        prog.load_inputs(prep_t, prep_tt, ev)
+            prog = self._programs[key] = make()
         return prog
 
     def adopt(self, state: SMLState) -> SMLState:
@@ -619,7 +665,7 @@ class SMLEngine:
             gen=state.gen)
 
     def release_programs(self) -> None:
-        """Drop the phase programs, their graphs released at once
+        """Drop the phase and epoch programs, their graphs released at once
         (``graphs.Program.release``), and their input buffers, and let go
         of the state slot: its buffers stay the caller's state, readable
         and untouched, and the next :meth:`adopt` takes the state it is
@@ -627,6 +673,7 @@ class SMLEngine:
         for prog in self._programs.values():
             prog.release()
         self._programs.clear()
+        self._buffers.clear()
         self._slot, self._slot_ptrs = None, []
 
     def phase_step(self, state: SMLState, prep_t, prep_tt):
@@ -1054,7 +1101,92 @@ def _clone_prep(prep):
                                                      for t in index)))
 
 
-class _PhaseProgram(graphs.Program):
+class _EpochBuffers:
+    """The inputs of one epoch kind (``"inner"`` or ``"outer"``) at one
+    padded shape, kept by the engine for every program that runs such an
+    epoch (the phase programs and the epoch program), so a period's inputs
+    have one device copy, copied in once: the ``prep_inner`` /
+    ``prep_outer`` rows, mask and sampling index; the step slots'
+    :class:`~sml_tpu_torch.train.graphs.SlotTable`, marked with the
+    period's ``ceil(n_real/B)``; the
+    :class:`~sml_tpu_torch.train.optim.BiasTable` of a phase's epochs of
+    the kind (an epoch program reads its first epoch's rows); and the loss
+    buffer the epochs write."""
+
+    def __init__(self, eng: SMLEngine, kind: str, prep):
+        cfg, dev = eng.cfg, eng.device
+        self.eng, self.kind = eng, kind
+        self.opt, self.batch, self.epochs = (
+            ("mf_opt", cfg.mf_batch_size, cfg.mf_epochs) if kind == "inner"
+            else ("tr_opt", cfg.tr_batch_size, cfg.tr_epochs))
+        self.prep = _clone_prep(prep)
+        n_slots = self.prep[0].rows.shape[0] // self.batch
+        self.slots = graphs.SlotTable(n_slots, dev)
+        self.bias = BiasTable(n_slots, dev, epochs=self.epochs)
+        self.losses = torch.zeros(n_slots, dtype=torch.float32, device=dev)
+        self.taken = 0
+        self._loaded: list = []
+
+    def load(self, prep) -> None:
+        """Copy ``prep``'s tensors in, unless they are the tensors loaded
+        last (phase 0's epochs and the period's later phases load the same
+        period's inputs), and mark its real batches' slots taken."""
+        src = [x for x in _prep_tensors(prep) if x is not None]
+        if not (len(src) == len(self._loaded) and all(
+                ref() is x for ref, x in zip(self._loaded, src))):
+            self.eng.slot_copies["inputs"] += graphs.load_into(
+                [x for x in _prep_tensors(self.prep) if x is not None], src)
+            self._loaded = [weakref.ref(x) for x in src]
+        self.taken = min(num_batches(prep[0].n_real, self.batch),
+                         self.slots.host.shape[0])
+        self.slots.fill(self.taken)
+
+
+def _slot_epoch(eng: SMLEngine, buf: _EpochBuffers, e: int,
+                gen: torch.Generator) -> None:
+    """Epoch ``e`` of ``buf.kind`` in a program on the engine's state slot:
+    on ``buf``'s inputs, under its step slots, with its bias corrections,
+    its losses into its loss buffer."""
+    st, (padded, index) = eng._slot, buf.prep
+    opt = getattr(st, buf.opt)._replace(bias=buf.bias,
+                                        count=buf.bias.epoch_count(e))
+    rows = (padded.rows, padded.mask, padded.n_real, gen, index)
+    if buf.kind == "inner":
+        eng._inner(st.mf, opt, st.theta, st.last_user, st.last_item, *rows,
+                   losses=buf.losses, slots=buf.slots)
+    else:
+        eng._outer(st.theta, opt, st.last_user, st.last_item, st.hat_user,
+                   st.hat_item, *rows, losses=buf.losses, slots=buf.slots)
+
+
+class _SlotProgram(graphs.Program):
+    """A program on the engine's state slot whose epochs read
+    :class:`_EpochBuffers`: ``parts`` pairs each buffers with the epochs a
+    run takes of them."""
+
+    def __init__(self, eng: SMLEngine, parts):
+        super().__init__(eng._site)
+        self.eng, self.cfg, self.parts = eng, eng.cfg, parts
+
+    def run(self, state: SMLState) -> SMLState:
+        """One run from ``state`` on the loaded inputs; returns the state
+        after it (the slot's buffers, ``state``'s generator advanced), its
+        step counts advanced by the real steps. The state's copy into the
+        slot and the bias tables' fill are the span ``program_inputs``."""
+        counts = [getattr(state, buf.opt).count for buf, _ in self.parts]
+        with annotate("program_inputs"):
+            slot = self.eng.adopt(state)
+            for (buf, _), count in zip(self.parts, counts):
+                buf.bias.fill(count, buf.taken)
+        self.launch(state.gen)
+        return slot._replace(gen=state.gen, **{
+            buf.opt: AdamState(count + epochs * buf.taken,
+                               getattr(slot, buf.opt).mu,
+                               getattr(slot, buf.opt).nu)
+            for (buf, epochs), count in zip(self.parts, counts)})
+
+
+class _PhaseProgram(_SlotProgram):
     """One SML phase on fixed buffers (``train/graphs.py``): the driver's
     unfused phase (``_inner_block``, ``snapshot_hat``, ``refresh``,
     ``_outer_block``) as the same calls in the same order, on fixed
@@ -1062,10 +1194,11 @@ class _PhaseProgram(graphs.Program):
 
     * the engine's state slot (tables, snapshots, Θ, both optimizers'
       moments: the first state's own buffers, shared by every program of
-      the engine, ``SMLEngine.adopt``) and input buffers the program
-      owns at the inputs' padded shapes (set_t and set_tt rows, masks and
-      sampling indexes, and the val set when the evals run inside);
-      :meth:`load_inputs` copies a period's inputs in, and :meth:`run`
+      the engine, ``SMLEngine.adopt``), the engine's
+      :class:`_EpochBuffers` of each epoch kind at the inputs' padded
+      shapes (set_t and set_tt rows, masks and sampling indexes), and the
+      val set's buffers when the evals run inside; :meth:`load_inputs`
+      copies a period's inputs in, and :meth:`run`
       has the engine copy in every state buffer that is not the slot's
       (none where the state came from the last run and the eager calls
       between wrote into the slot) and returns a state that holds the
@@ -1073,20 +1206,24 @@ class _PhaseProgram(graphs.Program):
     * the hat snapshot is copied into the slot's ``hat_*`` buffers, each
       refresh writes into the MF tables themselves (``apply_tables(...,
       out=)``), and ``load_w_hat`` copies the snapshot into the tables;
-    * the epochs write their losses into :attr:`il` / :attr:`ol`, the val
+    * the epochs write their losses into :attr:`il` / :attr:`ol` (the
+      buffers' losses), the val
       evals their sums into :attr:`ev_in` / :attr:`ev_out` (``(epochs, K,
       2)``: hit, NDCG) and, with ``want_diag``, the phase-end norms go
       into :attr:`diag`;
-    * every step slot of an epoch runs under ``graphs.step_if`` on a
-      :class:`~sml_tpu_torch.train.graphs.SlotTable` marked with the
-      period's ``ceil(n_real/B)``, and the Adam steps read their bias
-      corrections from two
-      :class:`~sml_tpu_torch.train.optim.BiasTable`, filled from the
-      state's counts before every run.
+    * every step slot of an epoch runs under ``graphs.step_if`` on the
+      buffers' :class:`~sml_tpu_torch.train.graphs.SlotTable`, and the
+      Adam steps read their bias corrections from the buffers'
+      :class:`~sml_tpu_torch.train.optim.BiasTable` (:class:`_SlotProgram`
+      fills them before every run).
 
     So one capture serves every period of a sweep: on the card the run
     after the engine's warm-up captures the phase, and every run from then
-    on is a replay; on the CPU it runs eagerly.
+    on is a replay; on the CPU it runs eagerly. Branch C's phase 0 is not
+    one of its runs: its test scores the tables between the inner and the
+    outer epochs, so on the fused route each of those epochs replays an
+    :class:`_EpochProgram` of its own, on the same slot, buffers and step
+    code, and the test runs eagerly between them.
 
     Under a mesh the slot holds the rank's row blocks and the input
     buffers the whole padded batch (every rank makes the whole batch's
@@ -1099,26 +1236,17 @@ class _PhaseProgram(graphs.Program):
     on the slots they take: :meth:`load_inputs` checks that on the host
     before a run."""
 
-    def __init__(self, eng: SMLEngine, prep_t, prep_tt, ev,
-                 want_diag: bool):
-        super().__init__(eng._site)
+    def __init__(self, eng: SMLEngine, t: _EpochBuffers, tt: _EpochBuffers,
+                 ev, want_diag: bool):
+        super().__init__(eng, ((t, t.epochs), (tt, tt.epochs)))
         cfg = eng.cfg
-        self.eng, self.cfg = eng, cfg
-        self.t, self.tt = _clone_prep(prep_t), _clone_prep(prep_tt)
+        self.t, self.tt = t, tt
+        self.il, self.ol = t.losses, tt.losses
         self.ev = (None if ev is None else
                    tuple(None if x is None else x.clone() for x in ev))
-        dev = eng.device
-        nb_in = self.t[0].rows.shape[0] // cfg.mf_batch_size
-        nb_out = self.tt[0].rows.shape[0] // cfg.tr_batch_size
-        self.t_slots = graphs.SlotTable(nb_in, dev)
-        self.tt_slots = graphs.SlotTable(nb_out, dev)
-        self.mf_bias = BiasTable(nb_in, dev, epochs=cfg.mf_epochs)
-        self.tr_bias = BiasTable(nb_out, dev, epochs=cfg.tr_epochs)
-        self.taken = (0, 0)
 
         def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.float32, device=dev)
-        self.il, self.ol = zeros(nb_in), zeros(nb_out)
+            return torch.zeros(shape, dtype=torch.float32, device=eng.device)
         n_k = len(cfg.topk)
         self.ev_in = (zeros(cfg.mf_epochs, n_k, 2)
                       if ev is not None and cfg.eval_during_inner else None)
@@ -1128,33 +1256,25 @@ class _PhaseProgram(graphs.Program):
         self.diag = zeros(len(DIAG_NAMES)) if want_diag else None
 
     def load_inputs(self, prep_t, prep_tt, ev) -> None:
-        """Copy a period's prepared inputs into the program's buffers and
-        mark each epoch's real batches (``ceil(n_real/B)``) taken (span
+        """Load a period's prepared inputs into the epoch buffers
+        (:meth:`_EpochBuffers.load`) and the val set's, marking each
+        epoch's real batches (``ceil(n_real/B)``) taken (span
         ``program_inputs``). Under a mesh every rank holds the whole
         batch, so the slots come from the global counts; the ranks' slot
-        counts are compared on the host first, since a rank that skipped a
-        step slot another rank takes would sum its zeros into that rank's
-        step (and an unfused rank would leave it waiting in the step's
+        counts are compared on the host, since a rank that skipped a step
+        slot another rank takes would sum its zeros into that rank's step
+        (and an unfused rank would leave it waiting in the step's
         collectives)."""
         with annotate("program_inputs"):
-            dst = [x for x in (*_prep_tensors(self.t),
-                               *_prep_tensors(self.tt), *(self.ev or ()))
-                   if x is not None]
-            src = [x for x in (*_prep_tensors(prep_t),
-                               *_prep_tensors(prep_tt), *(ev or ()))
-                   if x is not None]
-            self.eng.slot_copies["inputs"] += graphs.load_into(dst, src)
-            cfg = self.cfg
-            self.taken = (
-                min(num_batches(prep_t[0].n_real, cfg.mf_batch_size),
-                    self.t_slots.host.shape[0]),
-                min(num_batches(prep_tt[0].n_real, cfg.tr_batch_size),
-                    self.tt_slots.host.shape[0]))
+            self.t.load(prep_t)
+            self.tt.load(prep_tt)
+            self.eng.slot_copies["inputs"] += graphs.load_into(
+                [x for x in self.ev or () if x is not None],
+                [x for x in ev or () if x is not None])
             if self.eng.mesh is not None:
                 collective.check_same(
-                    self.taken, "the step slots a phase takes (inner, outer)")
-            self.t_slots.fill(self.taken[0])
-            self.tt_slots.fill(self.taken[1])
+                    (self.t.taken, self.tt.taken),
+                    "the step slots a phase takes (inner, outer)")
 
     def _eval_into(self, buf: torch.Tensor, mf: MFParams) -> None:
         """The val eval's sums, as ``evaluate_deferred`` makes them (under
@@ -1174,14 +1294,8 @@ class _PhaseProgram(graphs.Program):
 
     def body(self, gen: torch.Generator) -> None:
         cfg, eng, st = self.cfg, self.eng, self.eng._slot
-        (pt, it), (ptt, itt) = self.t, self.tt
-        mf_opt = st.mf_opt._replace(bias=self.mf_bias)
-        tr_opt = st.tr_opt._replace(bias=self.tr_bias)
         for e in range(cfg.mf_epochs):
-            eng._inner(st.mf, mf_opt._replace(
-                count=self.mf_bias.epoch_count(e)), st.theta, st.last_user,
-                st.last_item, pt.rows, pt.mask, pt.n_real, gen, it,
-                losses=self.il, slots=self.t_slots)
+            _slot_epoch(eng, self.t, e, gen)
             if self.ev_in is not None:
                 self._eval_into(self.ev_in[e], st.mf)
         with torch.no_grad():
@@ -1189,10 +1303,7 @@ class _PhaseProgram(graphs.Program):
             st.hat_item.copy_(st.mf.item_emb)
         self._refresh(st)
         for e in range(cfg.tr_epochs):
-            eng._outer(st.theta, tr_opt._replace(
-                count=self.tr_bias.epoch_count(e)), st.last_user,
-                st.last_item, st.hat_user, st.hat_item, ptt.rows, ptt.mask,
-                ptt.n_real, gen, itt, losses=self.ol, slots=self.tt_slots)
+            _slot_epoch(eng, self.tt, e, gen)
             if cfg.refresh_after_outer_epoch:
                 self._refresh(st)
                 if self.ev_out is not None:
@@ -1204,23 +1315,35 @@ class _PhaseProgram(graphs.Program):
         if self.diag is not None:
             self.diag.copy_(torch.stack(eng._diag_values(st)))
 
-    def run(self, state: SMLState) -> SMLState:
-        """One phase from ``state`` on the loaded inputs; returns the state
-        after it (the slot's buffers, ``state``'s generator advanced), its
-        step counts advanced by the real steps. The state's copy into the
-        slot and the bias tables' fill are the span ``program_inputs``."""
-        c_mf, c_tr = state.mf_opt.count, state.tr_opt.count
+
+class _EpochProgram(_SlotProgram):
+    """One inner or outer epoch on the engine's state slot, for branch C's
+    phase 0, whose test must score the tables between its inner and outer
+    epochs (so the phase program cannot run it): the phase program's step
+    code (:func:`_slot_epoch`, its first epoch) on the same slot and the
+    same :class:`_EpochBuffers`. It runs on the phase programs' site, which
+    they have warmed, so its first run on the card captures it and every
+    run is a replay (span ``epoch_launch``); on the CPU it runs eagerly.
+    Under a mesh the ranks' slot counts are compared on the host, as
+    :meth:`_PhaseProgram.load_inputs` does."""
+
+    span = "epoch_launch"
+
+    def __init__(self, eng: SMLEngine, buf: _EpochBuffers):
+        super().__init__(eng, ((buf, 1),))
+        self.buf = buf
+
+    def load_inputs(self, prep) -> None:
+        """Load an epoch's prepared inputs (span ``program_inputs``)."""
         with annotate("program_inputs"):
-            slot = self.eng.adopt(state)
-            self.mf_bias.fill(c_mf, self.taken[0])
-            self.tr_bias.fill(c_tr, self.taken[1])
-        self.launch(state.gen)
-        return slot._replace(
-            gen=state.gen,
-            mf_opt=AdamState(c_mf + self.cfg.mf_epochs * self.taken[0],
-                             slot.mf_opt.mu, slot.mf_opt.nu),
-            tr_opt=AdamState(c_tr + self.cfg.tr_epochs * self.taken[1],
-                             slot.tr_opt.mu, slot.tr_opt.nu))
+            self.buf.load(prep)
+            if self.eng.mesh is not None:
+                collective.check_same(
+                    self.buf.taken,
+                    f"the step slots an {self.buf.kind} epoch takes")
+
+    def body(self, gen: torch.Generator) -> None:
+        _slot_epoch(self.eng, self.buf, 0, gen)
 
 
 def _check_disjoint(state: SMLState) -> None:

@@ -44,7 +44,9 @@ The rules it keeps:
   skipped slots' too; the eager epochs skip ahead by as much
   (``train/steps.py``), as the JAX package splits ``nb_max`` keys.
 * A replay runs on the current stream, ordered with everything else there;
-  its host call is the span ``graph_launch`` (``utils/profiling.py``).
+  its host call is the program's span (:attr:`Program.span`:
+  ``graph_launch`` for the phase programs, ``epoch_launch`` for branch C's
+  phase-0 epoch programs; ``utils/profiling.py``).
 * Launch counts stay honest: the kernel wrappers count Python calls
   (``<wrapper>.launches``), so a capture would count launches that never
   ran and a replay none that did. A capture records the launches of each
@@ -65,6 +67,14 @@ The rules it keeps:
   has ended): the garbage collector frees a program and its engine (a
   reference cycle) whenever Python allocates, so also inside another
   program's capture, whose end then died of a segmentation fault.
+* A captured step differentiates only tensors made inside it: gathered
+  rows, detached copies of the tables, new parameters on Θ's storage
+  (``models/transfer.py`` ``theta_alias``). An autograd graph into a
+  parameter itself, which a caller may hold (a copy of Θ made with
+  gradients on), would tie the step's gradients to the stream that graph
+  was made on, outside the capture, and the capture's end would die of a
+  segmentation fault (PyTorch warns of an AccumulateGrad node's stream
+  first).
 * A capture that fails, or a torch without IF nodes, raises; nothing runs
   the body eagerly instead.
 """
@@ -333,7 +343,10 @@ class Program:
     card eagerly on the site's stream while the site is cold (the
     warm-up), then captured once with the program's own generator, then
     replayed. Subclasses copy each run's state and inputs into their
-    buffers before :meth:`launch`."""
+    buffers before :meth:`launch`. A replay's host call is the span
+    :attr:`span`."""
+
+    span = "graph_launch"
 
     def __init__(self, site: GraphSite):
         self.site = site
@@ -365,7 +378,7 @@ class Program:
             stats["capture_s"] += time.perf_counter() - t0
             stats["if_nodes"] += self.call.if_nodes
             stats["step_slots"] += self.call.step_slots
-        with annotate("graph_launch"):
+        with annotate(self.span):
             self.call.replay(sources=(gen,))
         stats["replays"] += 1
 

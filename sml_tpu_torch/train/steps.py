@@ -85,7 +85,7 @@ from sml_tpu_torch.config import SMLConfig, TransferConfig
 from sml_tpu_torch.models.mf import (MFParams, score_pairs,
                                      score_pairs_biased)
 from sml_tpu_torch.models.transfer import (TransferParams, apply_rows,
-                                           theta_leaves)
+                                           theta_alias, theta_leaves)
 from sml_tpu_torch.ops import sampling
 from sml_tpu_torch.ops.batching import (PaddedRows, num_batches,
                                         shuffle_real_first)
@@ -485,7 +485,12 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
               hat_i, rows, mask, n_real: int, generator: torch.Generator,
               index: Optional[PeriodIndex] = None, losses=None, slots=None):
         rows = _epoch_triples(rows, generator, mode)
-        leaves = theta_leaves(theta)
+        # Θ is differentiated through new parameters on its storage, as
+        # the tables through detached copies: a graph into Θ that a caller
+        # holds would tie a captured step's gradients to the stream it was
+        # made on, and the capture's end would die of a segmentation fault
+        own = theta_alias(theta)
+        leaves = theta_leaves(own)
         cuts = ()
         if layout is not None:
             n = batch // layout.mesh.shape["data"]
@@ -500,7 +505,7 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
             owned = layout.owned_into(cuts[0].bufs[0], lookups)
             rows = layout.rows_from(lookups, (yield cuts[0]), owned)
             with torch.enable_grad():
-                loss = transferred_pair_loss(theta, tcfg, *rows, bm,
+                loss = transferred_pair_loss(own, tcfg, *rows, bm,
                                              cfg.use_bce, denom)
                 grads = torch.autograd.grad(loss, list(leaves.values()))
             _flat_into(cuts[1].bufs[0], grads, loss)
@@ -517,7 +522,7 @@ def make_outer_epoch(cfg: SMLConfig, layout=None):
                 u, i, j = _triple(r, mode, index, gen, cfg.neg_tries)
                 with torch.enable_grad():
                     loss = transferred_pair_loss(
-                        theta, tcfg, _g32(last_u, u), _g32(last_i, i),
+                        own, tcfg, _g32(last_u, u), _g32(last_i, i),
                         _g32(last_i, j), _g32(hat_u, u), _g32(hat_i, i),
                         _g32(hat_i, j), m, cfg.use_bce)
                     grads = dict(zip(leaves, torch.autograd.grad(

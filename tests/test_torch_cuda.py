@@ -28,8 +28,10 @@ P1 also at widths that are not multiples of 16 (zero-padded, exact).
 The one-program run: steps under CUDA-graph IF nodes, taken and skipped,
 bit-equal to the same steps run eagerly; eager epochs that skip the
 Philox offsets of the slots they do not run, equal to replayed ones;
-one capture for a sweep of periods of different row counts, bit-equal
-to the unfused sweep; a fused program replayed inside a trace after an
+one capture a program for a sweep of periods of different row counts,
+bit-equal to the unfused sweep; branch C's phase-0 epoch programs
+bit-equal to the eager phase 0, while copies of Θ made with gradients on
+are held across their captures (fault 15); a fused program replayed inside a trace after an
 earlier trace, and after two (fault 8's reproducer). A fused phase
 captured on a one-rank NCCL mesh, bit-equal to its calls on the same
 mesh; SPMF's graphed epochs equal to its eager ones. Faults 9 and 10: a
@@ -1027,8 +1029,9 @@ def test_generator_skip_ahead_matches_replays(card):
              saddle_check_phase=1)])
 def test_one_capture_serves_a_ragged_sweep(card, tmp_path, extra):
     """A sweep on periods of different row counts with the default "auto"
-    (fused on the card) against the same sweep unfused: one program, one
-    capture and one warm-up for the whole sweep (the saddle retry too),
+    (fused on the card) against the same sweep unfused: three programs
+    (the phase program and branch C's inner and outer epoch programs), a
+    capture each and one warm-up for the whole sweep (the saddle retry too),
     tables, snapshots, Θ, moments, counts and the generator bit-equal, and
     K1/K2/K3 launches equal but for the phase the fused guard adds.""" 
     from sml_tpu_torch.models.transfer import theta_leaves
@@ -1053,7 +1056,7 @@ def test_one_capture_serves_a_ragged_sweep(card, tmp_path, extra):
         drv.close()
     (fs, stats, frep, fl), (us, _, urep, ul) = runs
     assert [stats[k] for k in ("programs", "captures", "warmups")] == \
-        [1, 1, 1], stats
+        [3, 3, 1], stats
     # the fused guard runs every phase of the stalled attempt: period 0's
     # phase 2 beyond the unfused guard's check phase 1 (K3 2 epochs x 7
     # steps of train/1, K1 2 per refresh x 3, K2 2 eval batches x 4 evals)
@@ -1074,6 +1077,97 @@ def test_one_capture_serves_a_ragged_sweep(card, tmp_path, extra):
                 assert torch.equal(t, getattr(b, part)[k]), (opt, part, k)
     assert torch.equal(fs.gen.get_state(), us.gen.get_state())
     assert frep.per_period == urep.per_period
+
+
+def test_phase0_epoch_programs_replay_the_eager_phase0(card, tmp_path):
+    """Branch C's phase 0 through its epoch programs: the ragged sweep of
+    three periods (branch A, then two branch C) with the default "auto"
+    (phase 0's epochs captured and replayed) against ``fuse_period=False``
+    (phase 0 eager, the other phases replayed): every period's tables,
+    snapshots, Θ, moments, counts and generator and each phase-0 epoch's
+    losses bit-equal, though every period's end keeps a copy of Θ made
+    with gradients on (the copies' graphs into Θ alive across the epoch
+    programs' captures); one capture per epoch program, replayed for every
+    phase-0 epoch; K3 and K1 launches as ``scale_sweep.sweep_launches``
+    derives them; a replay inside a trace (period 2 traced) recorded as
+    the span ``epoch_launch``."""
+    from sml_tpu_torch.data.formats import row_count
+    from sml_tpu_torch.scripts.scale_sweep import sweep_launches
+    from sml_tpu_torch.train.driver import SMLDriver
+    from sml_tpu_torch.train.engine import _state_tensors
+    from sml_tpu_torch.utils import profiling
+    spec = ragged_dataset(tmp_path)
+    counted = {"decay_adam_kernel": AK.decay_adam_cuda,
+               "transfer_rows_kernel": TK.transfer_rows_cuda}
+    runs = {}
+    for name, fuse in (("program", {}), ("eager", dict(fuse_period=False))):
+        cfg = SMLConfig(multi_num=3, mf_epochs=2, tr_epochs=1,
+                        mf_batch_size=64, tr_batch_size=32,
+                        eval_batch_size=64, latent_dim=16,
+                        mf_sample="alone", fast_table_adam=True,
+                        eval_scoring="masked", prefetch_periods=False,
+                        saddle_retries=0,
+                        profile_dir=str(tmp_path / f"trace_{name}"),
+                        profile_period=2,
+                        transfer=TransferConfig(latent_dim=16, fc_hidden=64),
+                        **fuse)
+        drv = SMLDriver(cfg, spec, device=card)
+        eng, losses, states = drv.engine, [], []
+        for kind in ("inner", "outer"):
+            orig = getattr(eng, f"{kind}_epoch")
+
+            def recorded(*a, _orig=orig, **k):
+                st, lo = _orig(*a, **k)
+                losses.append((k.get("program", False), lo))
+                return st, lo
+            setattr(eng, f"{kind}_epoch", recorded)
+
+        def on_period_end(state, pass_id, d_time, driver):
+            # not detached: the copies of Θ's leaves track gradients, and
+            # the graphs into Θ they hold stay alive across period 1's
+            # captures of the epoch programs (fault 15)
+            states.append(([t.clone() for t in _state_tensors(state)],
+                           state.mf_opt.count, state.tr_opt.count,
+                           state.gen.get_state()))
+        before = {k: w.launches for k, w in counted.items()}
+        profiling.reset()
+        drv.run(on_period_end=on_period_end)
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            states=states, losses=losses, stats=dict(eng.graph_stats),
+            spans=profiling.summary(), cfg=eng.cfg,
+            launches={k: w.launches - before[k] for k, w in counted.items()})
+        profiling.reset()
+        drv.close()
+    got, want = runs["program"], runs["eager"]
+    assert len(got["states"]) == len(want["states"]) == 3
+    for (ga, *gb), (wa, *wb) in zip(got["states"], want["states"]):
+        assert all(torch.equal(a, b) for a, b in zip(ga, wa))
+        assert gb[:2] == wb[:2] and torch.equal(gb[2], wb[2])
+    epochs = 2 * (2 + 1)                 # two branch C periods
+    assert [p for p, _ in got["losses"]] == [True] * epochs
+    assert [p for p, _ in want["losses"]] == [False] * epochs
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(got["losses"],
+                                                           want["losses"]))
+    stats = got["stats"]
+    assert [stats[k] for k in ("programs", "captures", "warmups",
+                               "program_phase0_epochs")] == [3, 3, 1, epochs]
+    # period 0's copies of Θ's 16 leaves (conv_com) tracked gradients
+    assert sum(t.grad_fn is not None for t in got["states"][0][0]) == 16
+    # the phase program: period 0's first phase its warm-up, then a replay
+    # for each other fused phase (3 + 2 + 2); and a replay each epoch
+    assert stats["replays"] == 7 - 1 + epochs
+    assert want["stats"]["program_phase0_epochs"] == 0
+    derived = sweep_launches(spec, got["cfg"],
+                             lambda kind, t: row_count(spec.path, kind, t),
+                             True)
+    for k in counted:
+        assert got["launches"][k] == want["launches"][k] == derived[k], k
+    # period 2 traced: its phase 0's three epochs replayed inside the
+    # trace, its two other phases through the phase program
+    assert got["spans"]["epoch_launch"]["count"] == 3
+    assert got["spans"]["graph_launch"]["count"] == 2
+    assert "epoch_launch" not in want["spans"]
 
 
 def test_pool_draws_cover_the_pool_and_reserve_their_offset(card):

@@ -7,7 +7,9 @@ eagerly: its plain version.
   ``fuse_phases=True`` with ``fuse_period=False``; evals, norms, the
   saddle retry, 'all'-mode sampling) equals the unfused one bit for bit
   (tables, Θ, snapshots, moments, counts, the generator, metrics and
-  every record), with exactly one phase program made for the sweep.
+  every record), with exactly one phase program made for the sweep and,
+  where the period fuses, one inner and one outer epoch program for
+  branch C's phase 0.
 * ``BiasTable`` slot rows against ``bias_corrections`` for ``taken <
   slots``; a step slot table's skipped slots leave tables, moments and
   losses as the JAX package's ``scan_epoch`` leaves them, in replay mode
@@ -114,13 +116,15 @@ def test_the_ragged_periods_differ_in_their_batch_counts(ragged):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_one_program_sweep_matches_unfused(ragged, case):
     kw = dict(CASES[case])
+    # the phase program, and phase 0's epoch programs where periods fuse
+    programs = 3 if kw.get("fuse_period") else 1
     fused = _run(ragged, **kw)
     for k in ("fuse_phases", "fuse_period"):
         kw.pop(k, None)
     unfused = _run(ragged, fuse_phases=False, fuse_period=False, **kw)
     _assert_same_run(fused, unfused)
     stats = fused[0].engine.graph_stats
-    assert stats["programs"] == 1, stats
+    assert stats["programs"] == programs, stats
     assert unfused[0].engine.graph_stats["programs"] == 0
     assert not fused[0].engine._programs     # released at the run's end
     if "saddle_retries" in kw:
@@ -128,7 +132,8 @@ def test_one_program_sweep_matches_unfused(ragged, case):
 
 
 def test_programs_are_kept_across_periods_and_keyed_by_shape(ragged):
-    """``run_period`` keeps the program from period to period; inputs of
+    """``run_period`` keeps the programs from period to period (the phase
+    program and branch C's inner and outer epoch programs); inputs of
     another shape (replay mode's per-period shapes) make another."""
     drv = SMLDriver(_cfg(fuse_period=True), ragged, device="cpu")
     eng = drv.engine
@@ -136,13 +141,13 @@ def test_programs_are_kept_across_periods_and_keyed_by_shape(ragged):
     drv.feeder.reinit()
     for d_time in range(3):
         state, ok = drv.run_period(state, d_time)
-        assert ok and len(eng._programs) == 1
-    assert eng.graph_stats["programs"] == 1
+        assert ok and len(eng._programs) == (1 if d_time == 0 else 3)
+    assert eng.graph_stats["programs"] == 3
     eng.shape_targets = {}           # pad to each period's own bucket
     prep_t = eng.prep_inner(np.load(f"{ragged.path}/train/1.npy"))
     prep_tt = eng.prep_outer(np.load(f"{ragged.path}/train/2.npy")[:50])
     eng.phase_step(state, prep_t, prep_tt)
-    assert len(eng._programs) == 2 and eng.graph_stats["programs"] == 2
+    assert len(eng._programs) == 4 and eng.graph_stats["programs"] == 4
     drv.close()
     assert not eng._programs
 

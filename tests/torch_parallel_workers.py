@@ -465,9 +465,10 @@ def split_slots(device, cfgs, n_users, n_items, mesh_shape, n_rows):
         for e in events:
             depth += {"open": 1, "close": -1}.get(e, 0)
             inside += e.startswith("all_") and depth > 0
-        out.append({"diff": _differences(*runs), "taken": prog.taken,
-                    "slots": (prog.t_slots.host.shape[0],
-                              prog.tt_slots.host.shape[0]),
+        out.append({"diff": _differences(*runs),
+                    "taken": (prog.t.taken, prog.tt.taken),
+                    "slots": (prog.t.slots.host.shape[0],
+                              prog.tt.slots.host.shape[0]),
                     "opens": events.count("open"),
                     "collectives": sum(e.startswith("all_")
                                        for e in events),
